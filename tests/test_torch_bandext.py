@@ -1,0 +1,96 @@
+"""Port parity: ops/bandext (JAX banded kernel in interpret mode and the JAX
+gather extraction vs the port's plain version, on CPU).
+
+Tolerance: rtol 1e-4, atol 1e-3 on floats (float32 sums in another order,
+as tests/test_bandext.py:41), booleans equal.
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+
+from torch_parity import assert_extraction_parity, n, t
+
+from photometry_tpu.core.engine import _extract_flux_batch
+from photometry_tpu.ops.bandext import BH, TW, band_extract_flux_batch as jax_band
+from photometry_tpu_torch.ops import bandext
+
+
+def _inputs(T=16, H=128, W=256, N=14, h=17, w=17, seed=0):
+    """tests/test_bandext.py:_inputs — NaN pixels, an all-zero frame, NaN
+    err and background, shenanigans flags."""
+    rng = np.random.default_rng(seed)
+    imgs = rng.normal(100, 5, (T, H, W)).astype(np.float32)
+    imgs[1, 10, 10] = np.nan
+    imgs[3] = 0.0
+    errs = (np.sqrt(np.abs(imgs)) + 1.0).astype(np.float32)
+    errs[2, 20, 20] = np.nan
+    bkgs = rng.normal(20, 1, (T, H, W)).astype(np.float32)
+    bkgs[4, 30, 30] = np.nan
+    pflags = (rng.uniform(size=(T, H, W)) < 0.01).astype(np.uint8) * 4
+    r0s = rng.integers(0, H - h, N).astype(np.int32)
+    c0s = rng.integers(0, W - w, N).astype(np.int32)
+    masks = rng.uniform(size=(N, h, w)) < 0.4
+    masks[:, h // 2, w // 2] = True
+    return imgs, errs, bkgs, pflags, masks, r0s, c0s
+
+
+def _case(name):
+    imgs, errs, bkgs, pflags, masks, r0s, c0s = _inputs(T=13 if name == "remainder" else 16)
+    windows = None
+    if name == "straddling":
+        # corners across the band boundary (row 64) and the tile boundary (col 128):
+        r0s[:3] = [BH - 8, 10, BH - 1]
+        c0s[:3] = [TW - 8, TW - 16, TW - 1]
+    if name == "windows":
+        windows = np.zeros_like(masks)
+        windows[:, 2:15, 3:16] = True
+        masks &= windows
+        masks[0] = False                   # an empty mask: all outputs NaN
+        pflags[:, r0s[1]:r0s[1] + 17, c0s[1]:c0s[1] + 17] = 0
+        pflags[5, r0s[1], c0s[1]] = 4      # outside target 1's window: ignored
+    return imgs, errs, bkgs, pflags, masks, r0s, c0s, windows
+
+
+@pytest.mark.parametrize("name", ["base", "remainder", "straddling", "windows"])
+def test_port_matches_jax_extraction(name):
+    imgs, errs, bkgs, pflags, masks, r0s, c0s, windows = _case(name)
+    h, w = masks.shape[1:]
+    got = bandext.band_extract_flux_batch(t(imgs), t(errs), t(bkgs), t(pflags), t(masks),
+                                          t(r0s), t(c0s), h, w,
+                                          windows=None if windows is None else t(windows))
+    want_gather = _extract_flux_batch(
+        jnp.asarray(imgs), jnp.asarray(errs), jnp.asarray(bkgs), jnp.asarray(pflags),
+        jnp.asarray(masks), jnp.asarray(r0s), jnp.asarray(c0s), h, w,
+        None if windows is None else jnp.asarray(windows))
+    assert_extraction_parity(got, want_gather)
+    want_band = jax_band(imgs, errs, bkgs, pflags, masks, r0s, c0s, h, w, t_block=8,
+                         interpret=True, windows=windows)
+    assert_extraction_parity(got, want_band)
+    if name == "windows":
+        assert np.isnan(n(got[0])[0]).all()
+        assert not n(got[4])[1, 5]
+
+
+def test_plain_sums_chunking_is_exact(monkeypatch):
+    """Target chunks of the plain version do not change any sum."""
+    imgs, errs, bkgs, pflags, masks, r0s, c0s = _inputs(T=5, N=9)
+    args = [t(a) for a in (imgs, errs, bkgs, pflags, masks, r0s, c0s)]
+    whole = bandext.band_sums_plain(*args)
+    monkeypatch.setattr(bandext, "_PLAIN_BLOCK", 5 * 17 * 17 * 2)
+    chunked = bandext.band_sums_plain(*args)
+    np.testing.assert_array_equal(n(chunked), n(whole))
+
+
+def test_window_bbox():
+    mw = np.zeros((3, 6, 7), np.uint8)
+    mw[0, 1:4, 2:6] = 2
+    mw[1, 5, 0] = 1
+    box = n(bandext._window_bbox(t(mw)))
+    np.testing.assert_array_equal(box, [[1, 4, 2, 6], [5, 6, 0, 1], [0, 0, 0, 0]])
+
+
+def test_cuda_path_refuses_cpu_tensors():
+    imgs, errs, bkgs, pflags, masks, r0s, c0s = _inputs(T=5, N=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        bandext.band_sums_cuda(*[t(a) for a in (imgs, errs, bkgs, pflags, masks, r0s, c0s)])
