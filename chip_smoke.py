@@ -1,20 +1,36 @@
 #!/usr/bin/env python3
 """Smoke run of photometry_tpu_torch on one CUDA card.
 
-Drives the port's FFI aperture path through the entry points a user calls,
-with JAX and h5py blocked from import:
+Drives the port's FFI aperture and PSF paths through the entry points a
+user calls, with JAX, h5py and the JAX package blocked from import:
 
-1. device: the card's name and power limit; the band-extraction kernel is
-   built with nvcc for sm_90a from ``photometry_tpu_torch/ops/csrc/``.
-2. kernel vs its plain torch version on the card: adversarial inputs (NaN
-   pixels, an all-zero frame, NaN err/background, shenanigans flags, stamps
-   straddling 64x128 cells), then the main path's shape (2048x2048 CCD,
-   T=512, 1,024 targets of 17x17 and 33x33) with median times.
-3. the slice at full CCD size: a seeded 12,000-star field (Tmag 7.5-13),
-   cubes on the card (T=512, ~28 GB), ``SectorContext.from_arrays``,
-   ``extract_aperture_batch`` on the 10,240 brightest targets (the kernel's
-   launch count must rise), 1,024 of them re-extracted by the plain path,
-   then ``photometry_batch`` on one 256-task lease with products read back.
+0. imports: ``jax``, ``jaxlib``, ``h5py`` and ``photometry_tpu`` refused.
+1. device: the card's name and power limit; both kernels are built with
+   nvcc for sm_90a from ``photometry_tpu_torch/ops/csrc/``, one nvcc each,
+   started together (registers and spills of the PSF kernel printed).
+2. band kernel vs its plain torch version on the card: adversarial inputs
+   (NaN pixels, an all-zero frame, NaN err/background, shenanigans flags,
+   stamps straddling 64x128 cells), then the main path's shape (2048x2048
+   CCD, T=512, 1,024 targets of 17x17 and 33x33) with median times.
+2b. PSF kernel vs its plain torch version on the card: the problems of
+   tests/test_psf_pallas.py redrawn, then adversarial instances (NaN
+   pixels, an all-NaN stamp, dummy stars, blends, a star clipped at the
+   stamp edge; S = 1, 3, 5, 8, K = 1 and 3, stamps 11, 15, 17 and 32),
+   then the main path's shape (180 targets x 512 cadences of 15x15, S=5,
+   K=3, 6 iterations) with median times.
+3. the aperture slice at full CCD size: a seeded 12,000-star field (Tmag
+   7.5-13), cubes on the card (T=512, ~28 GB), ``SectorContext.from_arrays``,
+   ``extract_aperture_batch`` on the 10,240 brightest targets (the band
+   kernel's launch count must rise), 1,024 of them re-extracted by the
+   plain path, then ``photometry_batch`` on one 256-task lease with
+   products read back.
+4. the PSF slice on the same context: a synthetic K=3 table PRF written
+   with ``PRF.write_mat`` and read back with ``PRF.from_mat``,
+   ``extract_psf_batch`` on the 2,048 brightest targets (the PSF kernel's
+   launch count must rise, no group it takes may go to the plain fitter),
+   128 of them re-fitted by the plain fitter, then one 256-task
+   ``method="psf"`` lease through ``photometry_batch`` with products read
+   back.
 
 Prints a JSON line of per-kernel results, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure,
@@ -28,6 +44,7 @@ import importlib.abc
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -40,15 +57,29 @@ RTOL, ATOL = 1e-4, 1e-3        # float32 sums in another order (tests/test_bande
 H = W = 2048
 T = 512                        # sector T=1312 needs ~72 GB of cubes: cut to fit one card
 N_STARS, N_TARGETS, N_PLAIN, N_LEASE = 12000, 10240, 1024, 256
-KERNEL_SOURCE = "photometry_tpu_torch/ops/csrc/band_extract.cu"
-REPLACES = "photometry_tpu/ops/bandext.py:258"
+N_PSF, N_PSF_PLAIN = 2048, 128
+PSF_MAIN = {"N": 180, "h": 15, "S": 5, "K": 3, "n_iters": 6}   # _group_chunks' cap at 15x15
+# The tests/test_psf_pallas.py problems are drawn from a fixed seed, as that
+# test draws them from PRNGKey(0): a near-degenerate blend in another draw can
+# amplify one float32 ulp of JtJ past the test's max bounds, even between the
+# plain fitter in float32 and in float64.  In this draw those two agree far
+# inside every bound.
+PSF_TEST_SEED = 1
+KERNELS = {
+    "band_extract": ("photometry_tpu_torch/ops/csrc/band_extract.cu",
+                     "photometry_tpu/ops/bandext.py:258"),
+    "psf_warm_fit": ("photometry_tpu_torch/ops/csrc/psf_warm_fit.cu",
+                     "photometry_tpu/models/psf_pallas.py:76"),
+}
+# NVIDIA H100 SXM data sheet: HBM bytes/s, float32 FLOP/s outside the tensor cores.
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
 
 class _Blocked(importlib.abc.MetaPathFinder):
-    """Refuse jax, jaxlib and h5py: the port must run without them."""
+    """Refuse jax, jaxlib, h5py and the JAX package: the port must run without them."""
 
     def find_spec(self, name, path, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "h5py"):
+        if name.split(".")[0] in ("jax", "jaxlib", "h5py", "photometry_tpu"):
             raise ImportError(f"{name} is blocked in the smoke run")
         return None
 
@@ -122,6 +153,15 @@ def adversarial_inputs(rng, T=16, H=128, W=256, N=14, h=17, w=17):
     return imgs, errs, bkgs, flags, masks, r0s, c0s
 
 
+def band_bytes(masks, T):
+    """Bytes band_extract_flux_batch must move: image, err and background
+    (f32) under each mask and the flags (u8) under each window (the whole
+    stamp here) for every cadence, the mask bytes once, and the five
+    outputs (3 f32, a 2-f32 centroid and a bool) per target and cadence."""
+    N, h, w = masks.shape
+    return T * (12 * int(masks.sum()) + N * h * w) + N * h * w + N * T * 21
+
+
 def make_field(rng):
     """Seeded sum-image star field (bench.make_field): rows, cols, tmag, image."""
     rows = rng.uniform(10, H - 10, N_STARS)
@@ -162,6 +202,181 @@ def make_cubes(img0, gen, dev):
     return images, errs, bkgs, flags
 
 
+# --- PSF helpers ------------------------------------------------------------
+
+def prf_density(terms, oversample=9, radius=8.0):
+    """Oversampled PRF density: a normalised sum of axis-aligned Gaussians
+    (weight, sigma_row, sigma_col); each term is one separable SVD term."""
+    m = int(radius * oversample)
+    offs = np.arange(-m, m + 1) / oversample
+    g = np.zeros((2 * m + 1, 2 * m + 1))
+    for a, sy, sx in terms:
+        g += a * np.exp(-0.5 * (offs[:, None] / sy) ** 2 - 0.5 * (offs[None, :] / sx) ** 2)
+    return g / (g.sum() / oversample ** 2)
+
+
+PRF_TERMS = {1: [(1.0, 1.2, 1.2)], 3: [(0.7, 1.1, 1.1), (0.3, 2.0, 2.0), (0.2, 1.6, 1.3)]}
+
+
+def table_prf(PRF, folder, K, dev):
+    """A K-term table PRF, written as a TESS .mat file and read back."""
+    path = os.path.join(folder, f"tess2018-k{K}-1-1-characterized-prf.mat")
+    PRF.write_mat(path, [prf_density(PRF_TERMS[K])], [1024.0], [1024.0])
+    prf = PRF.from_mat(path, sector=1, camera=1, ccd=1, stamp=(0, 15, 0, 15), device=dev)
+    check(prf._svd_factors()[0].shape[1] == K, f"table PRF has {prf._svd_factors()[0].shape[1]} "
+          f"SVD terms, wanted {K}")
+    return prf
+
+
+def render(prf, rows, cols, flux, h, w):
+    import torch
+    par = torch.as_tensor(np.stack([rows, cols, flux], -1), dtype=torch.float32, device=prf.device)
+    return prf.integrate_to_image(par, (h, w), 5.0).cpu().numpy()
+
+
+def psf_jaxtest_problem(rng, prf, B, S, h=11, w=11):
+    """tests/test_psf_pallas.py:_problem redrawn with numpy: S stars in a
+    +-2 px box, fluxes 800-3800, noise 0.8, start 0.25 off, the last star a
+    dummy on every third instance, main target star 0."""
+    rows = 5.0 + rng.uniform(-2, 2, (B, S))
+    cols = 5.0 + rng.uniform(-2, 2, (B, S))
+    flux = 800.0 + 3000.0 * rng.uniform(size=(B, S))
+    imgs = render(prf, rows, cols, flux, h, w) + 5.0 + 0.8 * rng.normal(size=(B, h, w))
+    p_true = np.concatenate([rows, cols, flux], 1)
+    p0 = p_true + 0.25 * rng.normal(size=p_true.shape)
+    valid = np.ones((B, S), bool)
+    valid[::3, S - 1] = False
+    mini = np.zeros((B, h, w), bool)
+    mini[:, 3:8, 3:8] = True
+    onehot = np.zeros((B, S), np.float32)
+    onehot[:, 0] = 1.0
+    return [imgs.astype(np.float32), np.full((B, h, w), 2.0, np.float32),
+            p0.astype(np.float32), valid, mini, onehot]
+
+
+def psf_instances(rng, prf, B, S, h, w, n_cfg=None, nan_frac=0.0, blend=False):
+    """B fit instances shaped like the PSF path's: the target within 0.5 px
+    of the stamp centre, 0..S-1 neighbours 2.5-5 px away (0.8-1.5 px when
+    ``blend``) and up to 5 mag fainter, dummy slots at -1000 with no flux,
+    Poisson-like noise on a background, and a start 0.15 px / 5% off the
+    truth (the warm-start role).  ``n_cfg`` star fields repeat over the
+    instances, as one target's field repeats over its cadences."""
+    n_cfg = n_cfg or B
+    rows = np.full((n_cfg, S), -1000.0)
+    cols = np.full((n_cfg, S), -1000.0)
+    flux = np.zeros((n_cfg, S))
+    valid = np.zeros((n_cfg, S), bool)
+    n_real = rng.integers(1, S + 1, n_cfg)
+    for i in range(n_cfg):
+        rows[i, 0] = (h - 1) / 2 + rng.uniform(-0.5, 0.5)
+        cols[i, 0] = (w - 1) / 2 + rng.uniform(-0.5, 0.5)
+        flux[i, 0] = 10 ** (-0.4 * (rng.uniform(8, 12) - 20.451))
+        valid[i, 0] = True
+        for s in range(1, n_real[i]):
+            ang = rng.uniform(0, 2 * np.pi)
+            rad = rng.uniform(0.8, 1.5) if blend else rng.uniform(2.5, 5.0)
+            rows[i, s] = rows[i, 0] + rad * np.sin(ang)
+            cols[i, s] = cols[i, 0] + rad * np.cos(ang)
+            flux[i, s] = flux[i, 0] * 10 ** (-0.4 * rng.uniform(-1, 5))
+            valid[i, s] = True
+    idx = np.arange(B) % n_cfg
+    rows, cols, flux, valid = rows[idx], cols[idx], flux[idx], valid[idx]
+    model = render(prf, rows, cols, flux, h, w)
+    bkg = rng.uniform(50, 200, (B, 1, 1)) * np.ones((1, h, w))
+    imgs = (model + rng.normal(size=model.shape) * np.sqrt(model + bkg + 100.0)).astype(np.float32)
+    if nan_frac:
+        imgs[rng.uniform(size=imgs.shape) < nan_frac] = np.nan
+    jit = np.where(valid, 1.0, 0.0)
+    p0 = np.concatenate([rows + jit * rng.normal(0, 0.15, rows.shape),
+                         cols + jit * rng.normal(0, 0.15, cols.shape),
+                         flux * (1 + jit * rng.normal(0, 0.05, flux.shape))], 1)
+    mini = np.zeros((B, h, w), bool)
+    mini[:, h // 2 - 1:h // 2 + 2, w // 2 - 1:w // 2 + 2] = True
+    onehot = np.zeros((B, S), np.float32)
+    onehot[:, 0] = 1.0
+    return [imgs, bkg.astype(np.float32), p0.astype(np.float32), valid, mini, onehot]
+
+
+def psf_fit_check(got, want, valid, S, tier, what):
+    """Kernel vs plain under the bounds of tests/test_psf_pallas.py.
+
+    ``tight`` (test_fused_matches_xla_fitter, for its own problems): valid
+    positions within 2e-3 px, fluxes within 0.1% at the 95th percentile and
+    2% at most, flux_ap to rtol 2e-2 / atol 2, fluxvar to rtol 2e-2.
+    ``crowded`` (test_fused_crowded_s6_matches_xla): positions within 5e-3 px
+    and fluxes within 0.5% at the 90th percentile.  Realistic instances get
+    ``crowded``: with faint neighbours and blends, two float32 orders of the
+    plain fitter alone differ by more than the max bounds (one ulp of JtJ
+    amplified over the iterations).  Both ways: NaN patterns equal.
+    Returns the largest |diff| of the compared outputs (for ``tight``; 0
+    for ``crowded``, whose tails are bounded by percentiles only)."""
+    g = {k: v.cpu().numpy() for k, v in got.items()}
+    w = {k: v.cpu().numpy() for k, v in want.items()}
+    for k in g:
+        check(np.array_equal(np.isnan(g[k]), np.isnan(w[k])), f"{what}: {k} NaN pattern differs")
+    vm = np.asarray(valid)
+    pos = np.abs(g["params"][:, :2 * S] - w["params"][:, :2 * S])[np.concatenate([vm, vm], 1)]
+    fw = w["params"][:, 2 * S:][vm]
+    rel = np.abs(g["params"][:, 2 * S:][vm] - fw) / np.maximum(fw, 10.0)
+    if tier == "tight":
+        check(pos.max() < 2e-3, f"{what}: position off by {pos.max():.3g} px")
+        check(np.percentile(rel, 95) < 1e-3 and rel.max() < 2e-2,
+              f"{what}: fluxes off by {np.percentile(rel, 95):.3g} (p95), {rel.max():.3g} (max)")
+        for k, atol in (("flux_ap", 2.0), ("fluxvar_target", 0.0)):
+            d = np.abs(g[k] - w[k])
+            check(bool(np.all(d <= atol + 2e-2 * np.abs(w[k]))), f"{what}: {k} off by {d.max():.3g}")
+    else:
+        check(np.percentile(pos, 90) < 5e-3 and np.percentile(rel, 90) < 5e-3,
+              f"{what}: p90 position {np.percentile(pos, 90):.3g} px, flux {np.percentile(rel, 90):.3g}")
+    worst = max(float(np.nanmax(np.abs(g[k] - w[k]))) for k in g) if tier == "tight" else 0.0
+    print(f"phase 2b {what}: kernel == plain ({tier}; position max {pos.max():.3g} px, "
+          f"p90 {np.percentile(pos, 90):.3g}; flux rel p95 {np.percentile(rel, 95):.3g}, "
+          f"max {rel.max():.3g})", flush=True)
+    return worst
+
+
+def psf_flops(B, S, K, h, w, n_iters):
+    """Floating-point operations of psf_warm_fit on B instances, counted
+    from the kernel's code (an FMA is 2): the weights once; per iteration
+    and for the final pass the axis tables (Catmull-Rom weights and K-term
+    taps, values and derivatives, per star and row/column), per pixel and
+    star the cutoff, the K-term render and the Jacobian row, per pixel the
+    3S(3S+1)/2 + 3S normal-equation FMAs, then the damped Cholesky and two
+    triangular solves and the update; at the end the covariance Cholesky
+    and the S inverse columns."""
+    P3 = 3 * S
+    npix = h * w
+    axis = S * (h + w) * (64 + 16 * K + 4)
+    pixel = npix * (S * (10 + 6 * K) + 1 + P3 * (P3 + 1) + 3 * P3)
+    chol = 2 * P3 ** 3 // 3 + 3 * P3
+    step = axis + pixel + chol + 2 * P3 ** 2 + 10 * S
+    final = axis + pixel + 2 * npix + chol + S * P3 ** 2
+    return B * (5 * npix + n_iters * step + final)
+
+
+def psf_bytes(B, S, h, w):
+    """Bytes psf_warm_fit must move: images and backgrounds (f32) and the
+    MOMF mask (u8) per pixel, p0, valid (u8) and onehot per star, and
+    params, flux_ap and fluxvar out."""
+    return B * (9 * h * w + 12 * S + S + 4 * S + 12 * S + 8)
+
+
+def ptxas_summary(log):
+    """'S,K: registers/spill-store bytes' of each psf_warm_fit_kernel<S, K>."""
+    out, cur, spill = [], None, "?"
+    for line in log.splitlines():
+        m = re.search(r"psf_warm_fit_kernelILi(\d)ELi(\d)E", line)
+        if m and "Compiling entry" in line:
+            cur = f"{m.group(1)},{m.group(2)}"
+        elif cur and "spill stores" in line:
+            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+        elif cur and "Used" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{cur}:{regs}r/{spill}B")
+            cur = None
+    return " ".join(sorted(out))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=7)
@@ -178,30 +393,43 @@ def main() -> int:
         print("photometry_tpu_torch/ not found beside chip_smoke.py", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    present = {m: importlib.util.find_spec(m) is not None for m in ("jax", "h5py")}
+    present = {m: importlib.util.find_spec(m) is not None for m in ("jax", "h5py", "photometry_tpu")}
     sys.meta_path.insert(0, _Blocked())
-    print(f"phase 0 imports: jax and h5py blocked (installed here: {present})", flush=True)
+    print(f"phase 0 imports: jax, h5py and photometry_tpu blocked (installed here: {present})",
+          flush=True)
+    t_start = time.perf_counter()
 
-    from photometry_tpu.catalog import make_catalog_from_arrays
-    from photometry_tpu.core.status import STATUS
-    from photometry_tpu.io import fits as pf
+    from photometry_tpu_torch.catalog import make_catalog_from_arrays
     from photometry_tpu_torch.core.dispatcher import photometry_batch
-    from photometry_tpu_torch.core.engine import (SectorContext, extract_aperture_batch,
-                                                  extract_flux_core)
+    from photometry_tpu_torch.core.engine import (SectorContext, _full_catalog_positions,
+                                                  extract_aperture_batch, extract_flux_core)
+    from photometry_tpu_torch.core.status import STATUS
+    from photometry_tpu_torch.io import fits as pf
     from photometry_tpu_torch.io.wcs import TanWCS
+    from photometry_tpu_torch.models import psf_fit
+    from photometry_tpu_torch.models.prf import PRF
+    from photometry_tpu_torch.models.psf_common import bucket_psf_groups, setup_psf_target
+    from photometry_tpu_torch.models.psf_fused import (fused_ok, fused_warm_fit_cuda,
+                                                       fused_warm_fit_plain)
     from photometry_tpu_torch.ops import bandext
-    from photometry_tpu_torch.ops._kernels import BAND_EXTRACT
+    from photometry_tpu_torch.ops._kernels import BAND_EXTRACT, PSF_WARM_FIT, build_all
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     print(f"phase 1 device: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
-    BAND_EXTRACT.lib()
-    print(f"phase 1 build: {KERNEL_SOURCE} -> sm_90a in {BAND_EXTRACT.build_seconds:.2f} s",
-          flush=True)
+    tic = time.perf_counter()
+    build_all()
+    print(f"phase 1 build: both kernels -> sm_90a in {time.perf_counter() - tic:.1f} s "
+          f"(band_extract {BAND_EXTRACT.build_seconds:.1f} s, psf_warm_fit "
+          f"{PSF_WARM_FIT.build_seconds:.1f} s)", flush=True)
+    print(f"phase 1 psf_warm_fit<S,K> registers/spill stores: "
+          f"{ptxas_summary(PSF_WARM_FIT.build_log)}", flush=True)
+    result = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
+                     "library_ms": None} for name, (src, rep) in KERNELS.items()}
 
-    # --- phase 2: kernel vs plain -----------------------------------------
+    # --- phase 2: band kernel vs plain ------------------------------------
     rng = np.random.default_rng(args.seed)
     arrs = adversarial_inputs(rng)
     t_args = [torch.as_tensor(a, device=dev) for a in arrs]
@@ -224,7 +452,7 @@ def main() -> int:
     print(f"phase 3 cubes: ({T}, {H}, {W}) x4 on the card, {gb:.1f} GB, made in "
           f"{time.perf_counter() - tic:.1f} s", flush=True)
 
-    kern_ms, plain_ms, main_err = {}, {}, 0.0
+    kern_ms, plain_ms, main_err, band_bound = {}, {}, 0.0, {}
     for hw in (17, 33):
         r0s = rng.integers(0, H - hw, N_PLAIN).astype(np.int32)
         c0s = rng.integers(0, W - hw, N_PLAIN).astype(np.int32)
@@ -242,12 +470,90 @@ def main() -> int:
 
         main_err = max(main_err, max_err(host(kern()), host(plain()), f"main shape {hw}x{hw}"))
         kern_ms[hw], plain_ms[hw] = cuda_ms(kern), cuda_ms(plain)
+        band_bound[hw] = band_bytes(masks, T) / PEAK_BYTES * 1e3
         print(f"phase 2 main shape ({T}, {H}, {W}), {N_PLAIN} targets {hw}x{hw}: kernel "
-              f"{kern_ms[hw]:.3f} ms, plain {plain_ms[hw]:.3f} ms (median of 5; {card})",
-              flush=True)
+              f"{kern_ms[hw]:.3f} ms, plain {plain_ms[hw]:.3f} ms (median of 5), bound "
+              f"{band_bound[hw]:.3f} ms by bytes ({card})", flush=True)
+    result["band_extract"].update(max_abs_err=max(err, main_err), ms=kern_ms[17],
+                                  plain_ms=plain_ms[17], bound_ms=band_bound[17],
+                                  bound_by="bytes")
 
-    # --- phase 3: the slice -----------------------------------------------
+    # --- phase 2b: PSF kernel vs plain -------------------------------------
     work = tempfile.mkdtemp(prefix="chip_smoke_")
+    prfs = {K: table_prf(PRF, work, K, dev) for K in (1, 3)}
+
+    def psf_pair(inputs, prf, S, n_iters):
+        ins = [torch.as_tensor(a, device=dev) for a in inputs]
+        h_, w_ = inputs[0].shape[1:]
+        got = fused_warm_fit_cuda(ins[0], ins[1], 1.0, *ins[2:], prf, (h_, w_), S, n_iters)
+        torch.cuda.synchronize()
+        want = fused_warm_fit_plain(ins[0], ins[1], 1.0, *ins[2:], prf, (h_, w_), S, n_iters)
+        return got, want
+
+    psf_err = 0.0
+    rng_test = np.random.default_rng(PSF_TEST_SEED)
+    for S, n_iters, B in ((3, 1, 24), (3, 4, 24), (6, 4, 8)):
+        inputs = psf_jaxtest_problem(rng_test, prfs[1], B, S)
+        got, want = psf_pair(inputs, prfs[1], S, n_iters)
+        psf_err = max(psf_err, psf_fit_check(got, want, inputs[3], S,
+                                             "tight" if S == 3 else "crowded",
+                                             f"test_psf_pallas problem S={S} it={n_iters}"))
+    rng_fit = np.random.default_rng([args.seed, 2])
+    # Each case is one the plain fitter itself solves stably in float32: its
+    # float32 and float64 versions agree well inside the crowded bounds on
+    # these draws.  Heavier ones (8 blended stars, or 12 iterations at S=8)
+    # part the plain fitter's own two precisions by more than the bounds, so
+    # they cannot hold a kernel to them.
+    cases = [  # S, K, side, n_iters, B, NaN fraction, blend
+        (1, 1, 11, 12, 256, 0.0, False), (3, 1, 11, 12, 512, 0.02, False),
+        (5, 3, 15, 6, 2048, 0.01, False), (5, 3, 17, 12, 1024, 0.0, False),
+        (3, 3, 15, 6, 512, 0.0, True), (8, 1, 15, 6, 512, 0.0, False),
+        (8, 3, 32, 6, 256, 0.01, False)]
+    for S, K, side, n_iters, B, nan_frac, blend in cases:
+        inputs = psf_instances(rng_fit, prfs[K], B, S, side, side, nan_frac=nan_frac,
+                               blend=blend)
+        imgs, _, p0, valid = inputs[:4]
+        imgs[0] = np.nan                                  # an all-NaN stamp
+        if S > 1:                                         # a star clipped at the stamp edge
+            valid[1, 1] = True
+            p0[1, 1], p0[1, S + 1], p0[1, 2 * S + 1] = -2.6, side / 2, 2000.0
+        got, want = psf_pair(inputs, prfs[K], S, n_iters)
+        pg = got["params"].cpu().numpy()
+        check(np.array_equal(pg[0], p0[0]), "all-NaN stamp: parameters moved")
+        check(np.isfinite(pg[1:]).all(), "non-finite parameters")
+        rv = pg[:, :S][valid]
+        check(bool(np.all((rv >= -2.0) & (rv <= side + 1.0))), "a valid row escaped its clip")
+        psf_err = max(psf_err, psf_fit_check(got, want, valid, S, "crowded",
+                                             f"adversarial S={S} K={K} {side}x{side} "
+                                             f"it={n_iters} B={B}"))
+
+    pm = PSF_MAIN
+    B_main = pm["N"] * T
+    inputs = psf_instances(rng_fit, prfs[pm["K"]], B_main, pm["S"], pm["h"], pm["h"],
+                           n_cfg=pm["N"], nan_frac=0.001)
+    ins = [torch.as_tensor(a, device=dev) for a in inputs]
+    fit_args = (ins[0], ins[1], 1.0, *ins[2:], prfs[pm["K"]], (pm["h"], pm["h"]), pm["S"],
+                pm["n_iters"])
+    got = fused_warm_fit_cuda(*fit_args)
+    torch.cuda.synchronize()
+    want = fused_warm_fit_plain(*fit_args)
+    psf_fit_check(got, want, inputs[3], pm["S"], "crowded", f"main shape B={B_main}")
+    psf_ms = cuda_ms(lambda: fused_warm_fit_cuda(*fit_args))
+    psf_plain_ms = cuda_ms(lambda: fused_warm_fit_plain(*fit_args), reps=3)
+    flops = psf_flops(B_main, pm["S"], pm["K"], pm["h"], pm["h"], pm["n_iters"])
+    nbytes = psf_bytes(B_main, pm["S"], pm["h"], pm["h"])
+    psf_bound = max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3
+    print(f"phase 2b main shape {pm['N']} x {T} instances {pm['h']}x{pm['h']} S={pm['S']} "
+          f"K={pm['K']} it={pm['n_iters']}: kernel {psf_ms:.3f} ms, plain {psf_plain_ms:.3f} ms "
+          f"(median), bound {psf_bound:.3f} ms by operations ({flops / 1e9:.1f} GFLOP, "
+          f"{nbytes / 1e9:.3f} GB; {card})", flush=True)
+    result["psf_warm_fit"].update(max_abs_err=psf_err, ms=psf_ms, plain_ms=psf_plain_ms,
+                                  bound_ms=psf_bound,
+                                  bound_by="operations" if flops / PEAK_F32 > nbytes / PEAK_BYTES
+                                  else "bytes")
+    del ins, got, want
+
+    # --- phase 3: the aperture slice ---------------------------------------
     wcs = TanWCS(crpix=[W / 2 + 0.5, H / 2 + 0.5], crval=[95.0, -60.0],
                  cd=[[-21.0 / 3600, 0.0], [0.0, 21.0 / 3600]])
     ra, dec = wcs.radec_of_rowcol(rows, cols)
@@ -265,15 +571,15 @@ def main() -> int:
     sids = [int(s) for s in starid[:N_TARGETS]]           # the brightest (tmag sorted)
 
     torch.cuda.synchronize()
-    BAND_EXTRACT.launches = 0
+    BAND_EXTRACT.launches = PSF_WARM_FIT.launches = 0
     tic = time.perf_counter()
     results = extract_aperture_batch(ctx, sids)
     torch.cuda.synchronize()
     wall = time.perf_counter() - tic
-    launches = BAND_EXTRACT.launches
-    check(launches > 0, "the slice did not launch the band kernel")
+    result["band_extract"]["launches"] = BAND_EXTRACT.launches
+    check(BAND_EXTRACT.launches > 0, "the aperture slice did not launch the band kernel")
     print(f"phase 3 slice: {N_TARGETS} targets in {wall:.2f} s = {N_TARGETS / wall:.1f} "
-          f"targets/s ({card}); band kernel launches {launches}", flush=True)
+          f"targets/s ({card}); band kernel launches {BAND_EXTRACT.launches}", flush=True)
 
     good = [r for r in results if r.status in (STATUS.OK, STATUS.WARNING)]
     n_ok = sum(r.status == STATUS.OK for r in results)
@@ -303,32 +609,79 @@ def main() -> int:
     keys = ("flux", "flux_err", "flux_background", "pos_centroid", "shenanigans_any")
     got = [np.stack([r.lightcurve[k] for r in sub]) for k in keys]
     slice_err = max_err(got, plain, "slice vs plain")
+    result["band_extract"]["max_abs_err"] = max(result["band_extract"]["max_abs_err"], slice_err)
     print(f"phase 3 plain re-extraction of {len(sub)} targets agrees "
           f"(max |diff| {slice_err:.3g})", flush=True)
 
-    # One lease through the dispatcher, products written and read back:
-    tasks = [{"priority": i + 1, "starid": sid, "sector": 1, "camera": 1, "ccd": 1,
-              "cadence": 1800, "datasource": "ffi", "tmag": float(tmag[sid - 1]),
-              "method": "aperture"} for i, sid in enumerate(sids[:N_LEASE])]
-    out_dir = os.path.join(work, "products")
-    tic = time.perf_counter()
-    lease = photometry_batch(ctx, tasks, output_folder=out_dir, version=1, save=True)
-    print(f"phase 3 lease: {N_LEASE} tasks with products in "
-          f"{time.perf_counter() - tic:.2f} s ({card})", flush=True)
-    saved = [r for r in lease if r.details.get("filepath_lightcurve")]
-    check(len(saved) >= 0.9 * N_LEASE, "fewer than 90% of the lease wrote products")
-    for r in saved[:3]:
-        lc = pf.read_fits(r.details["filepath_lightcurve"])[1].data
-        check(np.allclose(lc["FLUX_RAW"], r.lightcurve["flux"], rtol=1e-6, equal_nan=True),
-              f"TIC {r.starid}: FLUX_RAW in the product differs")
-    print(f"phase 3 products: {len(saved)} written, 3 read back and equal", flush=True)
-    ctx.close()
+    def lease(method, n, folder):
+        """One n-task lease through the dispatcher, products written and read back."""
+        tasks = [{"priority": i + 1, "starid": sid, "sector": 1, "camera": 1, "ccd": 1,
+                  "cadence": 1800, "datasource": "ffi", "tmag": float(tmag[sid - 1]),
+                  "method": method} for i, sid in enumerate(sids[:n])]
+        tic = time.perf_counter()
+        out = photometry_batch(ctx, tasks, output_folder=os.path.join(work, folder), version=1,
+                               save=True)
+        took = time.perf_counter() - tic
+        saved = [r for r in out if r.details.get("filepath_lightcurve")]
+        check(len(saved) >= 0.9 * n, f"fewer than 90% of the {method} lease wrote products")
+        for r in saved[:3]:
+            lc = pf.read_fits(r.details["filepath_lightcurve"])[1].data
+            check(np.allclose(lc["FLUX_RAW"], r.lightcurve["flux"], rtol=1e-6, equal_nan=True),
+                  f"TIC {r.starid}: FLUX_RAW in the {method} product differs")
+        print(f"phase {3 if method == 'aperture' else 4} lease: {n} {method} tasks with "
+              f"products in {took:.2f} s ({card}); {len(saved)} written, 3 read back and equal",
+              flush=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "band_extract", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": max(err, main_err, slice_err),
-        "ms": kern_ms[17], "plain_ms": plain_ms[17]}]}))
+    lease("aperture", N_LEASE, "products")
+
+    # --- phase 4: the PSF slice ----------------------------------------------
+    prf = prfs[3]
+    ctx._context_prf = prf                     # as psf_common.context_prf memoizes it
+    psf_sids = sids[:N_PSF]
+    cat_all = _full_catalog_positions(ctx)
+    groups = bucket_psf_groups(ctx, [setup_psf_target(ctx, s, cat_all) for s in psf_sids])
+    n_fused_groups = sum(fused_ok(prf, hw_, 5, "Gaussian_d") for hw_ in groups)
+    check(n_fused_groups > 0, f"no stamp bucket of the PSF slice takes the kernel: {list(groups)}")
+    torch.cuda.synchronize()
+    BAND_EXTRACT.launches = PSF_WARM_FIT.launches = 0
+    psf_fit.ROUTES.update(fused=0, plain=0)
+    tic = time.perf_counter()
+    res_psf = psf_fit.extract_psf_batch(ctx, psf_sids)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    routes = dict(psf_fit.ROUTES)
+    result["psf_warm_fit"]["launches"] = PSF_WARM_FIT.launches
+    print(f"phase 4 slice: {N_PSF} PSF targets in {wall:.2f} s = {N_PSF / wall:.1f} targets/s "
+          f"({card}); buckets {sorted(groups)}; PSF kernel launches {PSF_WARM_FIT.launches}; "
+          f"target groups fused {routes['fused']}, plain {routes['plain']}", flush=True)
+    check(PSF_WARM_FIT.launches > 0, "the PSF slice did not launch the PSF kernel")
+    check(routes["plain"] == len(groups) - n_fused_groups,
+          f"a group the kernel takes went to the plain fitter: {routes}")
+    good = [r for r in res_psf if r.status in (STATUS.OK, STATUS.WARNING)
+            and np.isfinite(r.lightcurve["flux"]).mean() > 0.99
+            and np.isfinite(r.lightcurve["flux_err"]).mean() > 0.99]
+    print(f"phase 4 statuses: {len(good)} of {N_PSF} OK or WARNING with finite flux and "
+          f"flux_err", flush=True)
+    check(len(good) >= 0.9 * N_PSF, "fewer than 90% of PSF targets OK/WARNING and finite")
+
+    # 128 of them again through the plain fitter on the card:
+    refit = psf_fit.extract_psf_batch(ctx, psf_sids[:N_PSF_PLAIN], fused=False)
+    fracs = {}
+    for k, rtol, atol in (("flux", 2e-2, 0.0), ("flux_err", 5e-2, 0.0),
+                          ("pos_centroid", 0.0, 2e-2)):
+        a = np.stack([r.lightcurve[k] for r in res_psf[:N_PSF_PLAIN]])
+        b = np.stack([r.lightcurve[k] for r in refit])
+        ok = (np.abs(a - b) <= atol + rtol * np.abs(b)) | (np.isnan(a) & np.isnan(b))
+        fracs[k] = float(ok.mean())
+    print(f"phase 4 plain re-fit of {N_PSF_PLAIN} targets x {T} cadences: share within the "
+          f"bounds of test_batch_fused_path_matches_xla {fracs}", flush=True)
+    check(min(fracs.values()) >= 0.99, "kernel and plain fitter disagree on more than 1%")
+
+    lease("psf", N_LEASE, "products_psf")
+    ctx.close()
+    print(f"phases 1-4 took {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    print(json.dumps({"kernels": [result[name] for name in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

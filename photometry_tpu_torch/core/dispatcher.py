@@ -1,7 +1,7 @@
 """
 Method dispatcher for task batches, on the port's engine.
 
-Port of the aperture path of ``photometry_tpu/core/dispatcher.py``
+Port of the aperture and PSF paths of ``photometry_tpu/core/dispatcher.py``
 (reference tessphot.py:52-135): ``open_context``, ``ContextCache``,
 ``photometry_batch`` and the threaded product writer.  Failures of the
 photometry itself become STATUS.ERROR results carrying the traceback, as in
@@ -9,8 +9,8 @@ the reference (tessphot.py:20-49) — except what says the port or the card
 cannot do the work: ``NotImplementedError``, a CUDA kernel's ``KernelError``
 and ``torch.OutOfMemoryError`` propagate.
 
-Not ported yet: the psf / linpsf / halo methods and the automatic halo and
-linPSF-deblend switches.  A task asking for another method raises
+Not ported yet: the linpsf and halo methods and the automatic halo and
+linPSF-deblend switches.  A task asking for one of those methods raises
 ``NotImplementedError`` naming it, and so does a default-method batch in
 which a switch would fire.
 """
@@ -26,13 +26,12 @@ from typing import Optional
 
 import torch
 
-from photometry_tpu.core.status import STATUS
-from photometry_tpu.io.settings import load_settings
-
+from ..io.settings import load_settings
 from ..ops._kernels import KernelError
 from ..utils.logutils import capture_warnings
 from ..utils.mathutils import mag2flux
 from .engine import SectorContext, TargetResult, extract_aperture_batch
+from .status import STATUS
 
 logger = logging.getLogger(__name__)
 
@@ -140,43 +139,57 @@ def _needs_deblend_switch(res: TargetResult, settings) -> bool:
     return is_blend or truncated
 
 
+def _run_method(ctx, starids, method: str) -> list:
+    if method == "aperture":
+        return extract_aperture_batch(ctx, starids)
+    if method == "psf":
+        from ..models.psf_fit import extract_psf_batch
+        return extract_psf_batch(ctx, starids)
+    raise ValueError(f"Invalid method: '{method}'")
+
+
 def photometry_batch(ctx, tasks: list, output_folder: Optional[str] = None,
                      version: Optional[int] = None, save: bool = True,
                      timers: Optional[dict] = None) -> list:
-    """Run aperture photometry for a batch of compatible tasks on one context.
+    """Run photometry for a batch of compatible tasks on one context.
 
-    When ``save``, light curves of OK/WARNING results are written.
-    ``timers`` (a core.drain.new_timers dict) accumulates the wall of the
-    photometry and product-save phases.
+    Tasks without an explicit method run aperture photometry; each method's
+    group runs as one batch.  When ``save``, light curves of OK/WARNING
+    results are written.  ``timers`` (a core.drain.new_timers dict)
+    accumulates the wall of the photometry and product-save phases.
     """
     settings = load_settings()
+    by_method = {}
     for task in tasks:
-        method = task.get("method") or "aperture"
-        if method != "aperture":
-            raise NotImplementedError(
-                f"method {method!r} is not ported to photometry_tpu_torch yet "
-                "(only 'aperture')")
+        by_method.setdefault(task.get("method") or "aperture", []).append(task)
+    unported = sorted(set(by_method) & {"linpsf", "halo"})
+    if unported:
+        raise NotImplementedError(f"method {unported[0]!r} is not ported to "
+                                  "photometry_tpu_torch yet (only 'aperture' and 'psf')")
 
-    sids = [int(t["starid"]) for t in tasks]
-    tic = _timer()
-    # Warnings logged during the photometry are persisted into the
-    # diagnostics errors column (BasePhotometry.py:171-179, 1409-1414):
-    with capture_warnings() as log_messages:
-        try:
-            out = extract_aperture_batch(ctx, sids)
-        except (NotImplementedError, KernelError, torch.OutOfMemoryError):
-            raise   # the port or the card cannot do this work: not a target's failure
-        except Exception:
-            tb = traceback.format_exc().strip()
-            logger.exception("Method aperture failed for batch")
-            out = [_error_result(t, ctx, tb) for t in tasks]
-    if timers is not None:
-        timers["photometry"] += _timer() - tic
-    for task, res in zip(tasks, out):
-        if log_messages:
-            res.details.setdefault("errors", []).extend(log_messages)
-        res.details.setdefault("task", {}).update(
-            {k: task.get(k) for k in ("priority", "datasource")})
+    results = {}
+    for method, group in by_method.items():
+        tic = _timer()
+        # Warnings logged during the photometry are persisted into the
+        # diagnostics errors column (BasePhotometry.py:171-179, 1409-1414):
+        with capture_warnings() as log_messages:
+            try:
+                got = _run_method(ctx, [int(t["starid"]) for t in group], method)
+            except (NotImplementedError, KernelError, torch.OutOfMemoryError):
+                raise   # the port or the card cannot do this work: not a target's failure
+            except Exception:
+                tb = traceback.format_exc().strip()
+                logger.exception("Method %s failed for batch", method)
+                got = [_error_result(t, ctx, tb) for t in group]
+        if timers is not None:
+            timers["photometry"] += _timer() - tic
+        for task, res in zip(group, got):
+            if log_messages:
+                res.details.setdefault("errors", []).extend(log_messages)
+            res.details.setdefault("task", {}).update(
+                {k: task.get(k) for k in ("priority", "datasource")})
+            results[int(task["starid"])] = res
+    out = [results[int(t["starid"])] for t in tasks]
 
     # The automatic halo and deblend switches (default-method tasks only)
     # need methods the port does not have yet:

@@ -4,8 +4,8 @@ products, persist diagnostics.
 
 Port of ``photometry_tpu/core/drain.py`` (reference run_tessphot.py:124-166
 and the per-task unit of run_tessphot_mpi.py:148-196) for the aperture
-path: batches are leased per (sector, camera, ccd, datasource, cadence) so
-one device context serves hundreds of targets.  The optional ``timers``
+and PSF paths: batches are leased per (sector, camera, ccd, datasource,
+cadence) so one device context serves hundreds of targets.  The optional ``timers``
 dict decomposes the wall into the pipeline's phases.
 """
 
@@ -15,8 +15,7 @@ import logging
 from timeit import default_timer
 from typing import Optional
 
-from photometry_tpu.taskmanager import TaskManager
-
+from ..taskmanager import TaskManager
 from .dispatcher import ContextCache, photometry_batch
 
 __all__ = ["run_drain", "task_to_result", "new_timers"]
@@ -54,12 +53,12 @@ def run_drain(input_folder: str, version: int,
     """Drain the TODO queue (or one task) through the batch dispatcher on ``device``.
 
     Arguments as the reference's ``run_drain``; ``method`` may be None
-    (tasks' own method, aperture by default) or ``"aperture"``.  Returns the
-    number of tasks processed.
+    (tasks' own method, aperture by default), ``"aperture"`` or ``"psf"``.
+    Returns the number of tasks processed.
     """
-    if method not in (None, "aperture"):
+    if method not in (None, "aperture", "psf"):
         raise NotImplementedError(f"method {method!r} is not ported to "
-                                  "photometry_tpu_torch yet (only 'aperture')")
+                                  "photometry_tpu_torch yet (only 'aperture' and 'psf')")
     constraints = dict(constraints or {})
     output_folder = output_folder or input_folder
     t = timers if timers is not None else new_timers()

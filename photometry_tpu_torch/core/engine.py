@@ -27,18 +27,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from photometry_tpu.catalog import StarCatalog
-from photometry_tpu.core.status import STATUS
-from photometry_tpu.io import discovery
-from photometry_tpu.io.settings import load_settings
-
+from ..catalog import StarCatalog
 from ..device import resolve_device
+from ..io import discovery
+from ..io.cube import ImageCube
+from ..io.settings import load_settings
 from ..io.wcs import TanWCS
 from ..models.k2p2 import K2P2Params, build_masks_batch
 from ..ops.bandext import _extract, band_extract_flux_batch, band_sums_plain
 from ..utils.mathutils import mag2flux
 from .metrics import compute_metrics_batch, crowding_metrics_batch
 from .motion import MotionModel
+from .status import STATUS
 
 __all__ = ["SectorContext", "TargetResult", "extract_aperture_batch", "extract_flux_core",
            "default_stamp_size", "aperture_image", "context_from_jax",
@@ -105,7 +105,6 @@ class SectorContext:
         if cube_dtype is not None and np.dtype(cube_dtype) != np.float32:
             raise NotImplementedError(f"cube_dtype={cube_dtype} is not ported to "
                                       "photometry_tpu_torch yet (float32 cubes only)")
-        from ..io.cube import ImageCube   # h5py: only needed to read a cube file
         cubes = discovery.find_cube_files(input_folder, sector=sector, camera=camera, ccd=ccd)
         if len(cubes) != 1:
             raise FileNotFoundError(
@@ -287,7 +286,7 @@ class TargetResult:
     stamp_wcs: object = None
 
     def save(self, output_folder: str, version: int) -> str:
-        from photometry_tpu.core.lightcurve import save_lightcurve
+        from .lightcurve import save_lightcurve
         path = save_lightcurve(self, output_folder, version, sumimage=self.sumimage_stamp,
                                stamp_wcs=self.stamp_wcs,
                                halo_weightmap=self.details.get("halo_weightmap"))

@@ -16,9 +16,8 @@ import math
 
 import torch
 
-from photometry_tpu.quality import TESSQualityFlags
-
 from .. import device  # noqa: F401  (float32 precision policy)
+from ..quality import TESSQualityFlags
 from ..utils.mathutils import nanmedian, polyfit_detrend, ptp_metric, rms_timescale
 
 __all__ = ["compute_metrics_batch", "crowding_metrics_batch"]

@@ -19,8 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from photometry_tpu.io.fits import Header
-
+from ..io.fits import Header
 from ..io.wcs import TanWCS
 
 __all__ = ["MotionModel"]

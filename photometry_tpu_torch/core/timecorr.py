@@ -45,7 +45,7 @@ class SpacecraftEphemeris:
                   ) -> "SpacecraftEphemeris":
         """Analytic Earth + TESS-like orbit ephemeris (validation grade; see
         photometry_tpu.core.timecorr.SpacecraftEphemeris.synthetic)."""
-        from photometry_tpu.core.ephem_analytic import earth_barycentric, tess_geocentric
+        from .ephem_analytic import earth_barycentric, tess_geocentric
         t = np.arange(jd_start, jd_end + step_days, step_days)
         earth = earth_barycentric(t)
         return cls(time=t, pos=earth + tess_geocentric(t), pos_earth=earth)
@@ -97,7 +97,7 @@ def load_cached_ephemeris() -> SpacecraftEphemeris:
     Never downloads."""
     path = ephemeris_path()
     if not os.path.exists(path):
-        from photometry_tpu.io.settings import sector_info
+        from ..io.settings import sector_info
         refs = [s.reference_time for s in sector_info().values()]
         SpacecraftEphemeris.synthetic(min(refs) - 30, max(refs) + 30, step_days=0.25).save(path)
     return SpacecraftEphemeris.load(path)

@@ -213,7 +213,7 @@ class TanWCS:
     # -- header round-trip -----------------------------------------------------
     @classmethod
     def from_header(cls, hdr) -> "TanWCS":
-        """Parse from a FITS header (mapping-like; photometry_tpu Header or dict)."""
+        """Parse from a FITS header (mapping-like; io.fits.Header or dict)."""
         get = hdr.get if hasattr(hdr, "get") else hdr.__getitem__
         crpix = np.array([float(get("CRPIX1", 0.0)), float(get("CRPIX2", 0.0))])
         crval = np.array([float(get("CRVAL1", 0.0)), float(get("CRVAL2", 0.0))])
@@ -256,9 +256,9 @@ class TanWCS:
                    sip_b=sip_b, sip_b_pow=sip_b_pow, sip_order=order)
 
     def to_header(self, hdr=None):
-        """Write WCS keywords into a header (photometry_tpu Header or dict)."""
+        """Write WCS keywords into a header (io.fits.Header or dict)."""
         if hdr is None:
-            from photometry_tpu.io.fits import Header
+            from .fits import Header
             hdr = Header()
         setter = hdr.set if hasattr(hdr, "set") else hdr.__setitem__
         suffix = "-SIP" if self.sip_a is not None else ""

@@ -9,7 +9,8 @@ source, so an edited source is rebuilt, never stale.  Nothing here runs at
 import: the CPU tests import every module on a machine without ``nvcc``.
 
 A failed build or launch raises :class:`KernelError`; no caller falls back
-to a plain version.
+to a plain version.  :func:`build_all` starts one ``nvcc`` per source at
+once; ``build_log`` keeps what ``ptxas -v`` said (registers, spills).
 """
 
 from __future__ import annotations
@@ -23,12 +24,12 @@ import tempfile
 import threading
 from time import perf_counter
 
-__all__ = ["KernelError", "CudaLibrary", "BAND_EXTRACT"]
+__all__ = ["KernelError", "CudaLibrary", "BAND_EXTRACT", "PSF_WARM_FIT", "build_all"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-split-compile", "0"]
 
 
 class KernelError(RuntimeError):
@@ -59,6 +60,7 @@ class CudaLibrary:
         self._lock = threading.Lock()
         self.launches = 0
         self.build_seconds = None   #: wall of the nvcc run, None if loaded from _build
+        self.build_log = ""         #: nvcc's stderr (ptxas -v) of this process's build
 
     def lib(self) -> ctypes.CDLL:
         with self._lock:
@@ -78,6 +80,7 @@ class CudaLibrary:
             proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source],
                                   capture_output=True, text=True)
             self.build_seconds = perf_counter() - tic
+            self.build_log = proc.stderr
             if proc.returncode != 0:
                 os.unlink(tmp)
                 raise KernelError(f"nvcc failed for {self.source}:\n{proc.stderr}")
@@ -92,7 +95,34 @@ class CudaLibrary:
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
+_L, _F = ctypes.c_int64, ctypes.c_float
+
 #: ops/csrc/band_extract.cu — see ops.bandext.band_sums_cuda.
 BAND_EXTRACT = CudaLibrary("band_extract", {
     "band_extract_sums": (_I, [_P] * 9 + [_I] * 6 + [_P]),
 })
+
+#: ops/csrc/psf_warm_fit.cu — see models.psf_fused.fused_warm_fit_cuda.
+PSF_WARM_FIT = CudaLibrary("psf_warm_fit", {
+    "psf_warm_fit": (_I, [_P] * 11 + [_L] + [_I] * 5 + [_I] * 4 + [_F] + [_I] * 4 + [_F]
+                     + [_I] + [_F] * 2 + [_P]),
+})
+
+LIBRARIES = (BAND_EXTRACT, PSF_WARM_FIT)
+
+
+def build_all() -> None:
+    """Build every kernel library at once, one nvcc process each."""
+    threads = [threading.Thread(target=lib.lib) for lib in LIBRARIES]
+    errors = []
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for lib in LIBRARIES:
+        try:
+            lib.lib()
+        except KernelError as e:
+            errors.append(str(e))
+    if errors:
+        raise KernelError("\n".join(errors))

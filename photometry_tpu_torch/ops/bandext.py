@@ -23,8 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from photometry_tpu.quality import PixelQualityFlags
-
+from ..quality import PixelQualityFlags
 from ._kernels import BAND_EXTRACT, KernelError
 
 __all__ = ["NQ", "band_extract_flux_batch", "band_sums", "band_sums_plain",

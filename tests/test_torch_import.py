@@ -1,11 +1,15 @@
-"""The port stands without JAX, and its CUDA kernel agrees with its plain version.
+"""The port stands without JAX and the JAX package, and its CUDA kernels
+agree with their plain versions.
 
-- In a subprocess whose ``sys.meta_path`` refuses ``jax``/``jaxlib``, every
-  module of the slice imports and ``extract_aperture_batch`` runs on a tiny
+- In a subprocess whose ``sys.meta_path`` refuses ``jax``, ``jaxlib`` and
+  ``photometry_tpu`` (the first dotted component, so
+  ``photometry_tpu_torch`` passes), every module of the port imports, and
+  ``extract_aperture_batch`` and ``extract_psf_batch`` run on a tiny
   ``SectorContext.from_arrays`` context on the CPU.
-- No module of ``photometry_tpu_torch`` has an ``import jax`` statement.
-- ``test_band_kernel_matches_plain_on_card`` needs a CUDA card (marker
-  ``cuda``) and skips without one.  Run it on the card with
+- No module of ``photometry_tpu_torch``, and not ``chip_smoke.py``, has an
+  import statement naming ``jax``, ``jaxlib`` or ``photometry_tpu``.
+- The ``*_on_card`` tests need a CUDA card (marker ``cuda``) and skip
+  without one.  Run them on the card with
   ``python -m pytest --noconftest -m cuda tests/test_torch_import.py``
   (the repository's conftest.py imports JAX).
 """
@@ -27,32 +31,26 @@ PKG = os.path.join(ROOT, "photometry_tpu_torch")
 _SCRIPT = r'''
 import importlib.abc, sys, tempfile
 
-class _NoJax(importlib.abc.MetaPathFinder):
+BLOCKED = ("jax", "jaxlib", "photometry_tpu")
+
+class _Blocked(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError(f"jax is blocked: {name}")
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is blocked")
         return None
 
-sys.meta_path.insert(0, _NoJax())
+sys.meta_path.insert(0, _Blocked())
 import numpy as np
 import torch
 
-MODULES = ["photometry_tpu_torch", "photometry_tpu_torch.device",
-           "photometry_tpu_torch.io.wcs", "photometry_tpu_torch.utils.mathutils",
-           "photometry_tpu_torch.utils.logutils", "photometry_tpu_torch.ops.filters",
-           "photometry_tpu_torch.ops.labeling", "photometry_tpu_torch.ops._kernels",
-           "photometry_tpu_torch.ops.bandext", "photometry_tpu_torch.models.k2p2",
-           "photometry_tpu_torch.core.metrics", "photometry_tpu_torch.core.motion",
-           "photometry_tpu_torch.core.timecorr", "photometry_tpu_torch.core.engine",
-           "photometry_tpu_torch.core.dispatcher", "photometry_tpu_torch.core.drain",
-           "photometry_tpu_torch.cli.photometry_cmd"]
 for m in MODULES:
     __import__(m)
 
-from photometry_tpu.catalog import make_catalog_from_arrays
-from photometry_tpu.core.status import STATUS
+from photometry_tpu_torch.catalog import make_catalog_from_arrays
 from photometry_tpu_torch.core.engine import SectorContext, extract_aperture_batch
+from photometry_tpu_torch.core.status import STATUS
 from photometry_tpu_torch.io.wcs import TanWCS
+from photometry_tpu_torch.models.psf_fit import extract_psf_batch
 
 rng = np.random.default_rng(0)
 H = W = 64
@@ -79,17 +77,39 @@ ctx = SectorContext.from_arrays(
 res = extract_aperture_batch(ctx, [1, 2, 3, 4])
 assert all(r.status in (STATUS.OK, STATUS.WARNING) for r in res), [r.status for r in res]
 assert all(np.isfinite(r.lightcurve["flux"]).all() for r in res)
-assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
-print("OK", len(res))
+psf = extract_psf_batch(ctx, [1, 2, 3, 4])
+assert all(r.status in (STATUS.OK, STATUS.WARNING) for r in psf), [r.status for r in psf]
+assert all(np.isfinite(r.lightcurve["flux"]).all() for r in psf)
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+print("OK", len(res), len(psf))
 '''
+
+_IGNORED = {"_build", "__pycache__"}
+
+
+def _modules():
+    """Every module of photometry_tpu_torch, by dotted name."""
+    out = []
+    for dirpath, dirs, files in os.walk(PKG):
+        dirs[:] = sorted(d for d in dirs if d not in _IGNORED)
+        rel = os.path.relpath(dirpath, ROOT).replace(os.sep, ".")
+        for f in sorted(files):
+            if f == "__init__.py":
+                out.append(rel)
+            elif f.endswith(".py"):
+                out.append(f"{rel}.{f[:-3]}")
+    return out
 
 
 def test_slice_runs_with_jax_blocked():
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    proc = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=ROOT, env=env,
+    modules = _modules()
+    assert "photometry_tpu_torch.models.psf_fused" in modules
+    script = f"MODULES = {modules!r}\n" + _SCRIPT
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "OK 4" in proc.stdout
+    assert "OK 4 4" in proc.stdout
 
 
 def _py_files():
@@ -97,17 +117,21 @@ def _py_files():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
 
 
 def test_no_module_imports_jax():
+    """No import statement (absolute; relative ones stay inside the port)
+    names jax, jaxlib or the JAX package."""
     offenders = []
     for path in _py_files():
         with open(path) as fh:
             tree = ast.parse(fh.read(), path)
         for node in ast.walk(tree):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
-                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
-            if any(n.split(".")[0] in ("jax", "jaxlib") for n in names):
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom)
+                     and node.level == 0 else [])
+            if any(n.split(".")[0] in ("jax", "jaxlib", "photometry_tpu") for n in names):
                 offenders.append(f"{os.path.relpath(path, ROOT)}:{node.lineno}")
     assert not offenders, offenders
 
@@ -142,3 +166,54 @@ def test_band_kernel_matches_plain_on_card():
     assert BAND_EXTRACT.launches == before + 1
     want = bandext.band_sums_plain(*args, windows=win)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_psf_kernel_matches_plain_on_card(tmp_path):
+    """psf_warm_fit against its plain version at S=3 (the well-posed problems
+    of tests/test_psf_pallas.py, its tight bounds) and S=5, K=3 (a two-star
+    table PRF, its crowded-stamp percentile bounds)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from photometry_tpu_torch.models.prf import PRF
+    from photometry_tpu_torch.models.psf_fused import fused_warm_fit_cuda, fused_warm_fit_plain
+    from photometry_tpu_torch.ops._kernels import PSF_WARM_FIT
+    m = 72
+    offs = np.arange(-m, m + 1) / 9
+    rng = np.random.default_rng(0)
+    for S, terms, n_iters in ((3, [(1.0, 1.2)], 4), (5, [(0.7, 1.1), (0.3, 2.0)], 6)):
+        g = sum(a * np.exp(-0.5 * (offs[:, None] ** 2 + offs[None, :] ** 2) / s ** 2)
+                for a, s in terms)
+        path = str(tmp_path / f"tess-s{S}-1-1-characterized-prf.mat")
+        PRF.write_mat(path, [g / (g.sum() / 81)], [1024.0], [1024.0])
+        prf = PRF.from_mat(path, 1, 1, 1, (0, 15, 0, 15), device="cuda")
+        B, h = 256, 11 if S == 3 else 15
+        rows = h / 2 - 0.5 + rng.uniform(-2, 2, (B, S))
+        cols = h / 2 - 0.5 + rng.uniform(-2, 2, (B, S))
+        flux = 800.0 + 3000.0 * rng.uniform(size=(B, S))
+        par = torch.as_tensor(np.stack([rows, cols, flux], -1), dtype=torch.float32,
+                              device="cuda")
+        imgs = prf.integrate_to_image(par, (h, h), 5.0).cpu().numpy() + 5.0
+        imgs = (imgs + 0.8 * rng.normal(size=imgs.shape)).astype(np.float32)
+        imgs[1, 2, 3] = np.nan
+        p0 = np.concatenate([rows, cols, flux], 1) + 0.25 * rng.normal(size=(B, 3 * S))
+        valid = np.ones((B, S), bool)
+        valid[::3, S - 1] = False
+        mini = np.zeros((B, h, h), bool)
+        mini[:, h // 2 - 2:h // 2 + 3, h // 2 - 2:h // 2 + 3] = True
+        onehot = np.zeros((B, S), np.float32)
+        onehot[:, 0] = 1.0
+        args = [torch.as_tensor(a, device="cuda") for a in
+                (imgs, np.full_like(imgs, 2.0), p0.astype(np.float32), valid, mini, onehot)]
+        before = PSF_WARM_FIT.launches
+        got = fused_warm_fit_cuda(args[0], args[1], 1.0, *args[2:], prf, (h, h), S, n_iters)
+        torch.cuda.synchronize()
+        assert PSF_WARM_FIT.launches == before + 1
+        want = fused_warm_fit_plain(args[0], args[1], 1.0, *args[2:], prf, (h, h), S, n_iters)
+        pg, pw = got["params"].cpu().numpy(), want["params"].cpu().numpy()
+        assert np.isfinite(pg).all()
+        pos = np.abs(pg[:, :2 * S] - pw[:, :2 * S])[np.concatenate([valid, valid], 1)]
+        rel = (np.abs(pg[:, 2 * S:] - pw[:, 2 * S:]) / np.maximum(pw[:, 2 * S:], 10.0))[valid]
+        assert np.percentile(pos, 90) < 5e-3 and np.percentile(rel, 90) < 5e-3, S
+        if S == 3:
+            assert np.percentile(rel, 95) < 1e-3, np.percentile(rel, 95)
