@@ -3,15 +3,22 @@ photometry_tpu_torch — the PyTorch + CUDA port of photometry_tpu.
 
 The JAX package ``photometry_tpu`` is the reference; this package mirrors
 its layout (``core/engine.py``, ``ops/bandext.py``, ...) so each counterpart
-is found by path.  It imports ``torch`` and never ``jax``: the host modules
-it shares with the reference are only the jax-free ones (``catalog``,
-``io.fits``, ``io.settings``, ``io.discovery``, ``quality``,
-``taskmanager``, ``core.lightcurve``, ``core.status``).
+is found by path.  It imports ``torch`` and never ``jax`` nor any module of
+``photometry_tpu``: it keeps its own copies of the host modules it needs
+(``catalog``, ``fixes``, ``quality``, ``taskmanager``, ``io.fits``,
+``io.settings``, ``io.discovery``, ``io.tess``, ``io.loader``, ...).
 
-Ported so far: the FFI aperture slice — K2P2 masks, banded extraction
-(a hand-written Hopper kernel, ``ops/csrc/band_extract.cu``), metrics,
-jitter, the batch dispatcher, the drain and the ``photometry`` CLI with
-``--method aperture``.
+Ported so far, each TPU kernel as a hand-written Hopper kernel under
+``ops/csrc/``:
+
+- the FFI aperture slice: K2P2 masks, banded extraction
+  (``band_extract.cu``), metrics, jitter, the batch dispatcher, the drain
+  and the ``photometry`` CLI;
+- the PSF method with its fused warm-start fit (``psf_warm_fit.cu``);
+- the prepare stage (FFIs -> cube): background fit with the ring
+  histogram (``segment_hist.cu``), time smoothing, the Background
+  Shenanigans detector with the 15x15 median (``median15.cu``), and the
+  ``prepare`` CLI.
 """
 
 from . import device  # noqa: F401  (sets the float32 precision policy)

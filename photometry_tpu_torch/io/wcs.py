@@ -210,6 +210,18 @@ class TanWCS:
         x, y = self.world_to_pixel(ra, dec)
         return y - 1.0, x - 1.0
 
+    def shifted(self, drow: float = 0.0, dcol: float = 0.0) -> "TanWCS":
+        """The same sky solution on a cropped/translated pixel grid where
+        new (row, col) = old (row, col) - (drow, dcol).
+
+        A pure CRPIX shift: SIP u/v are CRPIX-relative, so the distortion
+        coefficients carry over unchanged.  Converts the raw-frame WCS of
+        flight FFIs (columns 1..2136 incl. overscan) into the science-area
+        frame (io/tess.read_ffi).
+        """
+        return dataclasses.replace(
+            self, crpix=self.crpix - np.array([dcol, drow], np.float64))
+
     # -- header round-trip -----------------------------------------------------
     @classmethod
     def from_header(cls, hdr) -> "TanWCS":

@@ -24,7 +24,8 @@ import tempfile
 import threading
 from time import perf_counter
 
-__all__ = ["KernelError", "CudaLibrary", "BAND_EXTRACT", "PSF_WARM_FIT", "build_all"]
+__all__ = ["KernelError", "CudaLibrary", "BAND_EXTRACT", "PSF_WARM_FIT", "MEDIAN15",
+           "SEGMENT_HIST", "build_all"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
@@ -108,7 +109,18 @@ PSF_WARM_FIT = CudaLibrary("psf_warm_fit", {
                      + [_I] + [_F] * 2 + [_P]),
 })
 
-LIBRARIES = (BAND_EXTRACT, PSF_WARM_FIT)
+#: ops/csrc/median15.cu — see ops.median15.median15_cuda.
+MEDIAN15 = CudaLibrary("median15", {
+    "median15": (_I, [_P] * 2 + [_I] * 3 + [_P]),
+})
+
+#: ops/csrc/segment_hist.cu — see ops.seghist.segment_histogram_cuda.
+SEGMENT_HIST = CudaLibrary("segment_hist", {
+    "segment_hist": (_I, [_P] * 5 + [_I] + [_L] + [_I] * 3 + [_P]),
+    "segment_hist_max_cells": (_I, []),
+})
+
+LIBRARIES = (BAND_EXTRACT, PSF_WARM_FIT, MEDIAN15, SEGMENT_HIST)
 
 
 def build_all() -> None:

@@ -1,11 +1,21 @@
 """
-Gaussian blur for the watershed preprocessing, on torch tensors.
+Image filters on torch tensors: Gaussian blur, median filters, time smoothing.
 
-Port of ``photometry_tpu/ops/filters.py:gaussian_blur2d``: the separable
-reflect-padded blur as two static band-matrix matmuls ``G_r @ img @ G_c^T``
-(exact; the band matrices are built once per size in numpy float64 and cast
-to float32, as in the reference).  TF32 is off (``device.py``), so both
-matmuls run in full float32 like the reference's ``Precision.HIGHEST``.
+Port of ``photometry_tpu/ops/filters.py``:
+
+- :func:`gaussian_blur2d`: the separable reflect-padded blur of the
+  watershed preprocessing as two static band-matrix matmuls
+  ``G_r @ img @ G_c^T`` (exact; the band matrices are built once per size
+  in numpy float64 and cast to float32, as in the reference).  TF32 is off
+  (``device.py``), so both matmuls run in full float32 like the
+  reference's ``Precision.HIGHEST``.
+- :func:`median_filter2d_chunked`: the exact k x k median of the
+  Background-Shenanigans detector (``ops/median15.py``: the CUDA kernel on
+  a card, the row-chunked shifted-stack bisection on the CPU).
+- :func:`median_filter2d`: the NaN-ignoring shifted-stack median of small
+  images.
+- :func:`time_moving_nanmean` (and its blocked form): the prepare stage's
+  background time smoothing by running sums.
 """
 
 from __future__ import annotations
@@ -16,8 +26,11 @@ import numpy as np
 import torch
 
 from .. import device  # noqa: F401  (float32 precision policy)
+from ..utils.mathutils import nanmedian
+from .median15 import _symmetric_pad, median_filter
 
-__all__ = ["gaussian_blur2d"]
+__all__ = ["gaussian_blur2d", "median_filter2d", "median_filter2d_chunked",
+           "time_moving_nanmean", "time_moving_nanmean_blocked"]
 
 
 @functools.lru_cache(maxsize=64)
@@ -47,3 +60,79 @@ def gaussian_blur2d(img: torch.Tensor, sigma: float = 1.0) -> torch.Tensor:
     Gr = torch.from_numpy(_blur_matrix(h, float(sigma)).copy()).to(img.device)
     Gc = torch.from_numpy(_blur_matrix(w, float(sigma)).copy()).to(img.device)
     return torch.matmul(torch.matmul(Gr, img), Gc.T)
+
+
+def time_moving_nanmean(x: torch.Tensor, window: int = 3) -> torch.Tensor:
+    """Centred moving nanmean along dim 0 with shrinking edge windows.
+
+    The reference's background time smoothing (prepare.py:309-338) by
+    running sums: one float32 cumsum over T instead of a ``window``-deep
+    stack.
+    """
+    T = x.shape[0]
+    half = window // 2
+    fin = torch.isfinite(x)
+    zero = torch.zeros((1,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    cs = torch.cat([zero, torch.cumsum(torch.where(fin, x, 0.0), dim=0)], dim=0)
+    cc = torch.cat([zero.to(torch.int32), torch.cumsum(fin.to(torch.int32), dim=0,
+                                                        dtype=torch.int32)], dim=0)
+    t = torch.arange(T, device=x.device)
+    lo = torch.clamp(t - half, 0, T)
+    hi = torch.clamp(t + half + 1, 0, T)
+    s = cs[hi] - cs[lo]
+    n = cc[hi] - cc[lo]
+    return torch.where(n > 0, s / torch.clamp(n, min=1), torch.nan)
+
+
+def time_moving_nanmean_blocked(x: torch.Tensor, window: int = 3, block: int = 256) -> torch.Tensor:
+    """:func:`time_moving_nanmean` over halo'd T-blocks of ``block`` frames
+    (the running sums stay short; the windows are the same)."""
+    T = x.shape[0]
+    half = window // 2
+    if T <= block:
+        return time_moving_nanmean(x, window)
+    out = torch.empty_like(x, dtype=torch.float32)
+    for t0 in range(0, T, block):
+        t1 = min(t0 + block, T)
+        lo, hi = max(0, t0 - half), min(T, t1 + half)
+        out[t0:t1] = time_moving_nanmean(x[lo:hi], window)[t0 - lo:t0 - lo + (t1 - t0)]
+    return out
+
+
+def median_filter2d(img: torch.Tensor, size: int = 15, mode: str = "reflect") -> torch.Tensor:
+    """k x k NaN-ignoring median filter of (..., H, W) images.
+
+    ``mode='reflect'`` is scipy.ndimage's default border (numpy
+    ``symmetric``); ``mode='nan'`` pads with NaN so border medians use
+    fewer samples.  Materialises the k^2-deep stack: small images only.
+    """
+    half = size // 2
+    lead = img.shape[:-2]
+    x = img.reshape((-1,) + tuple(img.shape[-2:])).to(torch.float32)
+    if mode == "reflect":
+        padded = _symmetric_pad(x, half)
+    elif mode == "nan":
+        padded = torch.nn.functional.pad(x, (half,) * 4, value=float("nan"))
+    else:
+        raise ValueError(f"Unknown mode {mode}")
+    H, W = x.shape[-2:]
+    stack = torch.stack([padded[:, dy:dy + H, dx:dx + W]
+                         for dy in range(size) for dx in range(size)], dim=-1)
+    return nanmedian(stack, dim=-1).reshape(lead + (H, W))
+
+
+def median_filter2d_chunked(img: torch.Tensor, size: int = 15, chunk_rows: int = 0,
+                            budget_bytes: float = 3e8, plain: bool = False) -> torch.Tensor:
+    """Exact k x k median filter of (H, W) or (F, H, W) images, NaNs zeroed first.
+
+    The reference's scipy.ndimage.median_filter is not NaN-aware either
+    (pixel_flags.py:61-79).  k = 15 runs the median kernel on a card; the
+    plain version (any odd k) runs on the CPU, in row blocks under
+    ``budget_bytes`` (or ``chunk_rows``), and anywhere with ``plain``.
+    """
+    arr = torch.nan_to_num(img.to(torch.float32))
+    squeeze = arr.ndim == 2
+    if squeeze:
+        arr = arr[None]
+    out = median_filter(arr, size, chunk_rows=chunk_rows, budget_bytes=budget_bytes, plain=plain)
+    return out[0] if squeeze else out

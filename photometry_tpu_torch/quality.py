@@ -45,6 +45,11 @@ class TESSQualityFlags(_BitFlags):
     DEFAULT_BITMASK = (AttitudeTweak | SafeMode | CoarsePoint | EarthPoint
                        | Desat | ApertureCosmic | ManualExclude | ScatteredLight)
 
+    #: Flags relevant when transferring TPF quality onto FFI timestamps.
+    #: ManualExclude is deliberately excluded (it would reject ~20% of FFIs).
+    FFI_RELEVANT_BITMASK = (AttitudeTweak | SafeMode | CoarsePoint | EarthPoint
+                            | Desat | EarthMoonPlanetInFOV | ScatteredLight)
+
 
 class PixelQualityFlags(_BitFlags):
     """Per-pixel quality bitmask flags produced by the prepare stage."""

@@ -18,7 +18,7 @@ import torch
 
 __all__ = ["MAD_TO_SIGMA", "TESS_ZEROPOINT", "mag2flux", "nanmedian",
            "nanquantile", "nanmin", "nanmax", "rms_timescale", "ptp_metric",
-           "polyfit_detrend"]
+           "polyfit_detrend", "moving_median_central"]
 
 #: 1 / norm.ppf(3/4) — converts a median absolute deviation to a sigma.
 MAD_TO_SIGMA = 1.482602218505602
@@ -86,6 +86,25 @@ def nanmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     nan = torch.isnan(x)
     out = torch.where(nan, -torch.inf, x).amax(dim=dim)
     return torch.where(nan.all(dim=dim), torch.nan, out)
+
+
+def moving_median_central(x: torch.Tensor, width: int, dim: int = 0) -> torch.Tensor:
+    """Centred moving median along ``dim`` with shrinking edge windows.
+
+    The edge semantics of the reference's bottleneck ``move_median_central``
+    (photometry/utilities.py:52-62): at position k the window is
+    ``x[max(0, k - w//2) : k + w//2 + 1]``, over the points available; a
+    gather of all windows and :func:`nanmedian` over the window axis.
+    """
+    x = torch.movedim(x, dim, -1)
+    n = x.shape[-1]
+    half = width // 2
+    pos = torch.arange(n, device=x.device)[:, None] + (torch.arange(width, device=x.device)
+                                                       - half)[None, :]
+    valid = (pos >= 0) & (pos < n)
+    windows = x[..., torch.clamp(pos, 0, n - 1)]                     # (..., n, width)
+    out = nanmedian(torch.where(valid, windows, torch.nan), dim=-1)
+    return torch.movedim(out, -1, dim)
 
 
 def rms_timescale(time: torch.Tensor, flux: torch.Tensor,

@@ -1,11 +1,13 @@
 """The port stands without JAX and the JAX package, and its CUDA kernels
 agree with their plain versions.
 
-- In a subprocess whose ``sys.meta_path`` refuses ``jax``, ``jaxlib`` and
-  ``photometry_tpu`` (the first dotted component, so
-  ``photometry_tpu_torch`` passes), every module of the port imports, and
+- In a subprocess whose ``sys.meta_path`` refuses ``jax``, ``jaxlib``,
+  ``h5py`` and ``photometry_tpu`` (the first dotted component, so
+  ``photometry_tpu_torch`` passes), every module of the port imports,
   ``extract_aperture_batch`` and ``extract_psf_batch`` run on a tiny
-  ``SectorContext.from_arrays`` context on the CPU.
+  ``SectorContext.from_arrays`` context on the CPU, and the prepare stage
+  (``prepare.prepare_cube``) runs on a tiny simulated sector into
+  ``chip_smoke.DictCube``, the in-memory store the card's run uses.
 - No module of ``photometry_tpu_torch``, and not ``chip_smoke.py``, has an
   import statement naming ``jax``, ``jaxlib`` or ``photometry_tpu``.
 - The ``*_on_card`` tests need a CUDA card (marker ``cuda``) and skip
@@ -31,7 +33,7 @@ PKG = os.path.join(ROOT, "photometry_tpu_torch")
 _SCRIPT = r'''
 import importlib.abc, sys, tempfile
 
-BLOCKED = ("jax", "jaxlib", "photometry_tpu")
+BLOCKED = ("jax", "jaxlib", "h5py", "photometry_tpu")
 
 class _Blocked(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
@@ -80,8 +82,19 @@ assert all(np.isfinite(r.lightcurve["flux"]).all() for r in res)
 psf = extract_psf_batch(ctx, [1, 2, 3, 4])
 assert all(r.status in (STATUS.OK, STATUS.WARNING) for r in psf), [r.status for r in psf]
 assert all(np.isfinite(r.lightcurve["flux"]).all() for r in psf)
+
+from chip_smoke import DictCube
+from photometry_tpu_torch.io.discovery import find_ffi_files
+from photometry_tpu_torch.prepare import STAGES, prepare_cube
+files = find_ffi_files(SIM_DIR)
+cube = DictCube(len(files), (48, 48), keep_frames=2)
+walls = prepare_cube(cube, files, SIM_DIR, 1, 3, 2, device="cpu", chunk=4)
+assert cube.stages == set(STAGES), cube.stages
+assert np.isfinite(cube.arrays["backgrounds"]).all() and all(cube.wcs)
+assert cube.kept_resid.shape == (2, 48, 48) and cube.scratch is None
+
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
-print("OK", len(res), len(psf))
+print("OK", len(res), len(psf), len(files))
 '''
 
 _IGNORED = {"_build", "__pycache__"}
@@ -101,15 +114,21 @@ def _modules():
     return out
 
 
-def test_slice_runs_with_jax_blocked():
+def test_slice_runs_with_jax_blocked(tmp_path):
+    from photometry_tpu.sim.simulator import SimConfig, simulate_sector
+    sim = simulate_sector(SimConfig(shape=(48, 48), n_times=6, n_stars=8, seed=5))
+    sim.write_ffis(str(tmp_path))
+    sim.write_tpf(str(tmp_path), int(sim.starid[0]), n_times=60)
+    sim.write_catalog(str(tmp_path))
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     modules = _modules()
     assert "photometry_tpu_torch.models.psf_fused" in modules
-    script = f"MODULES = {modules!r}\n" + _SCRIPT
+    assert "photometry_tpu_torch.prepare" in modules
+    script = f"MODULES = {modules!r}\nSIM_DIR = {str(tmp_path)!r}\n" + _SCRIPT
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "OK 4 4" in proc.stdout
+    assert "OK 4 4 6" in proc.stdout
 
 
 def _py_files():
@@ -217,3 +236,55 @@ def test_psf_kernel_matches_plain_on_card(tmp_path):
         assert np.percentile(pos, 90) < 5e-3 and np.percentile(rel, 90) < 5e-3, S
         if S == 3:
             assert np.percentile(rel, 95) < 1e-3, np.percentile(rel, 95)
+
+
+@pytest.mark.cuda
+def test_median15_kernel_matches_plain_on_card():
+    """The 15x15 median kernel against its plain version, bit for bit: a
+    3.4e38 outlier, a flat region, signed zeros, a frame narrower than the
+    halo, and odd sizes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from photometry_tpu_torch.ops import median15
+    from photometry_tpu_torch.ops._kernels import MEDIAN15
+    rng = np.random.default_rng(0)
+    frames = rng.normal(100, 30, (3, 131, 257)).astype(np.float32)
+    frames[0, 60, 60] = 3.4028235e38
+    frames[1, :40, :40] = 7.0
+    frames[2, :20, :20] = rng.choice([0.0, -0.0], (20, 20))
+    for x in (frames, rng.normal(5, 2, (2, 6, 5)).astype(np.float32)):
+        xt = torch.as_tensor(x, device="cuda")
+        before = MEDIAN15.launches
+        got = median15.median15_cuda(xt)
+        torch.cuda.synchronize()
+        assert MEDIAN15.launches == before + 1
+        want = median15.median_filter_plain(xt)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_segment_hist_kernel_matches_plain_on_card():
+    """The segment-histogram kernel against its bincount: invalid and
+    out-of-range samples, empty segments, one bucket, a 64-ring table, and
+    a table too large for shared memory refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from photometry_tpu_torch.ops import seghist
+    from photometry_tpu_torch.ops._kernels import SEGMENT_HIST, KernelError
+    rng = np.random.default_rng(1)
+    n = 200_001
+    seg = rng.integers(-2, 44, n).astype(np.int32)
+    seg[(seg >= 5) & (seg <= 9)] = 11
+    cases = [(rng.integers(-3, 515, (4, n)), rng.uniform(size=(4, n)) < 0.7, 40),
+             (np.full((2, n), 3), np.ones((2, n), bool), 40),
+             (rng.integers(0, 512, (2, n)), np.ones((2, n), bool), 64)]
+    for b, good, n_seg in cases:
+        args = [torch.as_tensor(a, device="cuda") for a in
+                (seg, b.astype(np.int32), good)]
+        before = SEGMENT_HIST.launches
+        got = seghist.segment_histogram_cuda(*args, n_seg, 512)
+        torch.cuda.synchronize()
+        assert SEGMENT_HIST.launches == before + 1
+        assert torch.equal(got, seghist.segment_histogram_plain(*args, n_seg, 512))
+    with pytest.raises(KernelError):
+        seghist.segment_histogram_cuda(*args, 128, 512)

@@ -1,0 +1,242 @@
+"""Port parity of the prepare stage (FFI FITS -> sector-CCD cube), end to end on CPU.
+
+One simulated sector (96x96, 16 frames at 1800 s, 25 stars, one TPF, a
+catalog, and a saturated patch in one frame for the shenanigans flags) is
+prepared by the JAX package and by the port (``device="cpu"``)
+into two folders, and the cubes are compared dataset by dataset:
+
+- exact: time, timecorr, cadenceno, quality, time_start/time_stop, the
+  WCS strings, the attributes (header, stage markers, WCS_REF_FRAME, ...),
+  the datasets' dtypes, shapes, chunks and compression, the sum image's
+  NaN pattern, images_err, and the NotUsedForBackground / ManualExclude
+  flags;
+- BackgroundShenanigans: equal except where |residual - robust mean| lies
+  within EPS_SHEN of the 40 e-/s threshold (the residuals inherit the
+  backgrounds' float32 differences);
+- backgrounds and images: rtol 1e-3 + atol 0.05 e-/s, the tolerance
+  tests/test_prepare.py:145 allows between two chunkings of one package
+  (measured max 0.03 e-/s: log10 and summation order, see
+  tests/test_torch_prepare_ops.py); the sum image the same.
+
+The cube is the state this stage hands on: each package opens the other's
+cube, and the port's aperture ``photometry_batch`` runs on both.
+"""
+
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import DictCube
+from torch_parity import ATOL, RTOL
+
+from photometry_tpu.core.pixelflags import shenanigans_residual as jax_resid
+from photometry_tpu.io.cube import ImageCube as JaxCube
+from photometry_tpu.prepare import prepare_photometry as jax_prepare
+from photometry_tpu.prepare import quality_from_tpf as jax_quality_from_tpf
+from photometry_tpu.sim.simulator import SimConfig, simulate_sector
+from photometry_tpu_torch import prepare as prep
+from photometry_tpu_torch.cli import prepare_cmd
+from photometry_tpu_torch.core.dispatcher import photometry_batch
+from photometry_tpu_torch.core.engine import SectorContext
+from photometry_tpu_torch.core.status import STATUS
+from photometry_tpu_torch.io.cube import ImageCube
+from photometry_tpu_torch.ops.filters import time_moving_nanmean
+from photometry_tpu_torch.quality import PixelQualityFlags
+
+BKG_RTOL, BKG_ATOL = 1e-3, 0.05
+EPS_SHEN = 0.5          #: e-/s around the 40 e-/s shenanigans threshold
+
+
+@pytest.fixture(scope="module")
+def prepared(tmp_path_factory):
+    base = tmp_path_factory.mktemp("torch_prepare")
+    d = str(base / "in")
+    sim = simulate_sector(SimConfig(shape=(96, 96), n_times=16, n_stars=25, seed=11))
+    # A saturated 22x22 patch in one frame: excluded from its background fit
+    # (above flux_cutoff), so the shenanigans detector flags it.
+    sim.images[6, 40:62, 50:72] += 1e5
+    sim.write_ffis(d)
+    tpf = sim.write_tpf(d, int(sim.starid[0]), n_times=200)
+    sim.write_catalog(d)
+    out = {}
+    for name in ("jax", "torch"):
+        out[name] = str(base / name)
+        sim.write_catalog(out[name])          # photometry on the cube needs the catalog
+    (pj,) = jax_prepare(d, output_folder=out["jax"])
+    (pt,) = prep.prepare_photometry(d, output_folder=out["torch"], device="cpu")
+    return sim, d, tpf, out, pj, pt
+
+
+def test_vectors_wcs_attrs_and_layout_equal(prepared):
+    *_, pj, pt = prepared
+    with JaxCube(pj) as a, ImageCube(pt) as b:
+        for k in ("time", "timecorr", "cadenceno", "quality"):
+            np.testing.assert_array_equal(getattr(b, k), getattr(a, k), err_msg=k)
+        for k in ("time_start", "time_stop", "bkg_pixels_used"):
+            np.testing.assert_array_equal(np.asarray(b.h5[k]), np.asarray(a.h5[k]), err_msg=k)
+        assert b.wcs_strings() == a.wcs_strings() and all(a.wcs_strings())
+        assert dict(b.h5.attrs) .keys() == dict(a.h5.attrs).keys()
+        for k, v in a.h5.attrs.items():
+            np.testing.assert_array_equal(b.h5.attrs[k], v, err_msg=k)
+        assert b.h5.attrs["_stages_done"] == ",".join(sorted(prep.STAGES))
+        assert sorted(b.h5.keys()) == sorted(a.h5.keys())
+        for k in a.h5.keys():
+            da, db = a.h5[k], b.h5[k]
+            assert (db.dtype, db.shape, db.chunks, db.compression, db.shuffle) == \
+                (da.dtype, da.shape, da.chunks, da.compression, da.shuffle), k
+
+
+def test_images_backgrounds_sumimage(prepared):
+    *_, pj, pt = prepared
+    with JaxCube(pj) as a, ImageCube(pt) as b:
+        np.testing.assert_array_equal(b.images_err(), a.images_err())
+        for k in ("backgrounds", "images"):
+            np.testing.assert_allclose(getattr(b, k)(), getattr(a, k)(), rtol=BKG_RTOL,
+                                       atol=BKG_ATOL, equal_nan=True, err_msg=k)
+        np.testing.assert_array_equal(np.isnan(b.sumimage), np.isnan(a.sumimage))
+        np.testing.assert_allclose(b.sumimage, a.sumimage, rtol=BKG_RTOL, atol=BKG_ATOL,
+                                   equal_nan=True)
+
+
+def test_pixel_flags(prepared):
+    *_, pj, pt = prepared
+    with JaxCube(pj) as a, ImageCube(pt) as b:
+        fa, fb = a.pixelflags(), b.pixelflags()
+        images, sumimage = a.images(), a.sumimage
+    for bit in (PixelQualityFlags.NotUsedForBackground, PixelQualityFlags.ManualExclude):
+        np.testing.assert_array_equal(fb & bit, fa & bit)
+    # The JAX stage's residual and robust mean, to find pixels near the threshold:
+    resid = jax_resid(np.nan_to_num(images), sumimage.astype(np.float32))
+    order = np.random.default_rng(0).permutation(len(resid))
+    meds = [np.nanmedian(resid[np.sort(order[k:k + 25])], axis=0)
+            for k in range(0, len(resid), 25)]
+    mean_she = np.mean([np.nan_to_num(m).astype(np.float64) for m in meds], axis=0)
+    margin = np.abs(np.abs(resid - mean_she) - 40.0)
+    bit = PixelQualityFlags.BackgroundShenanigans
+    differ = (fa & bit) != (fb & bit)
+    assert not np.any(differ & (margin > EPS_SHEN)), int(differ.sum())
+    assert (fa & bit).any()
+
+
+def test_quality_from_tpf_matches_jax(prepared):
+    sim, _, tpf, *_ = prepared
+    t0, t1 = sim.time - 900 / 86400, sim.time + 900 / 86400
+    np.testing.assert_array_equal(prep.quality_from_tpf(tpf, t0, t1),
+                                  jax_quality_from_tpf(tpf, t0, t1))
+
+
+def _aperture(folder, sids):
+    ctx = SectorContext(folder, 1, 3, 2, device="cpu")
+    tasks = [{"priority": i + 1, "starid": s, "method": "aperture", "datasource": "ffi"}
+             for i, s in enumerate(sids)]
+    try:
+        return photometry_batch(ctx, tasks, save=False)
+    finally:
+        ctx.close()
+
+
+def test_cube_is_read_by_both_packages(prepared):
+    """The JAX package opens the port's cube and the port the JAX one; the
+    port's aperture photometry gives the same statuses and light curves on
+    both cubes, to tests/test_torch_slice.py's flux tolerance."""
+    sim, _, _, out, pj, pt = prepared
+    with JaxCube(pt) as a, ImageCube(pj) as b:
+        assert a.is_done("wcs_ref") and b.is_done("wcs_ref")
+        np.testing.assert_array_equal(a.reference_wcs().crpix, b.reference_wcs().crpix)
+        np.testing.assert_array_equal(a.pixelflags().shape, b.pixelflags().shape)
+    sids = [int(s) for s in sim.starid[:12]]
+    on_jax, on_torch = _aperture(out["jax"], sids), _aperture(out["torch"], sids)
+    n_ok = 0
+    for g, w in zip(on_torch, on_jax):
+        assert g.status == w.status, g.starid
+        if w.status not in (STATUS.OK, STATUS.WARNING):
+            continue
+        n_ok += 1
+        np.testing.assert_array_equal(g.mask, w.mask, err_msg=str(g.starid))
+        for k in ("flux", "flux_err", "flux_background"):
+            np.testing.assert_allclose(g.lightcurve[k], w.lightcurve[k], rtol=RTOL, atol=ATOL,
+                                       equal_nan=True, err_msg=f"{g.starid} {k}")
+    assert n_ok >= 9
+
+
+@pytest.mark.parametrize("window,chunk", [(3, 4), (9, 5), (9, 64)])
+def test_streamed_smoothing_matches_single_shot(window, chunk):
+    """The port's counterpart of test_smooth_backgrounds_in_place_matches_global,
+    on the in-memory store chip_smoke.py runs the stage into: block k's
+    result overwrites the raw frames block k+1 needs as its left halo, so
+    those are carried; only float32 running-sum order differs."""
+    rng = np.random.default_rng(5)
+    raw = (100 + 10 * rng.standard_normal((17, 24, 24))).astype(np.float32)
+    raw[3, 5, 5] = np.nan
+    cube = DictCube(raw.shape[0], raw.shape[1:])
+    cube.write_block("backgrounds", 0, raw)
+    prep.smooth_backgrounds(cube, window, chunk, "cpu")
+    want = time_moving_nanmean(torch.from_numpy(raw), window).numpy()
+    np.testing.assert_allclose(cube.backgrounds(), want, rtol=2e-6, atol=1e-4)
+
+
+def test_streamed_chunks_match_single_shot(tmp_path):
+    """prepare_one with chunk 4 (< T) matches one chunk: halos, carries and the
+    scratch stack cross chunk boundaries (tests/test_prepare.py:145)."""
+    small = simulate_sector(SimConfig(shape=(64, 64), n_times=14, n_stars=12, seed=21))
+    cubes = {}
+    for chunk in (4, 64):
+        d = str(tmp_path / f"chunk{chunk}")
+        small.write_ffis(d)
+        cubes[chunk] = prep.prepare_one(d, 1, 3, 2, chunk=chunk, device="cpu")
+    with ImageCube(cubes[4]) as a, ImageCube(cubes[64]) as b:
+        np.testing.assert_allclose(a.backgrounds(), b.backgrounds(), rtol=1e-3, atol=0.05)
+        np.testing.assert_array_equal(a.pixelflags(), b.pixelflags())
+        np.testing.assert_allclose(np.nan_to_num(a.images()), np.nan_to_num(b.images()),
+                                   rtol=1e-3, atol=0.05)
+        assert "_scratch_resid" not in a.h5
+
+
+def test_cli_resumes_and_refuses_movement_kernels(prepared, tmp_path, capsys):
+    _, d, _, out, _, pt = prepared
+    mtime = os.path.getmtime(pt)
+    assert prepare_cmd.main(["-q", "--device", "cpu", "-o", out["torch"], d]) == 0
+    assert capsys.readouterr().out.split() == [pt]
+    with ImageCube(pt) as cube:
+        assert all(cube.is_done(s) for s in prep.STAGES)
+    assert os.path.getmtime(pt) >= mtime
+    with pytest.raises(NotImplementedError):
+        prepare_cmd.main(["-q", "--device", "cpu", "--movement-kernel", "-o", str(tmp_path), d])
+    with pytest.raises(NotImplementedError):
+        prep.prepare_one(d, 1, 3, 2, output_folder=str(tmp_path), device="cpu",
+                         calc_movement_kernel=True)
+    assert not os.listdir(tmp_path)
+
+
+def test_prepare_photometry_process_split(monkeypatch):
+    files = [f"ffi_1_{cam}_{ccd}.fits" for cam in (1, 2) for ccd in (1, 2)]
+    monkeypatch.setattr(prep.discovery, "find_ffi_files", lambda d: files)
+    monkeypatch.setattr(prep.discovery, "parse_ffi_filename",
+                        lambda f: dict(zip(("sector", "camera", "ccd"),
+                                           map(int, f[:-5].split("_")[1:]))))
+    seen = []
+
+    def fake_prepare_one(inp, sector, camera, ccd, output_folder=None, device=None, **kw):
+        seen.append((sector, camera, ccd))
+        return f"{sector}-{camera}-{ccd}"
+
+    monkeypatch.setattr(prep, "prepare_one", fake_prepare_one)
+    out0 = prep.prepare_photometry("x", process_id=0, process_count=2)
+    out1 = prep.prepare_photometry("x", process_id=1, process_count=2)
+    assert out0 == ["1-1-1", "1-2-1"] and out1 == ["1-1-2", "1-2-2"]
+    assert sorted(seen) == [(1, 1, 1), (1, 1, 2), (1, 2, 1), (1, 2, 2)]
+    for bad in ({"process_id": 0}, {"process_id": 2, "process_count": 2},
+                {"process_id": 0, "process_count": 0}):
+        with pytest.raises(ValueError):
+            prep.prepare_photometry("x", **bad)
+    seen.clear()
+    assert prep.prepare_photometry("x", cameras=[2]) == ["1-2-1", "1-2-2"]
+
+
+def test_prepare_one_without_ffis_raises(tmp_path):
+    with pytest.raises(FileNotFoundError):
+        prep.prepare_one(str(tmp_path), 1, 3, 2, device="cpu")
+    shutil.rmtree(tmp_path, ignore_errors=True)
