@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of photometry_tpu_torch on one CUDA card.
 
-Drives the port's FFI aperture, PSF and prepare paths through the entry
-points a user calls, with JAX, h5py and the JAX package blocked from import:
+Drives the port's FFI aperture, PSF and prepare paths, the flux-only stamp
+extraction and ECC registration through the entry points a user calls, with
+JAX, h5py and the JAX package blocked from import.  Phases run in the order
+0, 1, 2, 2b, 2c, 2d (adversarial), 3, 2d (main shape, on phase 3's cube and
+targets), 4, 6 (on phase 3's cube), 5:
 
 0. imports: ``jax``, ``jaxlib``, ``h5py`` and ``photometry_tpu`` refused.
-1. device: the card's name and power limit; the four kernels are built with
+1. device: the card's name and power limit; the five kernels are built with
    nvcc for sm_90a from ``photometry_tpu_torch/ops/csrc/``, one nvcc each,
    started together (registers and spills printed).
 2. band kernel vs its plain torch version on the card: adversarial inputs
@@ -26,6 +29,16 @@ points a user calls, with JAX, h5py and the JAX package blocked from import:
    frames; 64 frames x 1024^2 samples x the CCD's ~40 rings x 512 buckets)
    with median times of kernel, plain version and the one-call torch
    equivalent.
+2d. the stamp-flux kernel vs its plain torch version on the card:
+   adversarial inputs (NaN and ±inf pixels, an all-NaN cadence, an empty
+   mask, stamps flush with and running past the bottom and right edges;
+   N = 1, 7, 9; masks of 1, 17, 33 and 64 px; T = 8 and 512; the domain's
+   ValueErrors and a mask too large for shared memory), then the main
+   shape: ``stamp_extract_flux`` on phase 3's (512, 2048, 2048) cube for its
+   10,240 targets, one 17x17 window each with the target's K2P2 mask cut to
+   it (the kernel's launch count must rise), held against the plain version
+   and against the band kernel's flux and finite-count sums, with median
+   times of kernel and plain version.
 3. the aperture slice at full CCD size: a seeded 12,000-star field (Tmag
    7.5-13), cubes on the card (T=512, ~28 GB), ``SectorContext.from_arrays``,
    ``extract_aperture_batch`` on the 10,240 brightest targets (the band
@@ -43,12 +56,21 @@ points a user calls, with JAX, h5py and the JAX package blocked from import:
    camera 1 CCD 1 in raw TESS geometry (2078x2136, TAN WCS, the field of
    phase 3 on a sky with a corner glow, one saturated patch), a catalog and
    one TPF, written with ``io.fits.write_fits``; ``prepare.prepare_cube``
-   runs stages 1-5 on them into an in-memory store with the ``ImageCube``
+   runs stages 1-6 on them into an in-memory store with the ``ImageCube``
    methods (one 64-frame chunk and a partial one).  Both kernels' launch
-   counts must rise; the markers, backgrounds and flags are checked; the
+   counts must rise; the markers, backgrounds, flags and movement kernels
+   (every one below 0.05 px on these motionless frames, below 0.005 px at
+   the reference frame) are checked; the
    first chunk's background fit and 8 frames' residuals are re-run with the
-   plain versions and must be equal; stage walls, frames per second and the
-   device busy share (``torch.profiler``) are printed.
+   plain versions and must be equal; stage walls, frames per second, stage
+   6's peak memory and the device busy share (``torch.profiler``) are
+   printed.
+6. ECC registration at full size: 32 copies of phase 3's star field shifted
+   on the card by a known drift plus jitter (up to 1.5 px, FFT phase ramps)
+   with fresh noise, registered by ``MotionModel.calc_kernels_batch``
+   (recovered within 0.05 px); the series then drives the jitter of
+   ``extract_aperture_batch`` on 1,024 targets of a context over phase 3's
+   cube, whose per-cadence ``pos_corr`` must follow it.
 
 Prints a JSON line of per-kernel results, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure,
@@ -92,6 +114,8 @@ KERNELS = {
                  "photometry_tpu/ops/median_pallas.py:62"),
     "segment_hist": ("photometry_tpu_torch/ops/csrc/segment_hist.cu",
                      "photometry_tpu/ops/hist_pallas.py:44"),
+    "stamp_flux": ("photometry_tpu_torch/ops/csrc/stamp_flux.cu",
+                   "tools/pallas_extract_demo.py:51"),
 }
 MEDIAN_MAIN = (8, 2048, 2048)            # frames of the shenanigans stage per launch (cut from 64)
 HIST_MAIN = (64, 1 << 20, 512)           # a 64-frame chunk at hist_stride 2, 512 buckets
@@ -557,6 +581,217 @@ def hist_phase(dev, rng, card, result):
                                   bound_by="bytes", library_ms=lib_ms)
 
 
+# --- phase 2d: flux-only stamp extraction --------------------------------------
+
+def stamp_case(rng, T, H, W, N, h):
+    """N h x h stamps on a (T, H, W) cube with NaN pixels, a row of +inf and
+    a column of -inf: the first stamp flush with the bottom and right edges,
+    the second running past both, the third an all-false mask, the fourth
+    with every in-mask pixel NaN in cadence 5."""
+    imgs = rng.normal(100, 5, (T, H, W)).astype(np.float32)
+    imgs[rng.uniform(size=imgs.shape) < 0.01] = np.nan
+    imgs[1, H // 2, :] = np.inf
+    imgs[2 % T, :, W // 3] = -np.inf
+    r0s = rng.integers(0, H - h + 1, N).astype(np.int32)
+    c0s = rng.integers(0, W - h + 1, N).astype(np.int32)
+    masks = rng.uniform(size=(N, h, h)) < 0.5
+    r0s[0], c0s[0] = H - h, W - h
+    if N > 1:
+        r0s[1], c0s[1] = H - 3, W - 2
+        masks[1, :3, :2] = True
+    if N > 2:
+        masks[2] = False
+    if N > 3:
+        masks[3] = False
+        masks[3, 0, 0] = True
+        imgs[5, r0s[3], c0s[3]] = np.nan
+    return imgs, masks, r0s, c0s
+
+
+def stamp_err(got, want, what):
+    """Max |got - want| of (N, T) stamp fluxes; fails on another NaN pattern
+    or outside RTOL/ATOL."""
+    a, b = got.cpu().numpy(), want.cpu().numpy()
+    check(a.shape == b.shape, f"{what}: shape {a.shape} != {b.shape}")
+    check(np.array_equal(np.isnan(a), np.isnan(b)), f"{what}: NaN pattern differs")
+    fin = ~np.isnan(b)
+    d = np.abs(a[fin] - b[fin])
+    if not np.all(d <= ATOL + RTOL * np.abs(b[fin])):
+        fail(f"{what}: off by up to {d.max():.3g}")
+    return float(d.max()) if d.size else 0.0
+
+
+def stamp_adversarial(dev, rng):
+    """Phase 2d's adversarial inputs: the stamp kernel against its plain
+    version, and the domain errors."""
+    import torch
+    from photometry_tpu_torch.ops import stamp_flux as sf
+    from photometry_tpu_torch.ops._kernels import KernelError
+    worst = 0.0
+    cases = [(8, 40, 256, 1, 1), (8, 64, 256, 7, 17), (512, 64, 256, 9, 17),
+             (8, 64, 384, 9, 33), (512, 96, 384, 9, 64), (8, 96, 256, 7, 64)]
+    for T_, H_, W_, N, h in cases:
+        args = [torch.as_tensor(a, device=dev) for a in stamp_case(rng, T_, H_, W_, N, h)]
+        got = sf.stamp_extract_flux(*args, h, h)
+        torch.cuda.synchronize()
+        worst = max(worst, stamp_err(got, sf.stamp_flux_plain(*args),
+                                     f"stamp_flux T={T_} N={N} {h}x{h}"))
+        if N > 3:
+            g = got.cpu().numpy()
+            check(np.isnan(g[2]).all() and np.isnan(g[3, 5]), "empty mask / all-NaN cadence")
+    imgs, masks, r0s, c0s = (torch.as_tensor(a, device=dev)
+                             for a in stamp_case(rng, 16, 64, 256, 4, 17))
+    refused = 0
+    for what, call, err in (
+            ("T = 12", lambda: sf.stamp_extract_flux(imgs[:12], masks, r0s, c0s, 17, 17),
+             ValueError),
+            ("window taller than the image",
+             lambda: sf.stamp_extract_flux(imgs[:, :20], masks, r0s * 0, c0s, 17, 17), ValueError),
+            ("window wider than the image",
+             lambda: sf.stamp_extract_flux(imgs[:, :, :140], masks, r0s, c0s * 0, 17, 17),
+             ValueError),
+            ("a negative corner",
+             lambda: sf.stamp_extract_flux(imgs, masks, r0s - 100, c0s, 17, 17), ValueError),
+            ("a 300x300 mask (360 KB of offsets)",
+             lambda: sf.stamp_flux_cuda(imgs, torch.ones(1, 300, 300, dtype=torch.bool,
+                                                         device=dev), r0s[:1], c0s[:1]),
+             KernelError)):
+        try:
+            call()
+        except err:
+            refused += 1
+            continue
+        fail(f"stamp_flux: {what} did not raise {err.__name__}")
+    print(f"phase 2d stamp_flux adversarial (NaN and ±inf pixels, an all-NaN cadence, an empty "
+          f"mask, stamps flush with and past the edges; N = 1, 7, 9; masks 1, 17, 33, 64 px; "
+          f"T = 8, 512): kernel == plain (max |diff| {worst:.3g}); {refused} domain errors "
+          f"raised", flush=True)
+    return worst
+
+
+def stamp_windows(results, rows, cols, H, W, h=17):
+    """One h x h window per target, centred on its catalog position and kept
+    inside the frame, with its K2P2 mask (``TargetResult.mask`` placed at
+    ``.stamp``) cut to the window; targets without a mask get the central
+    3x3 pixels."""
+    N = len(results)
+    masks = np.zeros((N, h, h), bool)
+    r0s = np.clip(np.rint(rows[:N]).astype(np.int64) - h // 2, 0, H - h).astype(np.int32)
+    c0s = np.clip(np.rint(cols[:N]).astype(np.int64) - h // 2, 0, W - h).astype(np.int32)
+    for i, r in enumerate(results):
+        if r.mask is None:
+            masks[i, h // 2 - 1:h // 2 + 2, h // 2 - 1:h // 2 + 2] = True
+            continue
+        s0, _, s2, _ = r.stamp
+        a0, a1 = max(r0s[i], s0), min(r0s[i] + h, s0 + r.mask.shape[0])
+        b0, b1 = max(c0s[i], s2), min(c0s[i] + h, s2 + r.mask.shape[1])
+        if a1 > a0 and b1 > b0:
+            masks[i, a0 - r0s[i]:a1 - r0s[i], b0 - c0s[i]:b1 - c0s[i]] = \
+                r.mask[a0 - s0:a1 - s0, b0 - s2:b1 - s2]
+    return masks, r0s, c0s
+
+
+def stamp_main(dev, cube, results, rows, cols, card, result, adv_err, h=17):
+    """Phase 2d's main shape: the phase-3 cube and targets through
+    ``stamp_extract_flux``, held against the plain version and against the
+    band kernel's flux and finite-count sums."""
+    import torch
+    from photometry_tpu_torch.ops import bandext
+    from photometry_tpu_torch.ops import stamp_flux as sf
+    from photometry_tpu_torch.ops._kernels import STAMP_FLUX
+    images = cube[0]
+    T_, H_, W_ = images.shape
+    masks, r0s, c0s = stamp_windows(results, rows, cols, H_, W_, h)
+    m_t, r_t, c_t = (torch.as_tensor(a, device=dev) for a in (masks, r0s, c0s))
+    torch.cuda.synchronize()
+    reset_counts()
+    got = sf.stamp_extract_flux(images, m_t, r_t, c_t, h, h)
+    torch.cuda.synchronize()
+    launches = result["stamp_flux"]["launches"] = STAMP_FLUX.launches
+    check(launches > 0, "stamp_extract_flux did not launch the stamp kernel")
+    err = stamp_err(got, sf.stamp_flux_plain(images, m_t, r_t, c_t), "stamp_flux main shape")
+    Q = bandext.band_sums(*cube, m_t, r_t, c_t)
+    band = torch.where(Q[:, 1] < 0.5, torch.nan, Q[:, 0])
+    band_err = stamp_err(got, band, "stamp_flux vs band_extract flux")
+    n_nan = int(torch.isnan(got).sum())
+    ms = cuda_ms(lambda: sf.stamp_flux_cuda(images, m_t, r_t, c_t))
+    plain_ms = cuda_ms(lambda: sf.stamp_flux_plain(images, m_t, r_t, c_t), reps=3)
+    N = len(results)
+    npix = int(masks.sum())
+    nbytes = npix * T_ * 4 + N * T_ * 4 + masks.size + 8 * N
+    bound = nbytes / PEAK_BYTES * 1e3
+    print(f"phase 2d stamp_flux main shape ({T_}, {H_}, {W_}), {N} targets, one {h}x{h} window "
+          f"each with its K2P2 mask cut to it ({npix} mask pixels, {npix / N:.1f} per target): "
+          f"kernel == plain (max |diff| {err:.3g}) and == band_extract flux where n_fin > 0 "
+          f"(max |diff| {band_err:.3g}); {n_nan} NaN outputs; kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound:.4f} ms by bytes ({nbytes / 1e6:.1f} MB); launches "
+          f"{launches}; no single torch call computes this masked NaN-aware window "
+          f"sum ({card})", flush=True)
+    result["stamp_flux"].update(max_abs_err=max(adv_err, err), ms=ms, plain_ms=plain_ms,
+                                bound_ms=bound, bound_by="bytes", library_ms=None)
+
+
+# --- phase 6: ECC registration against injected motion -------------------------
+
+def ecc_phase(dev, img0, gen, rng, ctx_kw, sids, card, n_frames=32, n_targets=1024):
+    """Phase 6: ``n_frames`` copies of the star field ``img0`` shifted by a
+    known drift plus jitter (an FFT phase ramp, on the card) with fresh
+    noise, registered by ``MotionModel.calc_kernels_batch``; the recovered
+    series then drives the aperture slice's jitter (``pos_corr``)."""
+    import torch
+    from photometry_tpu_torch.core.engine import SectorContext, extract_aperture_batch
+    from photometry_tpu_torch.core.motion import MotionModel
+    from photometry_tpu_torch.core.status import STATUS
+    H_, W_ = img0.shape
+    k = np.arange(n_frames) / (n_frames - 1)
+    shifts = np.stack([-0.6 + 1.2 * k, 0.5 - 0.9 * k], 1) + rng.normal(0, 0.25, (n_frames, 2))
+    shifts = np.clip(shifts, -1.5, 1.5)
+    shifts[0] = 0.0                                    # frame 0 is the reference
+    spec = torch.fft.rfft2(torch.as_tensor(img0, device=dev))
+    ky = torch.fft.fftfreq(H_, device=dev)[:, None]
+    kx = torch.fft.rfftfreq(W_, device=dev)[None, :]
+    frames = torch.empty(n_frames, H_, W_, device=dev)
+    for i, (dx, dy) in enumerate(shifts):
+        ramp = torch.exp(-2j * np.pi * (kx * float(dx) + ky * float(dy)))
+        f = torch.fft.irfft2(spec * ramp, s=(H_, W_))
+        frames[i] = f + torch.sqrt(torch.clamp(f, min=0.0) + 25.0) * torch.randn(
+            H_, W_, device=dev, generator=gen)
+    del spec, ramp, f
+    mm = MotionModel("translation", image_ref=frames[0])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tic = time.perf_counter()
+    kern = mm.calc_kernels_batch(frames, device=dev)
+    wall = time.perf_counter() - tic
+    peak = torch.cuda.max_memory_allocated() - base
+    err = np.abs(kern - shifts)
+    print(f"phase 6 ECC: {n_frames} frames of {H_}x{W_} shifted by up to "
+          f"{np.abs(shifts).max():.2f} px, translation kernels in {wall:.2f} s = "
+          f"{n_frames / wall:.1f} frames/s (sub-batch {mm.sub_batch} frames, peak "
+          f"{peak / 1e9:.2f} GB above the {base / 1e9:.1f} GB held); |recovered - injected| "
+          f"median {np.median(err):.4f} px, max {err.max():.4f} px (frame "
+          f"{np.unravel_index(err.argmax(), err.shape)[0]}) ({card})", flush=True)
+    check(err.max() < 0.05, f"ECC misses the injected shifts by up to {err.max():.3f} px")
+
+    tt = np.asarray(ctx_kw["time"], np.float64) - np.asarray(ctx_kw["timecorr"], np.float64)
+    idx = np.rint(np.linspace(0, len(tt) - 1, n_frames)).astype(int)
+    series = MotionModel("translation")
+    series.load_series(tt[idx], kern)
+    ctx = SectorContext.from_arrays(**ctx_kw, motion=series)
+    try:
+        res = extract_aperture_batch(ctx, sids[:n_targets])
+    finally:
+        ctx.close()
+    want = np.stack([np.interp(tt, tt[idx], kern[:, c]) for c in range(2)], -1)
+    good = [r for r in res if r.status in (STATUS.OK, STATUS.WARNING)]
+    check(len(good) >= 0.9 * n_targets, "phase 6: fewer than 90% of targets OK or WARNING")
+    dev_pc = max(float(np.abs(r.lightcurve["pos_corr"] - want).max()) for r in good)
+    print(f"phase 6 jitter: {len(good)} of {n_targets} targets' per-cadence pos_corr follow the "
+          f"loaded kernel series (max |diff| {dev_pc:.2e} px over {len(tt)} cadences)", flush=True)
+    check(dev_pc < 1e-5, "pos_corr does not follow the loaded movement kernels")
+
+
 # --- phase 5: the prepare slice -------------------------------------------------
 
 class DictCube:
@@ -564,7 +799,7 @@ class DictCube:
     arrays (the card's machine has no h5py).  Reads return copies, as h5py
     does.  It also keeps the first chunk's raw background fit and the first
     frames' residuals, which the stage overwrites or drops, for the plain
-    re-runs."""
+    re-runs, and, on a card, the peak memory of stage 6."""
 
     def __init__(self, n_times, shape, keep_frames=8):
         self.n_times, self.shape = n_times, tuple(shape)
@@ -577,12 +812,23 @@ class DictCube:
         self.scratch = self.raw_backgrounds = self.kept_resid = None
         self.keep_frames = keep_frames
         self._sumimage = self.pixels_used = None
+        self.movement_kernel = self.movement_attrs = self.movement_peak = None
 
     def is_done(self, stage):
         return stage in self.stages
 
     def mark_done(self, stage):
         self.stages.add(stage)
+        import torch
+        if stage == "wcs_ref" and torch.cuda.is_available():    # stage 6 starts next
+            torch.cuda.reset_peak_memory_stats()
+
+    def write_movement_kernel(self, kernels, warpmode, ref_frame):
+        self.movement_kernel = np.array(kernels, np.float64)
+        self.movement_attrs = {"warpmode": warpmode, "ref_frame": int(ref_frame)}
+        import torch
+        if torch.cuda.is_available():
+            self.movement_peak = torch.cuda.max_memory_allocated()
 
     def write_block(self, name, t0, block):
         if name == "backgrounds" and t0 == 0 and self.raw_backgrounds is None:
@@ -757,11 +1003,13 @@ def prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result,
     """Phase 5: the prepare stage on synthetic FFIs through ``prepare_cube``."""
     import torch
     from photometry_tpu_torch import prepare as prep
+    from photometry_tpu_torch.core import motion
     from photometry_tpu_torch.core.pixelflags import manual_exclude_mask
     from photometry_tpu_torch.io.loader import iter_frames
     from photometry_tpu_torch.io.settings import sector_info
     from photometry_tpu_torch.ops._kernels import MEDIAN15, SEGMENT_HIST
     from photometry_tpu_torch.ops.background import radial_coordinates
+    from photometry_tpu_torch.ops.registration import ecc_frame_bytes
     from photometry_tpu_torch.quality import PixelQualityFlags as PQ
     folder = os.path.join(work, "ffi")
     os.makedirs(folder, exist_ok=True)
@@ -783,14 +1031,15 @@ def prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result,
     tic = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
         walls = prep.prepare_cube(cube, files, folder, sector, camera, ccd, device=dev,
-                                  chunk=chunk)
+                                  chunk=chunk, calc_movement_kernel=True)
     wall = time.perf_counter() - tic
     result["median15"]["launches"] = MEDIAN15.launches
     result["segment_hist"]["launches"] = SEGMENT_HIST.launches
     busy = device_busy_ms(prof)
     fps1 = T / (walls["backgrounds_fit"] + walls["backgrounds_smooth"])
     fps3 = T / walls["shenanigans"]
-    print(f"phase 5 slice: prepare_cube of {T} frames in {wall:.2f} s ({card}); stage walls "
+    print(f"phase 5 slice: prepare_cube of {T} frames with movement kernels in {wall:.2f} s "
+          f"({card}); stage walls "
           + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
           + f"; stage 1 {fps1:.2f} frames/s, stage 3 {fps3:.2f} frames/s; device busy "
           f"{busy:.1f} ms = {100 * busy / (wall * 1e3):.1f}% of the wall (torch.profiler on); "
@@ -799,7 +1048,24 @@ def prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result,
     print(f"phase 5 device time by kernel: {top_device_ops(prof)}", flush=True)
     check(MEDIAN15.launches > 0, "the prepare slice did not launch the median kernel")
     check(SEGMENT_HIST.launches > 0, "the prepare slice did not launch the histogram kernel")
-    check(cube.stages == set(prep.STAGES), f"stage markers {sorted(cube.stages)}")
+    check(cube.stages == set(prep.STAGES) | {"movement"}, f"stage markers {sorted(cube.stages)}")
+
+    # Stage 6: the frames carry no injected motion.
+    kern, ref6 = cube.movement_kernel, cube.movement_attrs["ref_frame"]
+    check(kern.shape == (T, 2) and cube.movement_attrs["warpmode"] == "translation",
+          f"movement kernels {kern.shape}, {cube.movement_attrs}")
+    amax = np.abs(kern).max(axis=1)
+    worst = int(np.argmax(amax))
+    sub = min(chunk, int(motion.ECC_BUDGET_BYTES // ecc_frame_bytes(H, W, "translation")))
+    mem = ("" if cube.movement_peak is None else
+           f"; stage-6 peak {cube.movement_peak / 1e9:.2f} GB allocated")
+    print(f"phase 5 stage 6: {T} movement kernels in {walls['movement']:.2f} s = "
+          f"{T / walls['movement']:.1f} frames/s (sub-batches of {sub} frames{mem}); largest "
+          f"|kernel| {amax[worst]:.4f} px at frame {worst} (saturated patch in frame "
+          f"{patch[0]}), {amax[ref6]:.2e} px at the reference frame {ref6}", flush=True)
+    check(amax.max() < 0.05, f"a movement kernel of {amax.max():.3f} px on motionless frames")
+    check(amax[ref6] < 0.005 and ref6 == cube.attrs["WCS_REF_FRAME"],
+          "kernel at the reference frame")
 
     flags, bkg = cube.arrays["pixelflags"], cube.arrays["backgrounds"]
     used = (flags & PQ.NotUsedForBackground) == 0
@@ -895,8 +1161,9 @@ def main() -> int:
     from photometry_tpu_torch.models.psf_fused import (fused_ok, fused_warm_fit_cuda,
                                                        fused_warm_fit_plain)
     from photometry_tpu_torch.ops import bandext
-    from photometry_tpu_torch.ops._kernels import (BAND_EXTRACT, MEDIAN15, PSF_WARM_FIT,
-                                                   SEGMENT_HIST, build_all)
+    from photometry_tpu_torch.ops._kernels import (BAND_EXTRACT, LIBRARIES, MEDIAN15,
+                                                   PSF_WARM_FIT, SEGMENT_HIST, STAMP_FLUX,
+                                                   build_all)
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -905,14 +1172,16 @@ def main() -> int:
           flush=True)
     tic = time.perf_counter()
     build_all()
-    libs = (BAND_EXTRACT, PSF_WARM_FIT, MEDIAN15, SEGMENT_HIST)
-    print(f"phase 1 build: four kernels -> sm_90a in {time.perf_counter() - tic:.1f} s ("
-          + ", ".join(f"{lib.name} {lib.build_seconds:.1f} s" for lib in libs) + ")", flush=True)
+    print(f"phase 1 build: {len(LIBRARIES)} kernels -> sm_90a in "
+          f"{time.perf_counter() - tic:.1f} s ("
+          + ", ".join(f"{lib.name} {lib.build_seconds:.1f} s" for lib in LIBRARIES) + ")",
+          flush=True)
     print(f"phase 1 psf_warm_fit<S,K> registers/spill stores: "
           f"{ptxas_summary(PSF_WARM_FIT.build_log)}", flush=True)
     print("phase 1 registers/spill stores: "
-          + ptxas_regs(MEDIAN15.build_log + SEGMENT_HIST.build_log,
-                       ("median15_kernel", "segment_hist_kernel", "to_float_kernel")), flush=True)
+          + ptxas_regs(MEDIAN15.build_log + SEGMENT_HIST.build_log + STAMP_FLUX.build_log,
+                       ("median15_kernel", "segment_hist_kernel", "to_float_kernel",
+                        "stamp_flux_kernel")), flush=True)
     result = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "library_ms": None} for name, (src, rep) in KERNELS.items()}
 
@@ -1044,6 +1313,9 @@ def main() -> int:
     median_phase(dev, rng, gen, card, result)
     hist_phase(dev, rng, card, result)
 
+    # --- phase 2d: stamp kernel vs plain (its main shape runs after phase 3) -------
+    stamp_adv_err = stamp_adversarial(dev, rng)
+
     # --- phase 3: the aperture slice ---------------------------------------
     wcs = TanWCS(crpix=[W / 2 + 0.5, H / 2 + 0.5], crval=[95.0, -60.0],
                  cd=[[-21.0 / 3600, 0.0], [0.0, 21.0 / 3600]])
@@ -1052,12 +1324,13 @@ def main() -> int:
     cat = make_catalog_from_arrays(work, 1, 1, 1, starid=starid, ra_j2000=ra, dec_j2000=dec,
                                    pm_ra=np.zeros(N_STARS), pm_dec=np.zeros(N_STARS),
                                    tmag=tmag, reference_time=2458340.0)
-    ctx = SectorContext.from_arrays(
+    ctx_kw = dict(
         images=images, images_err=errs, backgrounds=bkgs, pixelflags=flags,
         sumimage=torch.nanmean(images, dim=0).cpu().numpy(),
         time=1325.3 + np.arange(T) / 48.0, timecorr=np.zeros(T, np.float32),
         cadenceno=np.arange(T, dtype=np.int32), quality=np.zeros(T, np.int32),
         catalog_path=cat, wcs=wcs, sector=1, camera=1, ccd=1, input_folder=work, device=dev)
+    ctx = SectorContext.from_arrays(**ctx_kw)
     check(ctx.images.data_ptr() == images.data_ptr(), "from_arrays copied the cube")
     sids = [int(s) for s in starid[:N_TARGETS]]           # the brightest (tmag sorted)
 
@@ -1125,6 +1398,10 @@ def main() -> int:
 
     lease("aperture", N_LEASE, "products")
 
+    # --- phase 2d, main shape: the phase-3 cube and targets ------------------------
+    stamp_main(dev, (images, errs, bkgs, flags), results, rows, cols, card, result,
+               stamp_adv_err)
+
     # --- phase 4: the PSF slice ----------------------------------------------
     prf = prfs[3]
     ctx._context_prf = prf                     # as psf_common.context_prf memoizes it
@@ -1170,12 +1447,15 @@ def main() -> int:
 
     lease("psf", N_LEASE, "products_psf")
     ctx.close()
-    del ctx, cube, images, errs, bkgs, flags, res_psf, refit, results
+
+    # --- phase 6: ECC registration against injected motion --------------------------
+    ecc_phase(dev, img0, gen, rng, ctx_kw, sids, card)
+    del ctx, ctx_kw, cube, images, errs, bkgs, flags, res_psf, refit, results
     torch.cuda.empty_cache()
 
     # --- phase 5: the prepare slice --------------------------------------------
     prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result)
-    print(f"phases 1-5 took {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"phases 1-6 took {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [result[name] for name in KERNELS]}))
     print(card)

@@ -3,9 +3,8 @@ CLI: prepare FFIs into image cubes on the port.
 
 Port of ``photometry_tpu/cli/prepare_cmd.py`` (reference
 run_prepare_photometry.py).  ``--device`` picks the torch device of the
-background fit and the median filter (default: cuda).  Movement kernels
-(``--movement-kernel``, ECC registration) are not ported yet and raise
-``NotImplementedError``.
+background fit, the median filter and, with ``--movement-kernel``, the ECC
+registration of the movement kernels (default: cuda).
 
 Usage:
     python -m photometry_tpu_torch.cli.prepare_cmd [options] [input_folder]
@@ -28,7 +27,7 @@ def main(argv=None) -> int:
     parser.add_argument("--camera", type=int, default=None, action="append", choices=(1, 2, 3, 4))
     parser.add_argument("--ccd", type=int, default=None, action="append", choices=(1, 2, 3, 4))
     parser.add_argument("--movement-kernel", action="store_true",
-                        help="Also compute ECC movement kernels (not ported yet).")
+                        help="Also compute ECC movement kernels.")
     parser.add_argument("-o", "--output", default=None)
     parser.add_argument("--process-id", type=int, default=None,
                         help="This host's index in a static multi-host split of the CCD list "
@@ -36,7 +35,8 @@ def main(argv=None) -> int:
     parser.add_argument("--num-processes", type=int, default=None,
                         help="Total hosts in a static multi-host split.")
     parser.add_argument("--device", default="cuda",
-                        help="Torch device of the background fit and filters (default: cuda).")
+                        help="Torch device of the background fit, filters and registration "
+                             "(default: cuda).")
     parser.add_argument("input_folder", nargs="?", default=None)
     args = parser.parse_args(argv)
 

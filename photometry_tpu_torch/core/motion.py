@@ -8,8 +8,10 @@ time, or ``wcs`` mode where each frame carries its own WCS and the jitter
 is the WCS-to-WCS pixel displacement.  Kernel warps are applied in float32
 like the reference's device program; WCS displacements stay host float64.
 
-Estimating kernels by ECC registration (``calc_kernel``,
-``calc_kernels_batch``) belongs to the prepare stage, not ported yet.
+Kernels are estimated by ECC registration against the reference image
+(``calc_kernel``, ``calc_kernels_batch``; ``ops/registration.py``), the
+prepare stage's stage 6.  Frames go to the device in sub-batches bounded
+by bytes.
 """
 
 from __future__ import annotations
@@ -19,13 +21,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..io.fits import Header
 from ..io.wcs import TanWCS
+from ..ops.registration import N_PARAMS, ecc_align, ecc_align_batch, ecc_frame_bytes, prepare_flux
 
 __all__ = ["MotionModel"]
 
-#: Warp parameters per mode (photometry_tpu/ops/registration.py:N_PARAMS).
-N_PARAMS = {"translation": 2, "euclidian": 3, "affine": 6}
+#: Device bytes the frames of one registration sub-batch may hold (H100: 80 GB).
+ECC_BUDGET_BYTES = 8e9
 
 
 def _apply_kernel_batch(params: torch.Tensor, mode: str, cols: torch.Tensor,
@@ -53,26 +57,59 @@ def _apply_kernel_batch(params: torch.Tensor, mode: str, cols: torch.Tensor,
 class MotionModel:
     """Per-sector pointing-jitter model."""
 
-    def __init__(self, warpmode: str = "euclidian", wcs_ref: Optional[TanWCS] = None):
+    def __init__(self, warpmode: str = "euclidian", image_ref=None,
+                 wcs_ref: Optional[TanWCS] = None):
+        """``image_ref`` (H, W), a tensor or array, is kept preprocessed
+        (:func:`~photometry_tpu_torch.ops.registration.prepare_flux`) on its
+        own device (an array: the CPU)."""
         if warpmode not in ("wcs", "unchanged", "translation", "euclidian", "affine"):
             raise ValueError("Invalid warpmode")
         self.warpmode = warpmode
         self.n_params = N_PARAMS.get(warpmode, 1)
+        self.image_ref = None if image_ref is None else prepare_flux(image_ref)
         self.wcs_ref = wcs_ref
         self.series_times: Optional[np.ndarray] = None
         self.series_kernels = None
         self._wcs_series = None
+        #: Frames per device sub-batch of the last ``calc_kernels_batch``.
+        self.sub_batch = None
 
     # ------------------------------------------------------------- estimation
-    def calc_kernel(self, image, n_iters: int = 50):
-        raise NotImplementedError(
-            "ECC kernel estimation belongs to the prepare stage, not ported to "
-            "photometry_tpu_torch yet (photometry_tpu.core.motion.calc_kernel)")
+    def _reference(self) -> torch.Tensor:
+        if self.image_ref is None:
+            raise RuntimeError("Reference image not defined")
+        return self.image_ref
 
-    def calc_kernels_batch(self, images, n_iters: int = 50):
-        raise NotImplementedError(
-            "ECC kernel estimation belongs to the prepare stage, not ported to "
-            "photometry_tpu_torch yet (photometry_tpu.core.motion.calc_kernels_batch)")
+    def calc_kernel(self, image, n_iters: int = 50) -> np.ndarray:
+        """Warp parameters (P,) float64 of one frame against the reference
+        image, on the reference's device."""
+        if self.warpmode == "unchanged":
+            return np.zeros(0)
+        ref = self._reference()
+        img = prepare_flux(torch.as_tensor(image, device=ref.device))
+        params, _cc = ecc_align(ref, img, mode=self.warpmode, n_iters=n_iters)
+        return params.cpu().numpy().astype(np.float64)
+
+    def calc_kernels_batch(self, images, n_iters: int = 50, device="cuda") -> np.ndarray:
+        """Warp parameters (T, P) float64 of a (T, H, W) stack on ``device``.
+
+        Frames go to the device in sub-batches of at most
+        ``ECC_BUDGET_BYTES`` of registration state (``ecc_frame_bytes``).
+        """
+        if self.warpmode == "unchanged":
+            return np.zeros((len(images), 0))
+        dev = resolve_device(device)
+        ref = self._reference().to(dev)
+        nt, H, W = images.shape
+        step = max(1, int(ECC_BUDGET_BYTES // ecc_frame_bytes(H, W, self.warpmode)))
+        self.sub_batch = min(step, nt)
+        out = np.empty((nt, self.n_params), np.float64)
+        for t0 in range(0, nt, step):
+            t1 = min(t0 + step, nt)
+            frames = prepare_flux(torch.as_tensor(images[t0:t1]).to(dev))
+            params, _cc = ecc_align_batch(ref, frames, mode=self.warpmode, n_iters=n_iters)
+            out[t0:t1] = params.cpu().numpy()
+        return out
 
     # ------------------------------------------------------------ time series
     def load_series(self, times, kernels):

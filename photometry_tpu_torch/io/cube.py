@@ -19,6 +19,8 @@ other wrote::
     /sumimage     (H, W) float64  mean of quality-good frames
     /bkg_pixels_used (H, W) uint8
     /wcs          (T,) variable-length str (serialized per-frame headers)
+    /movement_kernel (T, P) float64, attrs warpmode, ref_frame (optional
+                  stage 6: one ECC warp per frame against the reference frame)
     attrs: SECTOR, CAMERA, CCD, DATA_REL, PROCVER, CADENCE, WCS_REF_FRAME,
            plus completion markers (``mark_done``/``is_done``).
 
@@ -236,6 +238,16 @@ class ImageCube:
         self.h5["sumimage"][:] = sumimage
         if pixels_used is not None:
             self.h5["bkg_pixels_used"][:] = pixels_used
+
+    def write_movement_kernel(self, kernels, warpmode: str, ref_frame: int):
+        """(Re)create the (T, P) float64 ``movement_kernel`` dataset and its
+        ``warpmode`` / ``ref_frame`` attributes (an old one is deleted first,
+        so a rerun after a crash starts clean)."""
+        if "movement_kernel" in self.h5:
+            del self.h5["movement_kernel"]
+        dset = self.h5.create_dataset("movement_kernel", data=np.asarray(kernels, np.float64))
+        dset.attrs["warpmode"] = warpmode
+        dset.attrs["ref_frame"] = int(ref_frame)
 
     # -- the prepare stage's transient residual stack ---------------------------
     def create_scratch(self):

@@ -1,1 +1,2 @@
-"""Array operations of the port: labeling, filters, banded extraction and its CUDA kernel."""
+"""Array operations of the port: labeling, filters, registration, extraction and the CUDA
+kernels."""

@@ -25,7 +25,7 @@ import threading
 from time import perf_counter
 
 __all__ = ["KernelError", "CudaLibrary", "BAND_EXTRACT", "PSF_WARM_FIT", "MEDIAN15",
-           "SEGMENT_HIST", "build_all"]
+           "SEGMENT_HIST", "STAMP_FLUX", "LIBRARIES", "build_all"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
@@ -120,7 +120,13 @@ SEGMENT_HIST = CudaLibrary("segment_hist", {
     "segment_hist_max_cells": (_I, []),
 })
 
-LIBRARIES = (BAND_EXTRACT, PSF_WARM_FIT, MEDIAN15, SEGMENT_HIST)
+#: ops/csrc/stamp_flux.cu — see ops.stamp_flux.stamp_flux_cuda.
+STAMP_FLUX = CudaLibrary("stamp_flux", {
+    "stamp_flux": (_I, [_P] * 5 + [_I] * 6 + [_P]),
+    "stamp_flux_max_pixels": (_I, []),
+})
+
+LIBRARIES = (BAND_EXTRACT, PSF_WARM_FIT, MEDIAN15, SEGMENT_HIST, STAMP_FLUX)
 
 
 def build_all() -> None:

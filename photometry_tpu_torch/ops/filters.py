@@ -16,6 +16,8 @@ Port of ``photometry_tpu/ops/filters.py``:
   images.
 - :func:`time_moving_nanmean` (and its blocked form): the prepare stage's
   background time smoothing by running sums.
+- :func:`scharr`: the Scharr gradient magnitude of the registration's
+  preprocessing (``ops/registration.py``).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from ..utils.mathutils import nanmedian
 from .median15 import _symmetric_pad, median_filter
 
 __all__ = ["gaussian_blur2d", "median_filter2d", "median_filter2d_chunked",
-           "time_moving_nanmean", "time_moving_nanmean_blocked"]
+           "time_moving_nanmean", "time_moving_nanmean_blocked", "scharr"]
 
 
 @functools.lru_cache(maxsize=64)
@@ -136,3 +138,30 @@ def median_filter2d_chunked(img: torch.Tensor, size: int = 15, chunk_rows: int =
         arr = arr[None]
     out = median_filter(arr, size, chunk_rows=chunk_rows, budget_bytes=budget_bytes, plain=plain)
     return out[0] if squeeze else out
+
+
+_SCHARR_X = np.array([[-3, 0, 3], [-10, 0, 10], [-3, 0, 3]], np.float32) / 32.0
+_SCHARR_Y = _SCHARR_X.T
+
+
+def scharr(img: torch.Tensor) -> torch.Tensor:
+    """Scharr gradient magnitude of (..., H, W) images (skimage.filters.scharr
+    up to its norm), with numpy ``reflect`` padding (edge not repeated).
+
+    The 3x3 cross-correlations are written out tap by tap, the zero taps
+    included: a NaN pixel then spoils its whole 3x3 neighbourhood, as in
+    the JAX package's direct convolution, whatever algorithm a convolution
+    library would pick (a transform-based one spreads NaN further).
+    """
+    img = img.to(torch.float32)
+    lead, (H, W) = img.shape[:-2], img.shape[-2:]
+    p = torch.nn.functional.pad(img.reshape((-1, 1, H, W)), (1, 1, 1, 1), mode="reflect")[:, 0]
+    taps = [[p[:, dy:dy + H, dx:dx + W] for dx in range(3)] for dy in range(3)]
+    gx = gy = None
+    for dy in range(3):
+        for dx in range(3):
+            tx = float(_SCHARR_X[dy, dx]) * taps[dy][dx]
+            ty = float(_SCHARR_Y[dy, dx]) * taps[dy][dx]
+            gx = tx if gx is None else gx + tx
+            gy = ty if gy is None else gy + ty
+    return torch.sqrt(gx ** 2 + gy ** 2).reshape(lead + (H, W))

@@ -16,7 +16,11 @@ Port of ``photometry_tpu/prepare.py`` (reference photometry/prepare.py:79-706):
    shuffled 25-frame blocks) and flagged beyond 40 e-/s (prepare.py:514-622);
 4. quality flags transferred from up to 5 TPFs (prepare.py:629-654);
 5. the WCS reference frame: the quality-good frame nearest the sector's
-   reference time (prepare.py:661-676).
+   reference time (prepare.py:661-676);
+6. optional (``calc_movement_kernel``): movement kernels, one ECC
+   translation per frame against the reference frame, registered on the
+   device in frame sub-batches (``core/motion.py``, ``ops/registration.py``;
+   prepare.py:678-698).
 
 :func:`prepare_one` opens the HDF5 cube (``io/cube.py``; ``h5py`` is
 imported there, lazily) and hands it to :func:`prepare_cube`, which runs
@@ -24,8 +28,7 @@ the stages through the cube's methods only, so any object with those
 methods can stand in for the file.  The device work of a chunk sits in
 :func:`background_flags`, :func:`smooth_backgrounds` and
 :func:`shenanigans_flags`, which take and return tensors on the given
-device.  Movement kernels (stage 6, ECC registration) are not ported:
-``calc_movement_kernel=True`` raises ``NotImplementedError``.
+device.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .core.motion import MotionModel
 from .core.pixelflags import manual_exclude_mask, shenanigans_residual
 from .device import resolve_device
 from .fixes import time_offset
@@ -57,7 +61,8 @@ logger = logging.getLogger(__name__)
 __all__ = ["prepare_photometry", "prepare_one", "prepare_cube", "quality_from_tpf",
            "background_flags", "smooth_backgrounds", "shenanigans_flags", "STAGES"]
 
-#: Stage markers of a prepared cube, in the order they are set.
+#: Stage markers of a prepared cube, in the order they are set (stage 6,
+#: optional, adds "movement").
 STAGES = ("backgrounds", "images", "shenanigans", "quality_tpf", "wcs_ref")
 
 _SHEN_BLOCK = 25       #: frames per block of the robust mean (prepare.py:549-573)
@@ -219,13 +224,12 @@ def prepare_cube(cube, files, input_folder: str, sector: int, camera: int, ccd: 
                  backgrounds_pixels_threshold: float = 0.5, bkgshe_threshold: float = 40.0,
                  flux_cutoff: float = 8e4, tile: Optional[int] = None,
                  hist_stride: Optional[int] = None) -> dict:
-    """Run stages 1-5 on an open cube (or a stand-in with its methods).
+    """Run stages 1-5, and stage 6 with ``calc_movement_kernel``, on an open
+    cube (or a stand-in with its methods).
 
     ``files`` are the sector-CCD's FFIs in time order.  Returns the wall
     seconds of each stage this call ran.
     """
-    if calc_movement_kernel:
-        raise NotImplementedError("movement kernels (ECC registration) are not ported yet")
     dev = resolve_device(device)
     T = len(files)
     cadence = sector_info(sector).ffi_cadence
@@ -324,6 +328,22 @@ def prepare_cube(cube, files, input_folder: str, sector: int, camera: int, ccd: 
         cand = np.where(good)[0]
         cube.attrs["WCS_REF_FRAME"] = int(cand[np.argmin(np.abs(time[cand] - ref_tjd))])
         cube.mark_done("wcs_ref")
+
+    # -- Stage 6: movement kernels (optional) -------------------------------------
+    if calc_movement_kernel and not cube.is_done("movement"):
+        tic = perf_counter()
+        logger.info("Calculating image movement kernels (batched ECC)...")
+        refindx = int(cube.attrs["WCS_REF_FRAME"])
+        ref_img = np.nan_to_num(cube.images(refindx, refindx + 1)[0])
+        mm = MotionModel(warpmode="translation", image_ref=torch.from_numpy(ref_img).to(dev))
+        kernels = np.empty((T, mm.n_params), np.float64)
+        for t0 in range(0, T, chunk):
+            t1 = min(t0 + chunk, T)
+            imgs = np.nan_to_num(cube.images(t0, t1), copy=False)
+            kernels[t0:t1] = mm.calc_kernels_batch(imgs, device=dev)
+        cube.write_movement_kernel(kernels, "translation", refindx)
+        cube.mark_done("movement")
+        walls["movement"] = perf_counter() - tic
     return walls
 
 
@@ -447,8 +467,6 @@ def prepare_one(input_folder: str, sector: int, camera: int, ccd: int,
     Keyword arguments go to :func:`prepare_cube`.
     """
     from .io.cube import ImageCube, cube_filename
-    if kw.get("calc_movement_kernel"):
-        raise NotImplementedError("movement kernels (ECC registration) are not ported yet")
     output_folder = output_folder or input_folder
     files = discovery.find_ffi_files(input_folder, sector=sector, camera=camera, ccd=ccd)
     if not files:

@@ -288,3 +288,31 @@ def test_segment_hist_kernel_matches_plain_on_card():
         assert torch.equal(got, seghist.segment_histogram_plain(*args, n_seg, 512))
     with pytest.raises(KernelError):
         seghist.segment_histogram_cuda(*args, 128, 512)
+
+
+@pytest.mark.cuda
+def test_stamp_flux_kernel_matches_plain_on_card():
+    """The stamp-flux kernel against its plain version (RTOL/ATOL of the
+    extraction: float32 sums in another order): NaN and ±inf pixels, an
+    empty mask, an all-NaN cadence, stamps flush with and past the edges,
+    N = 1 / 7 / 9, masks of 1 to 64 px, T = 8 and 512, and a mask too large
+    for shared memory refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from chip_smoke import stamp_case
+    from photometry_tpu_torch.ops import stamp_flux as sf
+    from photometry_tpu_torch.ops._kernels import STAMP_FLUX, KernelError
+    rng = np.random.default_rng(2)
+    for T, H, W, N, h in ((8, 40, 256, 1, 1), (8, 64, 256, 7, 17), (512, 64, 256, 9, 17),
+                          (512, 96, 384, 9, 64)):
+        args = [torch.as_tensor(a, device="cuda") for a in stamp_case(rng, T, H, W, N, h)]
+        before = STAMP_FLUX.launches
+        got = sf.stamp_extract_flux(*args, h, h)
+        torch.cuda.synchronize()
+        assert STAMP_FLUX.launches == before + 1
+        np.testing.assert_allclose(got.cpu().numpy(), sf.stamp_flux_plain(*args).cpu().numpy(),
+                                   rtol=torch_parity.RTOL, atol=torch_parity.ATOL,
+                                   equal_nan=True)
+    with pytest.raises(KernelError):
+        sf.stamp_flux_cuda(args[0], torch.ones(1, 300, 300, dtype=torch.bool, device="cuda"),
+                           args[2][:1], args[3][:1])

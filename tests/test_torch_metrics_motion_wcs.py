@@ -155,5 +155,5 @@ def test_motion_single_kernel_is_constant():
     tm.load_series([1325.0], [[0.3, -0.2]])
     got = tm.jitter_batch(np.linspace(1324, 1326, 5), [1.0, 2.0], [3.0, 4.0])
     np.testing.assert_allclose(got, np.broadcast_to(np.float32([0.3, -0.2]), (5, 2, 2)))
-    with pytest.raises(NotImplementedError, match="prepare"):
-        tm.calc_kernel(np.zeros((4, 4)))
+    with pytest.raises(RuntimeError, match="Reference image not defined"):
+        tm.calc_kernel(np.zeros((4, 4)))      # as the JAX package: no reference image

@@ -20,6 +20,13 @@ into two folders, and the cubes are compared dataset by dataset:
 
 The cube is the state this stage hands on: each package opens the other's
 cube, and the port's aperture ``photometry_batch`` runs on both.
+
+Stage 6 (movement kernels, ``calc_movement_kernel=True``) runs on the
+six-frame jittered sim of tests/test_prepare.py:172 through both packages:
+the ``movement_kernel`` datasets agree within 2e-5 px (float32 ECC sums in
+another order; tests/test_torch_registration.py), track the injected
+jitter to that test's 0.08 px, and give the same per-cadence jitter in
+either package's ``SectorContext``.
 """
 
 import os
@@ -32,6 +39,7 @@ import torch
 from chip_smoke import DictCube
 from torch_parity import ATOL, RTOL
 
+from photometry_tpu.core.engine import SectorContext as JaxContext
 from photometry_tpu.core.pixelflags import shenanigans_residual as jax_resid
 from photometry_tpu.io.cube import ImageCube as JaxCube
 from photometry_tpu.prepare import prepare_photometry as jax_prepare
@@ -48,6 +56,7 @@ from photometry_tpu_torch.quality import PixelQualityFlags
 
 BKG_RTOL, BKG_ATOL = 1e-3, 0.05
 EPS_SHEN = 0.5          #: e-/s around the 40 e-/s shenanigans threshold
+KERNEL_ATOL = 2e-5      #: px, movement kernels port vs JAX
 
 
 @pytest.fixture(scope="module")
@@ -195,20 +204,99 @@ def test_streamed_chunks_match_single_shot(tmp_path):
         assert "_scratch_resid" not in a.h5
 
 
-def test_cli_resumes_and_refuses_movement_kernels(prepared, tmp_path, capsys):
+def test_cli_resumes_and_refuses_movement_kernels(prepared, tmp_path, capsys, monkeypatch):
+    """The CLI resumes a prepared cube; ``--movement-kernel`` then runs only
+    stage 6 on it (stages 1-5 are not re-run), and a second run resumes
+    without registering again."""
     _, d, _, out, _, pt = prepared
     mtime = os.path.getmtime(pt)
     assert prepare_cmd.main(["-q", "--device", "cpu", "-o", out["torch"], d]) == 0
     assert capsys.readouterr().out.split() == [pt]
     with ImageCube(pt) as cube:
-        assert all(cube.is_done(s) for s in prep.STAGES)
+        assert all(cube.is_done(s) for s in prep.STAGES) and not cube.is_done("movement")
     assert os.path.getmtime(pt) >= mtime
-    with pytest.raises(NotImplementedError):
-        prepare_cmd.main(["-q", "--device", "cpu", "--movement-kernel", "-o", str(tmp_path), d])
-    with pytest.raises(NotImplementedError):
-        prep.prepare_one(d, 1, 3, 2, output_folder=str(tmp_path), device="cpu",
-                         calc_movement_kernel=True)
-    assert not os.listdir(tmp_path)
+
+    resumed = str(tmp_path / os.path.basename(pt))
+    shutil.copyfile(pt, resumed)
+
+    def refuse(*a, **k):
+        raise AssertionError("a finished stage ran again")
+
+    monkeypatch.setattr(prep, "background_flags", refuse)
+    assert prepare_cmd.main(["-q", "--device", "cpu", "--movement-kernel", "-o",
+                             str(tmp_path), d]) == 0
+    assert capsys.readouterr().out.split() == [resumed]
+    with ImageCube(resumed) as cube:
+        assert cube.is_done("movement")
+        k = np.asarray(cube.h5["movement_kernel"])
+        ref = int(cube.h5["movement_kernel"].attrs["ref_frame"])
+        assert k.shape == (16, 2) and k.dtype == np.float64
+        assert ref == int(cube.attrs["WCS_REF_FRAME"])
+        assert np.abs(k[ref]).max() < 0.005 and np.abs(k).max() < 0.5
+    monkeypatch.setattr(prep.MotionModel, "calc_kernels_batch", refuse)
+    assert prepare_cmd.main(["-q", "--device", "cpu", "--movement-kernel", "-o",
+                             str(tmp_path), d]) == 0
+    with ImageCube(resumed) as cube:
+        np.testing.assert_array_equal(np.asarray(cube.h5["movement_kernel"]), k)
+
+
+@pytest.fixture(scope="module")
+def moved(tmp_path_factory):
+    """tests/test_prepare.py:172's sim prepared with movement kernels by both packages."""
+    base = tmp_path_factory.mktemp("torch_movement")
+    sim = simulate_sector(SimConfig(shape=(64, 64), n_times=6, n_stars=15, seed=3,
+                                    jitter_amp=0.3))
+    d = str(base / "in")
+    sim.write_ffis(d)
+    out = {}
+    for name in ("jax", "torch"):
+        out[name] = str(base / name)
+        sim.write_catalog(out[name])
+    (pj,) = jax_prepare(d, output_folder=out["jax"], calc_movement_kernel=True)
+    (pt,) = prep.prepare_photometry(d, output_folder=out["torch"], device="cpu",
+                                    calc_movement_kernel=True)
+    return sim, out, pj, pt
+
+
+def test_movement_kernel_stage_matches_jax(moved):
+    sim, _, pj, pt = moved
+    with JaxCube(pj) as a, ImageCube(pt) as b:
+        da, db = a.h5["movement_kernel"], b.h5["movement_kernel"]
+        assert (db.dtype, db.shape) == (da.dtype, da.shape) == (np.float64, (6, 2))
+        assert dict(db.attrs) == dict(da.attrs)
+        assert db.attrs["warpmode"] == "translation"
+        ref = int(db.attrs["ref_frame"])
+        assert ref == int(b.attrs["WCS_REF_FRAME"])
+        assert b.h5.attrs["_stages_done"] == a.h5.attrs["_stages_done"] == \
+            ",".join(sorted(prep.STAGES + ("movement",)))
+        k = np.asarray(db)
+        np.testing.assert_allclose(k, np.asarray(da), rtol=0, atol=KERNEL_ATOL)
+    # tests/test_prepare.py:172's bounds against the injected jitter:
+    np.testing.assert_allclose(k[ref], [0, 0], atol=0.02)
+    np.testing.assert_allclose(k[:, 0], sim.jitter[:, 1] - sim.jitter[ref, 1], atol=0.08)
+    np.testing.assert_allclose(k[:, 1], sim.jitter[:, 0] - sim.jitter[ref, 0], atol=0.08)
+
+
+def test_movement_kernel_cubes_give_jax_jitter(moved):
+    """Either package opens the other's cube with its kernel series
+    (``motion_mode`` other than "wcs"), and the port's SectorContext gives
+    the JAX SectorContext's per-cadence jitter on both cubes."""
+    sim, out, *_ = moved
+    rng = np.random.default_rng(2)
+    cols, rows = rng.uniform(0, 64, 7), rng.uniform(0, 64, 7)
+    for mine, theirs in (("torch", "jax"), ("jax", "torch"), ("torch", "torch")):
+        tctx = SectorContext(out[mine], 1, 3, 2, motion_mode="kernel", device="cpu")
+        jctx = JaxContext(out[theirs], 1, 3, 2, motion_mode="kernel")
+        try:
+            assert tctx.motion.warpmode == jctx.motion.warpmode == "translation"
+            tt = tctx.time - tctx.timecorr
+            got = tctx.motion.jitter_batch(tt, cols, rows)
+            want = jctx.motion.jitter_batch(jctx.time - jctx.timecorr, cols, rows)
+            assert got.shape == (6, 7, 2)
+            np.testing.assert_allclose(got, want, rtol=0, atol=KERNEL_ATOL + 1e-6)
+        finally:
+            tctx.close()
+            jctx.close()
 
 
 def test_prepare_photometry_process_split(monkeypatch):
