@@ -56,15 +56,16 @@ targets), 4, 6 (on phase 3's cube), 5:
    camera 1 CCD 1 in raw TESS geometry (2078x2136, TAN WCS, the field of
    phase 3 on a sky with a corner glow, one saturated patch), a catalog and
    one TPF, written with ``io.fits.write_fits``; ``prepare.prepare_cube``
-   runs stages 1-6 on them into an in-memory store with the ``ImageCube``
-   methods (one 64-frame chunk and a partial one).  Both kernels' launch
-   counts must rise; the markers, backgrounds, flags and movement kernels
-   (every one below 0.05 px on these motionless frames, below 0.005 px at
-   the reference frame) are checked; the
-   first chunk's background fit and 8 frames' residuals are re-run with the
-   plain versions and must be equal; stage walls, frames per second, stage
-   6's peak memory and the device busy share (``torch.profiler``) are
-   printed.
+   runs stages 1-5 on them into an in-memory store with the ``ImageCube``
+   methods (one 64-frame chunk and a partial one), under ``torch.profiler``,
+   then again with ``calc_movement_kernel=True``, which resumes and runs
+   stage 6 alone, profiler off.  Both kernels' launch counts must rise; the
+   markers, backgrounds, flags and movement kernels (every one below 0.05 px
+   on these motionless frames, below 0.005 px at the reference frame) are
+   checked; the first chunk's background fit and 8 frames' residuals are
+   re-run with the plain versions and must be equal; stage walls, frames
+   per second, the device busy share of stages 1-5 and stage 6's peak
+   memory (around its call) are printed.
 6. ECC registration at full size: 32 copies of phase 3's star field shifted
    on the card by a known drift plus jitter (up to 1.5 px, FFT phase ramps)
    with fresh noise, registered by ``MotionModel.calc_kernels_batch``
@@ -72,9 +73,10 @@ targets), 4, 6 (on phase 3's cube), 5:
    ``extract_aperture_batch`` on 1,024 targets of a context over phase 3's
    cube, whose per-cadence ``pos_corr`` must follow it.
 
-Prints a JSON line of per-kernel results, the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure,
-without a result, and when no CUDA card is present.
+Prints the wall of each phase, a JSON line of per-kernel results, the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+Exits non-zero on any failure, without a result, and when no CUDA card is
+present.
 
 Usage:  python3 chip_smoke.py [--seed N]
 """
@@ -152,10 +154,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=5):
-    """Median milliseconds of ``fn()`` on the card (CUDA events, after one warm-up)."""
+def cuda_ms(fn, reps=5, warm=True):
+    """Median milliseconds of ``fn()`` on the card (CUDA events, after one
+    warm-up unless ``warm`` is False: the caller has just run it)."""
     import torch
-    fn()
+    if warm:
+        fn()
     times = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -501,7 +505,7 @@ def median_phase(dev, rng, gen, card, result):
     check(bit_equal(got, m15.median_filter_plain(x)), "median15 main shape: kernel != plain")
     lib_eq = all(bit_equal(a, b) for a, b in zip(median_unfold(x[:1]), got[:1]))
     ms = cuda_ms(lambda: m15.median15_cuda(x))
-    plain_ms = cuda_ms(lambda: m15.median_filter_plain(x), reps=1)
+    plain_ms = cuda_ms(lambda: m15.median_filter_plain(x), reps=1, warm=False)
     lib_ms = cuda_ms(lambda: median_unfold(x), reps=1)
     nbytes = 2 * x.numel() * 4
     bound = nbytes / PEAK_BYTES * 1e3
@@ -740,7 +744,7 @@ def ecc_phase(dev, img0, gen, rng, ctx_kw, sids, card, n_frames=32, n_targets=10
     series then drives the aperture slice's jitter (``pos_corr``)."""
     import torch
     from photometry_tpu_torch.core.engine import SectorContext, extract_aperture_batch
-    from photometry_tpu_torch.core.motion import MotionModel
+    from photometry_tpu_torch.core.motion import MotionModel, ecc_sub_batch
     from photometry_tpu_torch.core.status import STATUS
     H_, W_ = img0.shape
     k = np.arange(n_frames) / (n_frames - 1)
@@ -768,7 +772,8 @@ def ecc_phase(dev, img0, gen, rng, ctx_kw, sids, card, n_frames=32, n_targets=10
     err = np.abs(kern - shifts)
     print(f"phase 6 ECC: {n_frames} frames of {H_}x{W_} shifted by up to "
           f"{np.abs(shifts).max():.2f} px, translation kernels in {wall:.2f} s = "
-          f"{n_frames / wall:.1f} frames/s (sub-batch {mm.sub_batch} frames, peak "
+          f"{n_frames / wall:.1f} frames/s (sub-batch "
+          f"{min(n_frames, ecc_sub_batch(H_, W_, 'translation'))} frames, peak "
           f"{peak / 1e9:.2f} GB above the {base / 1e9:.1f} GB held); |recovered - injected| "
           f"median {np.median(err):.4f} px, max {err.max():.4f} px (frame "
           f"{np.unravel_index(err.argmax(), err.shape)[0]}) ({card})", flush=True)
@@ -799,7 +804,7 @@ class DictCube:
     arrays (the card's machine has no h5py).  Reads return copies, as h5py
     does.  It also keeps the first chunk's raw background fit and the first
     frames' residuals, which the stage overwrites or drops, for the plain
-    re-runs, and, on a card, the peak memory of stage 6."""
+    re-runs."""
 
     def __init__(self, n_times, shape, keep_frames=8):
         self.n_times, self.shape = n_times, tuple(shape)
@@ -812,23 +817,17 @@ class DictCube:
         self.scratch = self.raw_backgrounds = self.kept_resid = None
         self.keep_frames = keep_frames
         self._sumimage = self.pixels_used = None
-        self.movement_kernel = self.movement_attrs = self.movement_peak = None
+        self.movement_kernel = self.movement_attrs = None
 
     def is_done(self, stage):
         return stage in self.stages
 
     def mark_done(self, stage):
         self.stages.add(stage)
-        import torch
-        if stage == "wcs_ref" and torch.cuda.is_available():    # stage 6 starts next
-            torch.cuda.reset_peak_memory_stats()
 
     def write_movement_kernel(self, kernels, warpmode, ref_frame):
         self.movement_kernel = np.array(kernels, np.float64)
         self.movement_attrs = {"warpmode": warpmode, "ref_frame": int(ref_frame)}
-        import torch
-        if torch.cuda.is_available():
-            self.movement_peak = torch.cuda.max_memory_allocated()
 
     def write_block(self, name, t0, block):
         if name == "backgrounds" and t0 == 0 and self.raw_backgrounds is None:
@@ -1009,7 +1008,6 @@ def prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result,
     from photometry_tpu_torch.io.settings import sector_info
     from photometry_tpu_torch.ops._kernels import MEDIAN15, SEGMENT_HIST
     from photometry_tpu_torch.ops.background import radial_coordinates
-    from photometry_tpu_torch.ops.registration import ecc_frame_bytes
     from photometry_tpu_torch.quality import PixelQualityFlags as PQ
     folder = os.path.join(work, "ffi")
     os.makedirs(folder, exist_ok=True)
@@ -1031,16 +1029,15 @@ def prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result,
     tic = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
         walls = prep.prepare_cube(cube, files, folder, sector, camera, ccd, device=dev,
-                                  chunk=chunk, calc_movement_kernel=True)
+                                  chunk=chunk)
     wall = time.perf_counter() - tic
     result["median15"]["launches"] = MEDIAN15.launches
     result["segment_hist"]["launches"] = SEGMENT_HIST.launches
     busy = device_busy_ms(prof)
     fps1 = T / (walls["backgrounds_fit"] + walls["backgrounds_smooth"])
     fps3 = T / walls["shenanigans"]
-    print(f"phase 5 slice: prepare_cube of {T} frames with movement kernels in {wall:.2f} s "
-          f"({card}); stage walls "
-          + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+    print(f"phase 5 slice: prepare_cube of {T} frames (stages 1-5) in {wall:.2f} s ({card}); "
+          "stage walls " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
           + f"; stage 1 {fps1:.2f} frames/s, stage 3 {fps3:.2f} frames/s; device busy "
           f"{busy:.1f} ms = {100 * busy / (wall * 1e3):.1f}% of the wall (torch.profiler on); "
           f"launches median15 {MEDIAN15.launches}, segment_hist {SEGMENT_HIST.launches}",
@@ -1048,21 +1045,32 @@ def prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result,
     print(f"phase 5 device time by kernel: {top_device_ops(prof)}", flush=True)
     check(MEDIAN15.launches > 0, "the prepare slice did not launch the median kernel")
     check(SEGMENT_HIST.launches > 0, "the prepare slice did not launch the histogram kernel")
-    check(cube.stages == set(prep.STAGES) | {"movement"}, f"stage markers {sorted(cube.stages)}")
+    check(cube.stages == set(prep.STAGES), f"stage markers {sorted(cube.stages)}")
 
-    # Stage 6: the frames carry no injected motion.
+    # Stage 6, resumed on the prepared cube: the frames carry no injected motion.
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    walls6 = prep.prepare_cube(cube, files, folder, sector, camera, ccd, device=dev,
+                               chunk=chunk, calc_movement_kernel=True)
+    mem = ("" if dev.type != "cuda" else
+           f"; peak {(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB above the "
+           f"{base / 1e9:.2f} GB held")
+    check(set(walls6) == {"movement"}, f"the resumed prepare_cube ran {sorted(walls6)}")
+    check(cube.stages == set(prep.STAGES) | {"movement"}, f"stage markers {sorted(cube.stages)}")
+    walls.update(walls6)
     kern, ref6 = cube.movement_kernel, cube.movement_attrs["ref_frame"]
     check(kern.shape == (T, 2) and cube.movement_attrs["warpmode"] == "translation",
           f"movement kernels {kern.shape}, {cube.movement_attrs}")
     amax = np.abs(kern).max(axis=1)
     worst = int(np.argmax(amax))
-    sub = min(chunk, int(motion.ECC_BUDGET_BYTES // ecc_frame_bytes(H, W, "translation")))
-    mem = ("" if cube.movement_peak is None else
-           f"; stage-6 peak {cube.movement_peak / 1e9:.2f} GB allocated")
-    print(f"phase 5 stage 6: {T} movement kernels in {walls['movement']:.2f} s = "
-          f"{T / walls['movement']:.1f} frames/s (sub-batches of {sub} frames{mem}); largest "
-          f"|kernel| {amax[worst]:.4f} px at frame {worst} (saturated patch in frame "
-          f"{patch[0]}), {amax[ref6]:.2e} px at the reference frame {ref6}", flush=True)
+    sub = min(chunk, motion.ecc_sub_batch(H, W, "translation"))
+    print(f"phase 5 stage 6 (resumed, profiler off): {T} movement kernels in "
+          f"{walls['movement']:.2f} s = {T / walls['movement']:.1f} frames/s (sub-batches of "
+          f"{sub} frames{mem}); largest |kernel| {amax[worst]:.4f} px at frame {worst} "
+          f"(saturated patch in frame {patch[0]}), {amax[ref6]:.2e} px at the reference "
+          f"frame {ref6}", flush=True)
     check(amax.max() < 0.05, f"a movement kernel of {amax.max():.3f} px on motionless frames")
     check(amax[ref6] < 0.005 and ref6 == cube.attrs["WCS_REF_FRAME"],
           "kernel at the reference frame")
@@ -1147,6 +1155,11 @@ def main() -> int:
     print(f"phase 0 imports: jax, h5py and photometry_tpu blocked (installed here: {present})",
           flush=True)
     t_start = time.perf_counter()
+    laps = [("0", t_start)]
+
+    def lap(phase):
+        """Close the wall of ``phase``: the seconds since the last lap."""
+        laps.append((phase, time.perf_counter()))
 
     from photometry_tpu_torch.catalog import make_catalog_from_arrays
     from photometry_tpu_torch.core.dispatcher import photometry_batch
@@ -1182,6 +1195,7 @@ def main() -> int:
           + ptxas_regs(MEDIAN15.build_log + SEGMENT_HIST.build_log + STAMP_FLUX.build_log,
                        ("median15_kernel", "segment_hist_kernel", "to_float_kernel",
                         "stamp_flux_kernel")), flush=True)
+    lap("1")
     result = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "library_ms": None} for name, (src, rep) in KERNELS.items()}
 
@@ -1233,6 +1247,7 @@ def main() -> int:
     result["band_extract"].update(max_abs_err=max(err, main_err), ms=kern_ms[17],
                                   plain_ms=plain_ms[17], bound_ms=band_bound[17],
                                   bound_by="bytes")
+    lap("2")
 
     # --- phase 2b: PSF kernel vs plain -------------------------------------
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1308,13 +1323,16 @@ def main() -> int:
                                   bound_by="operations" if flops / PEAK_F32 > nbytes / PEAK_BYTES
                                   else "bytes")
     del ins, got, want
+    lap("2b")
 
     # --- phase 2c: median and histogram kernels vs plain ---------------------
     median_phase(dev, rng, gen, card, result)
     hist_phase(dev, rng, card, result)
+    lap("2c")
 
     # --- phase 2d: stamp kernel vs plain (its main shape runs after phase 3) -------
     stamp_adv_err = stamp_adversarial(dev, rng)
+    lap("2d adversarial")
 
     # --- phase 3: the aperture slice ---------------------------------------
     wcs = TanWCS(crpix=[W / 2 + 0.5, H / 2 + 0.5], crval=[95.0, -60.0],
@@ -1397,10 +1415,12 @@ def main() -> int:
               flush=True)
 
     lease("aperture", N_LEASE, "products")
+    lap("3")
 
     # --- phase 2d, main shape: the phase-3 cube and targets ------------------------
     stamp_main(dev, (images, errs, bkgs, flags), results, rows, cols, card, result,
                stamp_adv_err)
+    lap("2d main")
 
     # --- phase 4: the PSF slice ----------------------------------------------
     prf = prfs[3]
@@ -1447,15 +1467,20 @@ def main() -> int:
 
     lease("psf", N_LEASE, "products_psf")
     ctx.close()
+    lap("4")
 
     # --- phase 6: ECC registration against injected motion --------------------------
     ecc_phase(dev, img0, gen, rng, ctx_kw, sids, card)
+    lap("6")
     del ctx, ctx_kw, cube, images, errs, bkgs, flags, res_psf, refit, results
     torch.cuda.empty_cache()
 
     # --- phase 5: the prepare slice --------------------------------------------
     prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result)
-    print(f"phases 1-6 took {time.perf_counter() - t_start:.1f} s", flush=True)
+    lap("5")
+    print(f"phases 1-6 took {time.perf_counter() - t_start:.1f} s: "
+          + ", ".join(f"{name} {b - a:.1f} s" for (_, a), (name, b) in zip(laps, laps[1:])),
+          flush=True)
 
     print(json.dumps({"kernels": [result[name] for name in KERNELS]}))
     print(card)

@@ -10,8 +10,9 @@ like the reference's device program; WCS displacements stay host float64.
 
 Kernels are estimated by ECC registration against the reference image
 (``calc_kernel``, ``calc_kernels_batch``; ``ops/registration.py``), the
-prepare stage's stage 6.  Frames go to the device in sub-batches bounded
-by bytes.
+prepare stage's stage 6.  Estimation runs on the card unless the caller
+asks for the CPU (``device=``); frames go there in sub-batches bounded by
+bytes.
 """
 
 from __future__ import annotations
@@ -26,10 +27,18 @@ from ..io.fits import Header
 from ..io.wcs import TanWCS
 from ..ops.registration import N_PARAMS, ecc_align, ecc_align_batch, ecc_frame_bytes, prepare_flux
 
-__all__ = ["MotionModel"]
+__all__ = ["MotionModel", "ecc_sub_batch"]
 
-#: Device bytes the frames of one registration sub-batch may hold (H100: 80 GB).
+#: Device bytes the frames of one registration sub-batch may hold (H100: 80 GB);
+#: ``chip_ecc_budget.py`` times registration and its peak memory against it.
 ECC_BUDGET_BYTES = 8e9
+
+
+def ecc_sub_batch(H: int, W: int, mode: str) -> int:
+    """Frames of (H, W) per device sub-batch of registration: as many as
+    ``ECC_BUDGET_BYTES`` of their state hold (``ecc_frame_bytes``), at
+    least one."""
+    return max(1, int(ECC_BUDGET_BYTES // ecc_frame_bytes(H, W, mode)))
 
 
 def _apply_kernel_batch(params: torch.Tensor, mode: str, cols: torch.Tensor,
@@ -59,56 +68,57 @@ class MotionModel:
 
     def __init__(self, warpmode: str = "euclidian", image_ref=None,
                  wcs_ref: Optional[TanWCS] = None):
-        """``image_ref`` (H, W), a tensor or array, is kept preprocessed
-        (:func:`~photometry_tpu_torch.ops.registration.prepare_flux`) on its
-        own device (an array: the CPU)."""
+        """``image_ref`` (H, W), a tensor or array, is the registration
+        reference.  Construction computes nothing: the reference is
+        preprocessed (:func:`~photometry_tpu_torch.ops.registration.prepare_flux`)
+        on the device of the first estimation and kept there as
+        ``image_ref``."""
         if warpmode not in ("wcs", "unchanged", "translation", "euclidian", "affine"):
             raise ValueError("Invalid warpmode")
         self.warpmode = warpmode
         self.n_params = N_PARAMS.get(warpmode, 1)
-        self.image_ref = None if image_ref is None else prepare_flux(image_ref)
+        self._ref_raw = image_ref
+        self._ref_dev = None
+        self.image_ref = None
         self.wcs_ref = wcs_ref
         self.series_times: Optional[np.ndarray] = None
         self.series_kernels = None
         self._wcs_series = None
-        #: Frames per device sub-batch of the last ``calc_kernels_batch``.
-        self.sub_batch = None
 
     # ------------------------------------------------------------- estimation
-    def _reference(self) -> torch.Tensor:
-        if self.image_ref is None:
+    def _reference(self, device) -> torch.Tensor:
+        """The preprocessed reference on ``device`` (prepared there once)."""
+        if self._ref_raw is None:
             raise RuntimeError("Reference image not defined")
+        dev = resolve_device(device)
+        if self.image_ref is None or self._ref_dev != dev:
+            self.image_ref = prepare_flux(torch.as_tensor(self._ref_raw).to(dev))
+            self._ref_dev = dev
         return self.image_ref
 
-    def calc_kernel(self, image, n_iters: int = 50) -> np.ndarray:
-        """Warp parameters (P,) float64 of one frame against the reference
-        image, on the reference's device."""
+    def calc_kernel(self, image, n_iters: int = 50, device="cuda") -> np.ndarray:
+        """Warp parameters (P,) float64 of one (H, W) frame against the
+        reference image, registered on ``device``."""
         if self.warpmode == "unchanged":
             return np.zeros(0)
-        ref = self._reference()
-        img = prepare_flux(torch.as_tensor(image, device=ref.device))
+        ref = self._reference(device)
+        img = prepare_flux(torch.as_tensor(image).to(ref.device))
         params, _cc = ecc_align(ref, img, mode=self.warpmode, n_iters=n_iters)
         return params.cpu().numpy().astype(np.float64)
 
     def calc_kernels_batch(self, images, n_iters: int = 50, device="cuda") -> np.ndarray:
-        """Warp parameters (T, P) float64 of a (T, H, W) stack on ``device``.
-
-        Frames go to the device in sub-batches of at most
-        ``ECC_BUDGET_BYTES`` of registration state (``ecc_frame_bytes``).
-        """
+        """Warp parameters (T, P) float64 of a (T, H, W) stack on ``device``,
+        in sub-batches of :func:`ecc_sub_batch` frames."""
         if self.warpmode == "unchanged":
             return np.zeros((len(images), 0))
-        dev = resolve_device(device)
-        ref = self._reference().to(dev)
+        ref = self._reference(device)
         nt, H, W = images.shape
-        step = max(1, int(ECC_BUDGET_BYTES // ecc_frame_bytes(H, W, self.warpmode)))
-        self.sub_batch = min(step, nt)
+        step = ecc_sub_batch(H, W, self.warpmode)
         out = np.empty((nt, self.n_params), np.float64)
         for t0 in range(0, nt, step):
-            t1 = min(t0 + step, nt)
-            frames = prepare_flux(torch.as_tensor(images[t0:t1]).to(dev))
+            frames = prepare_flux(torch.as_tensor(images[t0:t0 + step]).to(ref.device))
             params, _cc = ecc_align_batch(ref, frames, mode=self.warpmode, n_iters=n_iters)
-            out[t0:t1] = params.cpu().numpy()
+            out[t0:t0 + step] = params.cpu().numpy()
         return out
 
     # ------------------------------------------------------------ time series

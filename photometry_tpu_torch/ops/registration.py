@@ -32,6 +32,14 @@ __all__ = ["N_PARAMS", "prepare_flux", "warp_params_to_matrix", "ecc_align",
 N_PARAMS = {"unchanged": 0, "translation": 2, "euclidian": 3, "affine": 6}
 
 
+def _frames(x, what: str) -> torch.Tensor:
+    """``x`` as float32, which must be a tensor: its device is where the work runs."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{what} must be a torch.Tensor on the device to run on, "
+                        f"not {type(x).__name__}")
+    return x.to(torch.float32)
+
+
 def _nan_extreme(x: torch.Tensor, largest: bool) -> torch.Tensor:
     """nanmax / nanmin over the last two dims, keepdim (NaN where all NaN)."""
     nan = torch.isnan(x)
@@ -46,9 +54,10 @@ def prepare_flux(flux) -> torch.Tensor:
 
     Reference image_motion.py:74-110: registration runs on the gradient of
     the log-image, which tames bright stars.  Each frame is normalised by
-    its own finite extremes; NaN gradients become 0.
+    its own finite extremes; NaN gradients become 0.  Runs on ``flux``'s
+    device (a tensor).
     """
-    flux = torch.as_tensor(flux).to(torch.float32)
+    flux = _frames(flux, "flux")
     flux = torch.log10(flux - _nan_extreme(flux, False) + 1.0)
     fmax = _nan_extreme(flux, True)
     fmin = _nan_extreme(flux, False)
@@ -151,11 +160,12 @@ def ecc_align_batch(ref, imgs, mode: str = "euclidian", n_iters: int = 50, mask=
 
     ``ref`` (H, W) and ``imgs`` are preprocessed (:func:`prepare_flux`);
     ``mask`` (H, W) or (F, H, W) is an optional validity mask of the frames.
-    Returns ``(params (F, P), cc (F,))`` on the frames' device: the warp
+    ``imgs`` is a tensor, and the work runs on its device; ``ref`` and
+    ``mask`` go there.  Returns ``(params (F, P), cc (F,))``: the warp
     parameters and the last step's correlation coefficient.  Every frame
     runs all ``n_iters`` steps.
     """
-    imgs = torch.as_tensor(imgs).to(torch.float32)
+    imgs = _frames(imgs, "imgs")
     dev = imgs.device
     ref = torch.as_tensor(ref, device=dev).to(torch.float32)
     nf, H, W = imgs.shape
@@ -233,9 +243,10 @@ def ecc_align_batch(ref, imgs, mode: str = "euclidian", n_iters: int = 50, mask=
 def ecc_align(ref, img, mode: str = "euclidian", n_iters: int = 50, mask=None):
     """Warp parameters aligning one preprocessed frame ``img`` (H, W) to ``ref``.
 
-    The JAX package's signature; returns ``(params (P,), cc)``.
+    The JAX package's signature, with ``img`` a tensor on the device to run
+    on; returns ``(params (P,), cc)``.
     """
-    img = torch.as_tensor(img)
+    img = _frames(img, "img")
     params, cc = ecc_align_batch(ref, img[None], mode=mode, n_iters=n_iters,
                                  mask=None if mask is None else torch.as_tensor(mask)[None])
     return params[0], cc[0]

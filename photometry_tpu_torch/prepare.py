@@ -335,7 +335,7 @@ def prepare_cube(cube, files, input_folder: str, sector: int, camera: int, ccd: 
         logger.info("Calculating image movement kernels (batched ECC)...")
         refindx = int(cube.attrs["WCS_REF_FRAME"])
         ref_img = np.nan_to_num(cube.images(refindx, refindx + 1)[0])
-        mm = MotionModel(warpmode="translation", image_ref=torch.from_numpy(ref_img).to(dev))
+        mm = MotionModel(warpmode="translation", image_ref=ref_img)
         kernels = np.empty((T, mm.n_params), np.float64)
         for t0 in range(0, T, chunk):
             t1 = min(t0 + chunk, T)

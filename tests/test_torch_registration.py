@@ -163,31 +163,65 @@ def test_motion_model_takes_the_jax_signature(sim_frames):
     argument is the reference image in both packages."""
     ref = sim_frames[0]
     jm, tm = JaxMotion("translation", ref), MotionModel("translation", ref)
+    assert tm.wcs_ref is None and jm.wcs_ref is None
+    np.testing.assert_allclose(tm.calc_kernel(sim_frames[3], device="cpu"),
+                               jm.calc_kernel(sim_frames[3]), rtol=0, atol=P_ATOL)
     np.testing.assert_allclose(n(tm.image_ref), np.asarray(jm.image_ref), rtol=0,
                                atol=FLUX_ATOL)
-    assert tm.wcs_ref is None and jm.wcs_ref is None
-    np.testing.assert_allclose(tm.calc_kernel(sim_frames[3]), jm.calc_kernel(sim_frames[3]),
-                               rtol=0, atol=P_ATOL)
 
 
 def test_calc_kernels_match_jax(sim_frames, monkeypatch):
     ref = sim_frames[0]
     jm, tm = JaxMotion("translation", image_ref=ref), MotionModel("translation", image_ref=ref)
+    batches = []
+
+    def spy(ref_, frames, **kw):
+        batches.append(frames.shape[0])
+        return ecc_align_batch(ref_, frames, **kw)
+
+    monkeypatch.setattr(motion_mod, "ecc_align_batch", spy)
     want = jm.calc_kernels_batch(sim_frames)
     got = tm.calc_kernels_batch(sim_frames, device="cpu")
     assert got.dtype == np.float64 and got.shape == want.shape == (6, 2)
     np.testing.assert_allclose(got, want, rtol=0, atol=P_ATOL)
-    assert tm.sub_batch == 6
+    assert batches == [6]
     for k in (0, 4):
-        single = tm.calc_kernel(sim_frames[k])
+        single = tm.calc_kernel(sim_frames[k], device="cpu")
         assert single.dtype == np.float64
         np.testing.assert_allclose(single, jm.calc_kernel(sim_frames[k]), rtol=0, atol=P_ATOL)
     # Sub-batches bounded by bytes: 4 frames' worth, so 4 + 2, same result.
     frame = motion_mod.ecc_frame_bytes(64, 64, "translation")
     monkeypatch.setattr(motion_mod, "ECC_BUDGET_BYTES", 4.5 * frame)
+    assert motion_mod.ecc_sub_batch(64, 64, "translation") == 4
+    batches.clear()
     np.testing.assert_allclose(tm.calc_kernels_batch(t(sim_frames), device="cpu"), got,
                                rtol=0, atol=1e-5)
-    assert tm.sub_batch == 4
+    assert batches == [4, 2]
+    monkeypatch.setattr(motion_mod, "ECC_BUDGET_BYTES", 0.5 * frame)
+    assert motion_mod.ecc_sub_batch(64, 64, "translation") == 1
+
+
+def test_estimation_defaults_to_the_card(sim_frames, monkeypatch):
+    """Called as the JAX package is called, with arrays and no device, the
+    estimation runs on the card: without one it raises and computes
+    nothing on the CPU.  The registration ops take tensors only."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def refuse(*a, **kw):
+        raise AssertionError("registration ran without a device asked for")
+
+    monkeypatch.setattr(motion_mod, "prepare_flux", refuse)
+    mm = MotionModel("translation", sim_frames[0])
+    assert mm.image_ref is None                    # construction computes nothing
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mm.calc_kernel(sim_frames[3])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mm.calc_kernels_batch(sim_frames)
+    for call in (lambda: prepare_flux(sim_frames[0]),
+                 lambda: ecc_align(t(sim_frames[0]), sim_frames[1], mode="translation"),
+                 lambda: ecc_align_batch(t(sim_frames[0]), sim_frames[1:], mode="translation")):
+        with pytest.raises(TypeError, match="torch.Tensor"):
+            call()
 
 
 def test_calc_kernel_modes_without_reference(sim_frames):
@@ -198,6 +232,7 @@ def test_calc_kernel_modes_without_reference(sim_frames):
         tm = cls("euclidian")
         with pytest.raises(RuntimeError, match="Reference image not defined"):
             tm.calc_kernel(sim_frames[0])
+    assert MotionModel("unchanged").calc_kernel(sim_frames[0], device="cpu").shape == (0,)
     assert MotionModel("unchanged").calc_kernels_batch(sim_frames, device="cpu").shape == (6, 0)
     with pytest.raises(RuntimeError, match="Reference image not defined"):
         MotionModel("affine").calc_kernels_batch(sim_frames, device="cpu")
