@@ -18,16 +18,20 @@ targets), 4, 6 (on phase 3's cube), 5:
 2b. PSF kernel vs its plain torch version on the card: the problems of
    tests/test_psf_pallas.py redrawn, then adversarial instances (NaN
    pixels, an all-NaN stamp, dummy stars, blends, a star clipped at the
-   stamp edge; S = 1, 3, 5, 8, K = 1 and 3, stamps 11, 15, 17 and 32),
-   then the main path's shape (180 targets x 512 cadences of 15x15, S=5,
-   K=3, 6 iterations) with median times.
+   stamp edge; S = 1, 3, 5, 6, 8, K = 1, 3 and 4, stamps 11, 15, 17 and
+   32, 0 iterations), then the main path's shape (180 targets x 512
+   cadences of 15x15, S=5, K=3, 6 iterations) with median times and two
+   bounds: all operations in float32, and the normal equations in 3xTF32
+   on the tensor cores.
 2c. the 15x15 median and segment-histogram kernels vs their plain torch
    versions on the card, bit for bit: adversarial inputs (a 3.4e38 outlier,
    a constant frame, a 6x5 frame, signed zeros; invalid and out-of-range
-   samples, empty segments, every sample in one bucket, a table too large
-   for shared memory), then the prepare stage's shapes ((8, 2048, 2048)
-   frames; 64 frames x 1024^2 samples x the CCD's ~40 rings x 512 buckets)
-   with median times of kernel, plain version and the one-call torch
+   samples, empty segments, every sample in one bucket, N % 4 != 0, a
+   table too large for shared memory), then the prepare stage's shapes
+   ((8, 2048, 2048) frames; 64 frames x 1024^2 samples x the CCD's 39
+   rings x 512 buckets, on synthetic buckets and on real ones: phase 3's
+   field on phase 5's sky, bucketed by segment_kde_mode's rule) with
+   median times of kernel, plain version and the one-call torch
    equivalent.
 2d. the stamp-flux kernel vs its plain torch version on the card:
    adversarial inputs (NaN and ±inf pixels, an all-NaN cadence, an empty
@@ -49,7 +53,9 @@ targets), 4, 6 (on phase 3's cube), 5:
    with ``PRF.write_mat`` and read back with ``PRF.from_mat``,
    ``extract_psf_batch`` on the 2,048 brightest targets (the PSF kernel's
    launch count must rise, no group it takes may go to the plain fitter),
-   128 of them re-fitted by the plain fitter, then one 256-task
+   the slice again under ``torch.profiler`` (the kernel's device time,
+   first-cadence and warm launches apart, and its share of the slice's
+   wall), 128 of them re-fitted by the plain fitter, then one 256-task
    ``method="psf"`` lease through ``photometry_batch`` with products read
    back.
 5. the prepare slice at full CCD size: 96 synthetic sector-27 FFIs of
@@ -64,8 +70,9 @@ targets), 4, 6 (on phase 3's cube), 5:
    on these motionless frames, below 0.005 px at the reference frame) are
    checked; the first chunk's background fit and 8 frames' residuals are
    re-run with the plain versions and must be equal; stage walls, frames
-   per second, the device busy share of stages 1-5 and stage 6's peak
-   memory (around its call) are printed.
+   per second, the device busy share of stages 1-5, the histogram kernel's
+   device time per launch and stage 6's peak memory (around its call) are
+   printed.
 6. ECC registration at full size: 32 copies of phase 3's star field shifted
    on the card by a known drift plus jitter (up to 1.5 px, FFT phase ramps)
    with fresh noise, registered by ``MotionModel.calc_kernels_batch``
@@ -125,8 +132,9 @@ HIST_MAIN = (64, 1 << 20, 512)           # a 64-frame chunk at hist_stride 2, 51
 # CCD 1 (the camera centre sits off its corner: ~40 rings beyond 2400 px).
 PREP = {"T": 96, "sector": 27, "camera": 1, "ccd": 1, "chunk": 64}
 RAW_SHAPE = (2078, 2136)                 # raw TESS FFI; science area rows 0:2048, cols 44:2092
-# NVIDIA H100 SXM data sheet: HBM bytes/s, float32 FLOP/s outside the tensor cores.
-PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# NVIDIA H100 SXM data sheet: HBM bytes/s, float32 FLOP/s outside the tensor cores,
+# dense TF32 FLOP/s of the tensor cores (3xTF32 spends three products on one).
+PEAK_BYTES, PEAK_F32, PEAK_TF32 = 3.35e12, 67e12, 495e12
 
 
 class _Blocked(importlib.abc.MetaPathFinder):
@@ -271,7 +279,8 @@ def prf_density(terms, oversample=9, radius=8.0):
     return g / (g.sum() / oversample ** 2)
 
 
-PRF_TERMS = {1: [(1.0, 1.2, 1.2)], 3: [(0.7, 1.1, 1.1), (0.3, 2.0, 2.0), (0.2, 1.6, 1.3)]}
+PRF_TERMS = {1: [(1.0, 1.2, 1.2)], 3: [(0.7, 1.1, 1.1), (0.3, 2.0, 2.0), (0.2, 1.6, 1.3)],
+             4: [(0.6, 1.0, 1.2), (0.3, 2.2, 1.5), (0.2, 1.4, 2.6), (0.1, 3.0, 0.8)]}
 
 
 def table_prf(PRF, folder, K, dev):
@@ -393,21 +402,25 @@ def psf_fit_check(got, want, valid, S, tier, what):
 
 def psf_flops(B, S, K, h, w, n_iters):
     """Floating-point operations of psf_warm_fit on B instances, counted
-    from the kernel's code (an FMA is 2): the weights once; per iteration
-    and for the final pass the axis tables (Catmull-Rom weights and K-term
-    taps, values and derivatives, per star and row/column), per pixel and
-    star the cutoff, the K-term render and the Jacobian row, per pixel the
-    3S(3S+1)/2 + 3S normal-equation FMAs, then the damped Cholesky and two
-    triangular solves and the update; at the end the covariance Cholesky
-    and the S inverse columns."""
+    from the first kernel's code (an FMA is 2), as (normal equations, rest):
+    per iteration and for the final pass, per pixel, the 3S(3S+1)/2 + 3S
+    normal-equation FMAs (with the weight products); the rest is the
+    weights once, per iteration and for the final pass the axis tables
+    (Catmull-Rom weights and K-term taps, values and derivatives, per star
+    and row/column), per pixel and star the cutoff, the K-term render and
+    the Jacobian row, then the damped Cholesky and two triangular solves
+    and the update, and at the end the covariance Cholesky and the S
+    inverse columns.  The same count of the same work whatever implements
+    it."""
     P3 = 3 * S
     npix = h * w
+    normal = B * (n_iters + 1) * npix * (P3 * (P3 + 1) + 3 * P3)
     axis = S * (h + w) * (64 + 16 * K + 4)
-    pixel = npix * (S * (10 + 6 * K) + 1 + P3 * (P3 + 1) + 3 * P3)
+    pixel = npix * (S * (10 + 6 * K) + 1)
     chol = 2 * P3 ** 3 // 3 + 3 * P3
     step = axis + pixel + chol + 2 * P3 ** 2 + 10 * S
     final = axis + pixel + 2 * npix + chol + S * P3 ** 2
-    return B * (5 * npix + n_iters * step + final)
+    return normal, B * (5 * npix + n_iters * step + final)
 
 
 def psf_bytes(B, S, h, w):
@@ -519,11 +532,67 @@ def median_phase(dev, rng, gen, card, result):
                               bound_by="bytes", library_ms=lib_ms)
 
 
-def hist_phase(dev, rng, card, result):
+def sky_buckets(img0, seg_t, nf, nb, gen):
+    """(nf, N) buckets and good flags of ``nf`` frames of the star field
+    ``img0`` on phase 5's sky (camera 1 CCD 1: a 150 e-/s floor and a glow
+    to 550 e-/s towards the far corner, drifting 5%) with Poisson-like
+    noise, sampled at stride 2 and bucketed by ``stats.segment_kde_mode``'s
+    rule: log10(img + zeropoint) over each frame's range of good samples,
+    ``nb`` buckets."""
+    import torch
+    from photometry_tpu_torch.ops.background import radial_coordinates
+    dev = seg_t.device
+    r = radial_coordinates(img0.shape, PREP["camera"], PREP["ccd"])
+    glow = torch.as_tensor((150.0 + 400.0 * np.exp(-(r.max() - r) / 200.0)).astype(np.float32),
+                           device=dev)
+    stars = torch.as_tensor(img0, device=dev)
+    b = torch.empty(nf, seg_t.numel(), dtype=torch.int32, device=dev)
+    good = torch.empty(nf, seg_t.numel(), dtype=torch.bool, device=dev)
+    for k in range(nf):
+        signal = stars + glow * float(1.0 + 0.05 * np.sin(2 * np.pi * k / PREP["T"]))
+        frame = signal + torch.sqrt(torch.clamp(signal, min=0.0) / 480.0 + 0.01) * torch.randn(
+            signal.shape, device=dev, generator=gen)
+        v = torch.log10(frame - frame.min() + 1.0)[::2, ::2].reshape(-1)
+        good[k] = torch.isfinite(v) & (seg_t >= 0)
+        vg = v[good[k]]
+        lo, span = vg.min(), torch.clamp(vg.max() - vg.min(), min=1e-30)
+        b[k] = torch.clamp(((v - lo) / span * nb).to(torch.int32), 0, nb - 1)
+    return b, good
+
+
+def hist_cases(dev, rng, img0):
+    """Phase 2c's main-shape inputs: the ring of every stride-2 sample of
+    camera 1 CCD 1 (-1 inside 2,400 px), its ring count, and two cases of
+    (name, buckets, good) over HIST_MAIN's frames: synthetic sky buckets
+    around 180 +- 12 with a 5% tail and 10% bad samples, and the real
+    buckets of ``sky_buckets``."""
+    import torch
+    from photometry_tpu_torch.ops.background import _ring_geometry, radial_coordinates
+    nf, ns, nb = HIST_MAIN
+    r_host, bins, _, _ = _ring_geometry(radial_coordinates((2048, 2048), 1, 1), 2400, 15)
+    S = len(bins) - 1
+    ring = np.clip(((r_host - np.float32(2400)) / np.float32(15)).astype(np.int32), -1, S - 1)
+    ring = np.where(r_host < 2400, -1, ring)[::2, ::2].reshape(-1).astype(np.int32)
+    check(ring.size == ns, "ring image size")
+    seg_t = torch.as_tensor(ring, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 30)))
+    # Sky samples pile into the buckets around the mode, stars into a long tail:
+    sky = 180.0 + 12.0 * torch.randn(nf, ns, device=dev, generator=gen)
+    tail = torch.rand(nf, ns, device=dev, generator=gen) < 0.05
+    val = torch.where(tail, 180.0 + 330.0 * torch.rand(nf, ns, device=dev, generator=gen), sky)
+    del sky, tail
+    cases = [("main shape", val.clamp(0, nb - 1).to(torch.int32),
+              torch.rand(nf, ns, device=dev, generator=gen) > 0.1)]
+    del val
+    cases.append(("real buckets", *sky_buckets(img0, seg_t, nf, nb, gen)))
+    return seg_t, S, cases
+
+
+def hist_phase(dev, rng, card, result, img0):
     import torch
     from photometry_tpu_torch.ops import seghist
     from photometry_tpu_torch.ops._kernels import KernelError
-    from photometry_tpu_torch.ops.background import _ring_geometry, radial_coordinates
 
     def pair(seg, b, good, S, B):
         args = [torch.as_tensor(a, device=dev) for a in (seg, b, good)]
@@ -542,6 +611,7 @@ def hist_phase(dev, rng, card, result):
     pair(seg, np.full((3, n), 77, np.int32), np.ones((3, n), bool), 40, 512)   # one bucket
     pair(rng.integers(0, 64, n).astype(np.int32), rng.integers(0, 512, (2, n)).astype(np.int32),
          np.ones((2, n), bool), 64, 512)                   # 64 rings: a 128 KB table
+    pair(seg[:4001], b[:1, :4001], good[:1, :4001], 40, 512)   # one frame, N % 4 == 1
     try:
         seghist.segment_histogram_cuda(*(torch.as_tensor(a, device=dev)
                                          for a in (seg, b, good)), 128, 512)
@@ -549,40 +619,32 @@ def hist_phase(dev, rng, card, result):
     except KernelError:
         pass
     print("phase 2c segment_hist adversarial (invalid and out-of-range samples, empty "
-          "segments, one bucket, 64 x 512, a 256 KB table refused): kernel == plain", flush=True)
+          "segments, one bucket, 64 x 512, N % 4 != 0 on 3 frames and on 1, a 256 KB table "
+          "refused): kernel == plain", flush=True)
 
     nf, ns, nb = HIST_MAIN
-    r_host, bins, _, _ = _ring_geometry(radial_coordinates((2048, 2048), 1, 1), 2400, 15)
-    S = len(bins) - 1
-    ring = np.clip(((r_host - np.float32(2400)) / np.float32(15)).astype(np.int32), -1, S - 1)
-    ring = np.where(r_host < 2400, -1, ring)[::2, ::2].reshape(-1).astype(np.int32)
-    check(ring.size == ns, "ring image size")
-    seg_t = torch.as_tensor(ring, device=dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(rng.integers(1 << 30)))
-    # Sky samples pile into the buckets around the mode, stars into a long tail:
-    sky = 180.0 + 12.0 * torch.randn(nf, ns, device=dev, generator=gen)
-    tail = torch.rand(nf, ns, device=dev, generator=gen) < 0.05
-    val = torch.where(tail, 180.0 + 330.0 * torch.rand(nf, ns, device=dev, generator=gen), sky)
-    b_t = val.clamp(0, nb - 1).to(torch.int32)
-    good_t = torch.rand(nf, ns, device=dev, generator=gen) > 0.1
-    got = seghist.segment_histogram_cuda(seg_t, b_t, good_t, S, nb)
-    torch.cuda.synchronize()
-    check(torch.equal(got, seghist.segment_histogram_plain(seg_t, b_t, good_t, S, nb)),
-          "segment_hist main shape: kernel != plain")
-    ok = good_t & (seg_t >= 0)[None]
-    flat = ((torch.arange(nf, device=dev)[:, None] * S + seg_t.long()[None]) * nb
-            + b_t.long())[ok]
-    ms = cuda_ms(lambda: seghist.segment_histogram_cuda(seg_t, b_t, good_t, S, nb))
-    plain_ms = cuda_ms(lambda: seghist.segment_histogram_plain(seg_t, b_t, good_t, S, nb))
-    lib_ms = cuda_ms(lambda: torch.bincount(flat, minlength=nf * S * nb))
+    seg_t, S, cases = hist_cases(dev, rng, img0)
     nbytes = ns * 4 + nf * ns * 5 + nf * S * nb * 4
     bound = nbytes / PEAK_BYTES * 1e3
-    print(f"phase 2c segment_hist main shape ({nf} frames, {ns} samples, {S} x {nb}): kernel "
-          f"== plain; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bincount {lib_ms:.3f} ms, "
-          f"bound {bound:.4f} ms by bytes ({nbytes / 1e6:.1f} MB) ({card})", flush=True)
-    result["segment_hist"].update(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                                  bound_by="bytes", library_ms=lib_ms)
+    for what, b_t, good_t in cases:
+        got = seghist.segment_histogram_cuda(seg_t, b_t, good_t, S, nb)
+        torch.cuda.synchronize()
+        check(torch.equal(got, seghist.segment_histogram_plain(seg_t, b_t, good_t, S, nb)),
+              f"segment_hist {what}: kernel != plain")
+        ok = good_t & (seg_t >= 0)[None]
+        flat = ((torch.arange(nf, device=dev)[:, None] * S + seg_t.long()[None]) * nb
+                + b_t.long())[ok]
+        ms = cuda_ms(lambda: seghist.segment_histogram_cuda(seg_t, b_t, good_t, S, nb))
+        plain_ms = cuda_ms(lambda: seghist.segment_histogram_plain(seg_t, b_t, good_t, S, nb))
+        lib_ms = cuda_ms(lambda: torch.bincount(flat, minlength=nf * S * nb))
+        print(f"phase 2c segment_hist {what} ({nf} frames, {ns} samples, {S} x {nb}; "
+              f"{100 * flat.numel() / (nf * ns):.1f}% of samples counted, "
+              f"{int((got > 0).sum())} cells occupied): kernel == plain; kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, bincount {lib_ms:.3f} ms, bound {bound:.4f} ms by bytes "
+              f"({nbytes / 1e6:.1f} MB) ({card})", flush=True)
+        if what == "main shape":
+            result["segment_hist"].update(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                          bound_ms=bound, bound_by="bytes", library_ms=lib_ms)
 
 
 # --- phase 2d: flux-only stamp extraction --------------------------------------
@@ -986,6 +1048,65 @@ def device_busy_ms(prof) -> float:
     return busy / 1e3
 
 
+def kernel_spans(prof, name):
+    """(start, duration) in microseconds of the device activities of a
+    profiled run whose name contains ``name``, in start order."""
+    from torch.autograd import DeviceType
+    return sorted((e.time_range.start, e.time_range.end - e.time_range.start)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA and name in e.name)
+
+
+def psf_profile(ctx, sids, wall, card, what) -> int:
+    """``extract_psf_batch`` once more under torch.profiler: prints the fit
+    kernel's device time, first-cadence and warm launches apart (each fused
+    group chunk launches its first-cadence fit, then its warm fit), and its
+    share of ``wall``, the unprofiled slice's; returns the launches seen."""
+    import torch
+    from photometry_tpu_torch.models import psf_fit
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        psf_fit.extract_psf_batch(ctx, sids)
+        torch.cuda.synchronize()
+    prof_wall = time.perf_counter() - tic
+    spans = [d / 1e3 for _, d in kernel_spans(prof, "psf_warm_fit_kernel")]
+    check(len(spans) > 0 and len(spans) % 2 == 0, f"{len(spans)} psf_warm_fit launches profiled")
+    first, warm = spans[0::2], spans[1::2]
+    print(f"{what}: psf_warm_fit {len(spans)} launches, {sum(spans):.3f} ms on the device: "
+          f"{len(first)} first-cadence {sum(first):.3f} ms (median {np.median(first):.4f}), "
+          f"{len(warm)} warm {sum(warm):.3f} ms (median {np.median(warm):.4f}); "
+          f"{100 * sum(spans) / (wall * 1e3):.2f}% of the unprofiled slice's {wall:.2f} s "
+          f"({100 * sum(spans) / (prof_wall * 1e3):.2f}% of {prof_wall:.2f} s profiled, device "
+          f"busy {device_busy_ms(prof):.1f} ms) ({card})", flush=True)
+    return len(spans)
+
+
+def photometry_context(work, rows, cols, tmag, cubes, dev):
+    """Phase 3's ``SectorContext.from_arrays`` over the (images, errs,
+    backgrounds, flags) cubes, with a TAN WCS and the field's catalog
+    written to ``work``: (wcs, the keyword arguments, the context)."""
+    import torch
+    from photometry_tpu_torch.catalog import make_catalog_from_arrays
+    from photometry_tpu_torch.core.engine import SectorContext
+    from photometry_tpu_torch.io.wcs import TanWCS
+    images, errs, bkgs, flags = cubes
+    wcs = TanWCS(crpix=[W / 2 + 0.5, H / 2 + 0.5], crval=[95.0, -60.0],
+                 cd=[[-21.0 / 3600, 0.0], [0.0, 21.0 / 3600]])
+    ra, dec = wcs.radec_of_rowcol(rows, cols)
+    cat = make_catalog_from_arrays(work, 1, 1, 1, starid=np.arange(1, len(rows) + 1),
+                                   ra_j2000=ra, dec_j2000=dec, pm_ra=np.zeros(len(rows)),
+                                   pm_dec=np.zeros(len(rows)), tmag=tmag,
+                                   reference_time=2458340.0)
+    ctx_kw = dict(
+        images=images, images_err=errs, backgrounds=bkgs, pixelflags=flags,
+        sumimage=torch.nanmean(images, dim=0).cpu().numpy(),
+        time=1325.3 + np.arange(T) / 48.0, timecorr=np.zeros(T, np.float32),
+        cadenceno=np.arange(T, dtype=np.int32), quality=np.zeros(T, np.int32),
+        catalog_path=cat, wcs=wcs, sector=1, camera=1, ccd=1, input_folder=work, device=dev)
+    return wcs, ctx_kw, SectorContext.from_arrays(**ctx_kw)
+
+
 def top_device_ops(prof, k=8) -> str:
     """The k entries of a profiled run with the most device time, in ms."""
     rows = []
@@ -1043,6 +1164,13 @@ def prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result,
           f"launches median15 {MEDIAN15.launches}, segment_hist {SEGMENT_HIST.launches}",
           flush=True)
     print(f"phase 5 device time by kernel: {top_device_ops(prof)}", flush=True)
+    hist = [(c + f) / 1e3 for (_, c), (_, f) in zip(kernel_spans(prof, "segment_hist_kernel"),
+                                                    kernel_spans(prof, "to_float_kernel"))]
+    if hist:
+        print(f"phase 5 segment_hist: {len(hist)} launches, device time per launch (counts and "
+              f"their float32 conversion) median "
+              f"{np.median(hist):.4f} ms (min {min(hist):.4f}, max {max(hist):.4f}, total "
+              f"{sum(hist):.4f}) ({card})", flush=True)
     check(MEDIAN15.launches > 0, "the prepare slice did not launch the median kernel")
     check(SEGMENT_HIST.launches > 0, "the prepare slice did not launch the histogram kernel")
     check(cube.stages == set(prep.STAGES), f"stage markers {sorted(cube.stages)}")
@@ -1161,13 +1289,11 @@ def main() -> int:
         """Close the wall of ``phase``: the seconds since the last lap."""
         laps.append((phase, time.perf_counter()))
 
-    from photometry_tpu_torch.catalog import make_catalog_from_arrays
     from photometry_tpu_torch.core.dispatcher import photometry_batch
-    from photometry_tpu_torch.core.engine import (SectorContext, _full_catalog_positions,
-                                                  extract_aperture_batch, extract_flux_core)
+    from photometry_tpu_torch.core.engine import (_full_catalog_positions, extract_aperture_batch,
+                                                  extract_flux_core)
     from photometry_tpu_torch.core.status import STATUS
     from photometry_tpu_torch.io import fits as pf
-    from photometry_tpu_torch.io.wcs import TanWCS
     from photometry_tpu_torch.models import psf_fit
     from photometry_tpu_torch.models.prf import PRF
     from photometry_tpu_torch.models.psf_common import bucket_psf_groups, setup_psf_target
@@ -1251,7 +1377,7 @@ def main() -> int:
 
     # --- phase 2b: PSF kernel vs plain -------------------------------------
     work = tempfile.mkdtemp(prefix="chip_smoke_")
-    prfs = {K: table_prf(PRF, work, K, dev) for K in (1, 3)}
+    prfs = {K: table_prf(PRF, work, K, dev) for K in (1, 3, 4)}
 
     def psf_pair(inputs, prf, S, n_iters):
         ins = [torch.as_tensor(a, device=dev) for a in inputs]
@@ -1279,7 +1405,8 @@ def main() -> int:
         (1, 1, 11, 12, 256, 0.0, False), (3, 1, 11, 12, 512, 0.02, False),
         (5, 3, 15, 6, 2048, 0.01, False), (5, 3, 17, 12, 1024, 0.0, False),
         (3, 3, 15, 6, 512, 0.0, True), (8, 1, 15, 6, 512, 0.0, False),
-        (8, 3, 32, 6, 256, 0.01, False)]
+        (8, 3, 32, 6, 256, 0.01, False), (6, 4, 17, 6, 512, 0.01, False),
+        (5, 4, 15, 0, 256, 0.0, False)]
     for S, K, side, n_iters, B, nan_frac, blend in cases:
         inputs = psf_instances(rng_fit, prfs[K], B, S, side, side, nan_frac=nan_frac,
                                blend=blend)
@@ -1291,9 +1418,11 @@ def main() -> int:
         got, want = psf_pair(inputs, prfs[K], S, n_iters)
         pg = got["params"].cpu().numpy()
         check(np.array_equal(pg[0], p0[0]), "all-NaN stamp: parameters moved")
+        check(n_iters > 0 or np.array_equal(pg, p0), "0 iterations: parameters moved")
         check(np.isfinite(pg[1:]).all(), "non-finite parameters")
         rv = pg[:, :S][valid]
-        check(bool(np.all((rv >= -2.0) & (rv <= side + 1.0))), "a valid row escaped its clip")
+        check(n_iters == 0 or bool(np.all((rv >= -2.0) & (rv <= side + 1.0))),
+              "a valid row escaped its clip")
         psf_err = max(psf_err, psf_fit_check(got, want, valid, S, "crowded",
                                              f"adversarial S={S} K={K} {side}x{side} "
                                              f"it={n_iters} B={B}"))
@@ -1311,23 +1440,29 @@ def main() -> int:
     psf_fit_check(got, want, inputs[3], pm["S"], "crowded", f"main shape B={B_main}")
     psf_ms = cuda_ms(lambda: fused_warm_fit_cuda(*fit_args))
     psf_plain_ms = cuda_ms(lambda: fused_warm_fit_plain(*fit_args), reps=3)
-    flops = psf_flops(B_main, pm["S"], pm["K"], pm["h"], pm["h"], pm["n_iters"])
+    ne_flops, rest_flops = psf_flops(B_main, pm["S"], pm["K"], pm["h"], pm["h"], pm["n_iters"])
+    flops = ne_flops + rest_flops
     nbytes = psf_bytes(B_main, pm["S"], pm["h"], pm["h"])
-    psf_bound = max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3
+    f32_bound = max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3
+    # The normal equations may run on the tensor cores in 3xTF32 (three TF32
+    # products each), the rest on the float32 pipes:
+    tc_bound = max(ne_flops / (PEAK_TF32 / 3) + rest_flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3
     print(f"phase 2b main shape {pm['N']} x {T} instances {pm['h']}x{pm['h']} S={pm['S']} "
           f"K={pm['K']} it={pm['n_iters']}: kernel {psf_ms:.3f} ms, plain {psf_plain_ms:.3f} ms "
-          f"(median), bound {psf_bound:.3f} ms by operations ({flops / 1e9:.1f} GFLOP, "
-          f"{nbytes / 1e9:.3f} GB; {card})", flush=True)
+          f"(median); bound {tc_bound:.3f} ms by operations with the normal equations in "
+          f"3xTF32 ({ne_flops / 1e9:.1f} GFLOP at {PEAK_TF32 / 3e12:.0f} TFLOP/s + "
+          f"{rest_flops / 1e9:.1f} GFLOP at {PEAK_F32 / 1e12:.0f}), {f32_bound:.3f} ms all in "
+          f"float32 ({flops / 1e9:.1f} GFLOP); {nbytes / 1e9:.3f} GB ({card})", flush=True)
     result["psf_warm_fit"].update(max_abs_err=psf_err, ms=psf_ms, plain_ms=psf_plain_ms,
-                                  bound_ms=psf_bound,
-                                  bound_by="operations" if flops / PEAK_F32 > nbytes / PEAK_BYTES
+                                  bound_ms=tc_bound,
+                                  bound_by="operations" if tc_bound > nbytes / PEAK_BYTES * 1e3
                                   else "bytes")
     del ins, got, want
     lap("2b")
 
     # --- phase 2c: median and histogram kernels vs plain ---------------------
     median_phase(dev, rng, gen, card, result)
-    hist_phase(dev, rng, card, result)
+    hist_phase(dev, rng, card, result, img0)
     lap("2c")
 
     # --- phase 2d: stamp kernel vs plain (its main shape runs after phase 3) -------
@@ -1335,21 +1470,10 @@ def main() -> int:
     lap("2d adversarial")
 
     # --- phase 3: the aperture slice ---------------------------------------
-    wcs = TanWCS(crpix=[W / 2 + 0.5, H / 2 + 0.5], crval=[95.0, -60.0],
-                 cd=[[-21.0 / 3600, 0.0], [0.0, 21.0 / 3600]])
-    ra, dec = wcs.radec_of_rowcol(rows, cols)
-    starid = np.arange(1, N_STARS + 1)
-    cat = make_catalog_from_arrays(work, 1, 1, 1, starid=starid, ra_j2000=ra, dec_j2000=dec,
-                                   pm_ra=np.zeros(N_STARS), pm_dec=np.zeros(N_STARS),
-                                   tmag=tmag, reference_time=2458340.0)
-    ctx_kw = dict(
-        images=images, images_err=errs, backgrounds=bkgs, pixelflags=flags,
-        sumimage=torch.nanmean(images, dim=0).cpu().numpy(),
-        time=1325.3 + np.arange(T) / 48.0, timecorr=np.zeros(T, np.float32),
-        cadenceno=np.arange(T, dtype=np.int32), quality=np.zeros(T, np.int32),
-        catalog_path=cat, wcs=wcs, sector=1, camera=1, ccd=1, input_folder=work, device=dev)
-    ctx = SectorContext.from_arrays(**ctx_kw)
+    wcs, ctx_kw, ctx = photometry_context(work, rows, cols, tmag,
+                                          (images, errs, bkgs, flags), dev)
     check(ctx.images.data_ptr() == images.data_ptr(), "from_arrays copied the cube")
+    starid = np.arange(1, N_STARS + 1)
     sids = [int(s) for s in starid[:N_TARGETS]]           # the brightest (tmag sorted)
 
     torch.cuda.synchronize()
@@ -1451,6 +1575,11 @@ def main() -> int:
     print(f"phase 4 statuses: {len(good)} of {N_PSF} OK or WARNING with finite flux and "
           f"flux_err", flush=True)
     check(len(good) >= 0.9 * N_PSF, "fewer than 90% of PSF targets OK/WARNING and finite")
+
+    n_spans = psf_profile(ctx, psf_sids, wall, card, "phase 4 profile")
+    check(n_spans == result["psf_warm_fit"]["launches"],
+          f"profiled {n_spans} psf_warm_fit launches, the timed slice counted "
+          f"{result['psf_warm_fit']['launches']}")
 
     # 128 of them again through the plain fitter on the card:
     refit = psf_fit.extract_psf_batch(ctx, psf_sids[:N_PSF_PLAIN], fused=False)

@@ -10,7 +10,8 @@ inverse column norms) and the MOMF residual-aperture sum.
 
 - On a CUDA tensor :func:`fused_warm_fit` launches the hand-written Hopper
   kernel ``ops/csrc/psf_warm_fit.cu`` (:func:`fused_warm_fit_cuda`); see
-  the note in that source for its layout (one warp per instance).
+  the note in that source for its layout (one warp per instance, the
+  normal equations on the tensor cores in 3xTF32).
 - On a CPU tensor it runs :func:`fused_warm_fit_plain`: the plain torch
   fitter ``psf_fit.make_psf_fitter`` over the batch, the same math the JAX
   package holds its kernel against.  ``chip_smoke.py`` holds the kernel
@@ -29,9 +30,18 @@ import torch
 from ..ops._kernels import PSF_WARM_FIT, KernelError
 from .psf_common import CUTOFF_RADIUS
 
-__all__ = ["fused_ok", "fused_warm_fit", "fused_warm_fit_plain", "fused_warm_fit_cuda", "KMAX"]
+__all__ = ["fused_ok", "fused_warm_fit", "fused_warm_fit_plain", "fused_warm_fit_cuda", "KMAX",
+           "MAX_WARPS", "warps_per_block"]
 
 KMAX = 4        #: SVD terms the kernel takes; larger tables use the plain fitter
+MAX_WARPS = 8   #: instances (warps) per block of the kernel, at most
+
+
+def warps_per_block(B: int, n_sms: int) -> int:
+    """Instances per block: up to ``MAX_WARPS``, but few enough that a
+    small batch (the first-cadence fits, one instance per target) still
+    spreads over twice the SMs in blocks."""
+    return max(1, min(MAX_WARPS, B // (2 * n_sms)))
 
 
 def fused_ok(prf, shape, S: int, lhood_stat: str) -> bool:
@@ -130,6 +140,7 @@ def fused_warm_fit_cuda(images, backgrounds, var_const, p0, valid, miniw, onehot
         bu_lo, bu_hi, L0u, Fu.shape[0], F(prf.center_y),
         bv_lo, bv_hi, L0v, Fv.shape[0], F(prf.center_x),
         n_iters, F(np.float32(var_const)), F(CUTOFF_RADIUS),
+        warps_per_block(B, torch.cuda.get_device_properties(dev).multi_processor_count),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise KernelError(f"psf_warm_fit launch failed: CUDA error {err}")

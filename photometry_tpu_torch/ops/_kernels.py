@@ -47,15 +47,16 @@ def _nvcc() -> str:
 
 
 class CudaLibrary:
-    """One ``csrc/<name>.cu`` source, built on demand into a ctypes library.
+    """One ``csrc/<name>.cu`` source (or ``source``), built on demand into a
+    ctypes library.
 
     ``launches`` counts kernel launches; the wrapper that launches adds one
     where it launches and nowhere else.
     """
 
-    def __init__(self, name: str, signatures: dict):
+    def __init__(self, name: str, signatures: dict, source: str | None = None):
         self.name = name
-        self.source = os.path.join(_CSRC, name + ".cu")
+        self.source = source or os.path.join(_CSRC, name + ".cu")
         self._signatures = signatures
         self._lib = None
         self._lock = threading.Lock()
@@ -106,7 +107,7 @@ BAND_EXTRACT = CudaLibrary("band_extract", {
 #: ops/csrc/psf_warm_fit.cu — see models.psf_fused.fused_warm_fit_cuda.
 PSF_WARM_FIT = CudaLibrary("psf_warm_fit", {
     "psf_warm_fit": (_I, [_P] * 11 + [_L] + [_I] * 5 + [_I] * 4 + [_F] + [_I] * 4 + [_F]
-                     + [_I] + [_F] * 2 + [_P]),
+                     + [_I] + [_F] * 2 + [_I] + [_P]),
 })
 
 #: ops/csrc/median15.cu — see ops.median15.median15_cuda.
@@ -116,8 +117,9 @@ MEDIAN15 = CudaLibrary("median15", {
 
 #: ops/csrc/segment_hist.cu — see ops.seghist.segment_histogram_cuda.
 SEGMENT_HIST = CudaLibrary("segment_hist", {
-    "segment_hist": (_I, [_P] * 5 + [_I] + [_L] + [_I] * 3 + [_P]),
+    "segment_hist": (_I, [_P] * 5 + [_I] + [_L] + [_I] * 4 + [_P]),
     "segment_hist_max_cells": (_I, []),
+    "segment_hist_resident_blocks": (_I, [_I, _I]),
 })
 
 #: ops/csrc/stamp_flux.cu — see ops.stamp_flux.stamp_flux_cuda.

@@ -29,26 +29,47 @@
 // Why not the TPU's layout.  The TPU kernel puts 128 instances on the
 // lanes, flattens pixels onto sublanes and selects table rows with one-hot
 // matmuls, because a TPU has no fast gather.  Here a warp owns an
-// instance and reads its (h, w) stamp row-major: lanes stride its pixels
-// (<= 32 each), every lane keeps the 3S(3S+1)/2 + 3S partial sums of JtJ
-// and Jtg in registers, and one xor butterfly of warp shuffles adds them.
-// Float addition commutes, so the butterfly leaves the same bits in every
-// lane, and each lane then runs the small Cholesky, the solve and the
-// update redundantly in registers: no shared-memory round trip and no
-// divergence.  S (1..8) and K (1..4) are template parameters, so every
-// register array is indexed by constants.
+// instance; S (1..8) and K (1..4) are template parameters.
 //
-// What bounds it.  Operations: per instance and iteration about
-// 3S(3S+1)/2 + 3S multiply-adds per pixel for the normal equations plus
-// 3K per star and pixel for the render; the bytes (one stamp of images,
-// backgrounds and mask, a few hundred bytes of parameters) are two orders
-// below the card's ridge point.  S = 8 needs ~300 accumulators a thread
-// and spills; S <= 5 (the production pad) fits the 255-register budget.
-// No tensor cores are used.  Offsets into the (B, h, w) inputs are 64-bit.
+// The render.  The axis values are (value, derivative) pairs, one 8-byte
+// load each.  Skipping stars beyond the cutoff of a whole pass (a warp
+// vote) measured slower: the branches cost more registers than they save.
+//
+// The normal equations on the tensor cores.  Each pass renders 32 pixels,
+// one per lane, and stages the weighted rows X = sqrt(w) * [J | img0 -
+// model] (3S + 1 values, zero-padded to 16 or 32 columns) column-major in
+// a per-warp shared tile.  X^T X = [JtWJ, JtWg; ...] then comes from
+// mma.sync m16n8k8 on TF32 in the 3xTF32 scheme: X = H + L with H rounded
+// to TF32 and L = X - H, and X^T X ~ H^T H + H^T L + L^T H, where L^T H is
+// the transpose of H^T L, added when the fragments are gathered: two
+// products a tile.  No product is formed in plain TF32, and X keeps ~22 of
+// its 24 bits.  A's fragment of X^T and B's fragments of X are the same
+// registers.  The accumulators are the MMA's C fragments (16 floats a lane
+// for S <= 5, 64 for S = 6..8), so the 120-300 register partial sums and
+// the 5-round shuffle butterfly of a SIMT reduction are gone, and more
+// warps fit on an SM.
+//
+// The solve.  The C fragments go through shared memory to rows: lane i
+// holds row i of JtWJ and (JtWg)_i.  A right-looking Cholesky broadcasts
+// each pivot and each L[k][j] by shuffle (3S steps, no per-lane
+// ~1,000-operation chain), with the forward substitution fused in; the
+// back substitution walks the columns of L that lane m kept in registers.
+// Each pivot takes one rsqrt, and the chain multiplies by 1 / L[j][j]
+// where the first design divided.  Every lane ends with the whole step and
+// updates its copy of p.  Pivot clamp max(d, 1e-30), damping, clips and
+// NaN propagation (nmax, nclip) are those of ops/smallsolve.py and the
+// TPU kernel.
+//
+// What bounds it.  Operations: per instance and iteration the normal
+// equations, 3S(3S+1) + 9S flops per pixel (the tensor cores' share, three
+// TF32 products each in 3xTF32), plus the render, ~S(10 + 6K) per pixel,
+// on the float32 pipes; the bytes (one stamp of images, backgrounds and
+// mask, a few hundred bytes of parameters) are two orders below the card's
+// ridge point.  Offsets into the (B, h, w) inputs are 64-bit.
 //
 // Float order differs from the JAX kernel and the plain torch fitter
-// (pixels summed per lane then by butterfly; a left-looking Cholesky like
-// the TPU kernel's), so results agree to float32 reduction order, not bits.
+// (pixels summed by the tensor cores, a right-looking Cholesky), so
+// results agree to float32 reduction order, not bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,8 +79,8 @@ namespace {
 constexpr int kKMax = 4;
 constexpr int kSMax = 8;
 constexpr int kHWMax = 32;
-constexpr int kWarps = 4;                  // instances per block
-constexpr int kThreads = kWarps * 32;
+constexpr int kMaxWarps = 8;               // instances per block, at most
+constexpr int kLd = 40;                    // column stride of the staged tile (conflict-free)
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLambda = 1e-3f;
 
@@ -97,14 +118,29 @@ __device__ __forceinline__ float nclip(float a, float lo, float hi) {
   return a != a ? a : fminf(fmaxf(a, lo), hi);
 }
 
-__device__ __forceinline__ constexpr int tri(int i, int j) { return i * (i + 1) / 2 + j; }
+// 16-column groups of the staged rows [J | g]: 1 for S <= 5, 2 for S = 6..8.
+__host__ __device__ constexpr int n_groups(int S) { return (3 * S + 16) / 16; }
 
-// One axis query row i of one star: K values and K derivatives, written
+// Floats of one warp's shared memory: img0 and sqrt(w) (h*w each), the
+// axis values (u, du) (S*K rows of h pairs) and (v, dv) (S*K rows of w
+// pairs), the staged tile (16*NC columns of kLd) and the gathered matrix
+// (16*NC rows of 16*NC+1).  An even count keeps the pairs 8-byte aligned.
+__host__ __device__ constexpr int warp_floats(int S, int K, int h, int w) {
+  return 2 * h * w + 2 * S * K * (h + w) + 16 * n_groups(S) * kLd +
+         16 * n_groups(S) * (16 * n_groups(S) + 1);
+}
+
+// Floats of the block's two factor tables, rounded up to keep what follows aligned.
+__host__ __device__ constexpr int table_floats(int K, int Lzu, int Lzv) {
+  return ((Lzu + Lzv) * K + 3) & ~3;
+}
+
+// One axis query row i of one star: K (value, derivative) pairs, written
 // with stride `stride` (the axis length) between the k terms.
 template <int K>
 __device__ __forceinline__ void axis_row(const float* __restrict__ F, int os, int b_lo, int b_hi,
-                                         int L0, float center, float coord, int i, float* val,
-                                         float* dval, int stride) {
+                                         int L0, float center, float coord, int i, float2* out,
+                                         int stride) {
   // (0 - coord)*os + center, rounded as the JAX and torch versions round it:
   const float y0 = __fadd_rn(__fmul_rn(-coord, (float)os), center);
   const float fl = floorf(y0);
@@ -137,154 +173,253 @@ __device__ __forceinline__ void axis_row(const float* __restrict__ F, int os, in
       a += wb[j] * f;
       d += dwb[j] * f;
     }
-    val[k * stride] = ok ? a : 0.0f;
-    dval[k * stride] = ok ? d * (float)(-os) : 0.0f;
+    out[k * stride] = ok ? make_float2(a, d * (float)(-os)) : make_float2(0.0f, 0.0f);
   }
 }
 
-// Per-warp shared memory: img0[h*w], wgt[h*w], then the axis values
-// u, du (S*K rows of h) and v, dv (S*K rows of w).
+// The axis values at p: lanes 0..h-1 take the rows, lanes h..h+w-1 the columns.
 template <int S, int K>
 __device__ __forceinline__ void eval_axes(const Args& a, const float* Fu, const float* Fv,
-                                          const float (&p)[3 * S], float* ax, int lane) {
+                                          const float (&p)[3 * S], float2* ax, int lane) {
   const int h = a.h, w = a.w;
-  float* u = ax;
-  float* du = u + S * K * h;
-  float* v = du + S * K * h;
-  float* dv = v + S * K * w;
+  float2* ud = ax;
+  float2* vd = ud + S * K * h;
+  for (int q = lane; q < h + w; q += 32) {
+    if (q < h) {
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
-    if (lane < h)
-      axis_row<K>(Fu, a.os, a.bu_lo, a.bu_hi, a.L0u, a.cy, p[s], lane, u + s * K * h + lane,
-                  du + s * K * h + lane, h);
-    if (lane < w)
-      axis_row<K>(Fv, a.os, a.bv_lo, a.bv_hi, a.L0v, a.cx, p[S + s], lane, v + s * K * w + lane,
-                  dv + s * K * w + lane, w);
+      for (int s = 0; s < S; ++s)
+        axis_row<K>(Fu, a.os, a.bu_lo, a.bu_hi, a.L0u, a.cy, p[s], q, ud + s * K * h + q, h);
+    } else {
+      const int c = q - h;
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        axis_row<K>(Fv, a.os, a.bv_lo, a.bv_hi, a.L0v, a.cx, p[S + s], c, vd + s * K * w + c,
+                    w);
+    }
   }
   __syncwarp();
 }
 
-// Weighted normal equations at p, reduced over the warp: acc holds the
-// packed lower triangle of JtJ, jtg = Jt(img0 - model); with kFinal, fap
-// gets the MOMF residual sum over the pixels where mw is set and the
-// image x is finite.
+// x = hi + lo (the 3xTF32 split): hi is x rounded to TF32's 10 mantissa
+// bits (to nearest, ties away; finite x), lo = x - hi exactly, whose bits
+// the tensor core reads as TF32 (dropping at most its 2 lowest), so hi + lo
+// keeps ~22 of float32's 24 bits.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += A(16x8, TF32) * B(8x8, TF32), float32 accumulate.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// M = X^T X over the stamp at p, X = sqrt(w) * [J | img0 - model], into the
+// warp's gathered matrix msh (row stride 16*NC+1): JtWJ in [0, 3S)^2 and
+// JtWg in column 3S.  X = H + L (split, as fragments are loaded), and
+// X^T X ~ H^T H + H^T L + (H^T L)^T: two products a tile, the transpose
+// added when gathering.  The tile keeps pixel j of a pass at slot (j & ~7)
+// | (j & 3) << 1 | (j >> 2 & 1), so a lane's fragment pair (pixels k0,
+// k0 + 4) is one 8-byte load.  (Splitting once at staging, into a hi and
+// a lo tile, measured no faster.)  With kFinal, fap gets the MOMF residual
+// sum over the pixels where mw is set and the image x is finite (every
+// lane).
 template <int S, int K, bool kFinal>
-__device__ __forceinline__ void normal_eq(const Args& a, const float* img0, const float* wgt,
-                                          const float* ax, const float* __restrict__ x,
+__device__ __forceinline__ void normal_eq(const Args& a, const float* img0, const float* sw,
+                                          const float2* ax, float* xt, float* msh,
+                                          const float* __restrict__ x,
                                           const uint8_t* __restrict__ mw,
-                                          const float (&p)[3 * S], const float (&pv)[S],
-                                          float (&acc)[3 * S * (3 * S + 1) / 2],
-                                          float (&jtg)[3 * S], float& fap, int lane) {
+                                          const float (&p)[3 * S], float& fap, int lane) {
   constexpr int P3 = 3 * S;
-  constexpr int NT = P3 * (P3 + 1) / 2;
-  const int h = a.h, w = a.w;
-  const float* u = ax;
-  const float* du = u + S * K * h;
-  const float* v = du + S * K * h;
-  const float* dv = v + S * K * w;
+  constexpr int NC = n_groups(S);
+  constexpr int LM = 16 * NC + 1;
+  const int h = a.h, w = a.w, npix = h * w;
+  const float2* ud = ax;
+  const float2* vd = ud + S * K * h;
+  const int g = lane >> 2, q = lane & 3;    // mma fragment row group, column in group
+  const int slot = (lane & ~7) | (lane & 3) << 1 | (lane >> 2 & 1);
+  float hh[NC][2 * NC][4], hl[NC][2 * NC][4];
 #pragma unroll
-  for (int e = 0; e < NT; ++e) acc[e] = 0.0f;
+  for (int m = 0; m < NC; ++m)
 #pragma unroll
-  for (int i = 0; i < P3; ++i) jtg[i] = 0.0f;
+    for (int n = 0; n < 2 * NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hh[m][n][e] = hl[m][n][e] = 0.0f;
   fap = 0.0f;
-  const int npix = h * w;
-  for (int pix = lane; pix < npix; pix += 32) {
-    const int r = pix / w;
-    const int c = pix - r * w;
-    float A[P3];
+  for (int base = 0; base < npix; base += 32) {
+    const int pix = base + lane;
+    float X[P3 + 1];
+#pragma unroll
+    for (int i = 0; i <= P3; ++i) X[i] = 0.0f;
+    const bool in = pix < npix;               // lanes past the stamp stage zeros
+    const int pc = in ? pix : npix - 1;
+    const int r = pc / w;
+    const int cc = pc - r * w;
     float mdl = 0.0f;
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       const float dr = (float)r - p[s];
-      const float dc = (float)c - p[S + s];
-      const bool cut = __fadd_rn(__fmul_rn(dr, dr), __fmul_rn(dc, dc)) < a.cutoff2;
-      float q = 0.0f, qr = 0.0f, qc = 0.0f;
+      const float dc = (float)cc - p[S + s];
+      const bool cut = in && __fadd_rn(__fmul_rn(dr, dr), __fmul_rn(dc, dc)) < a.cutoff2;
+      float qq = 0.0f, qr = 0.0f, qc = 0.0f;
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        const float uu = u[(s * K + k) * h + r], dd = du[(s * K + k) * h + r];
-        const float vv = v[(s * K + k) * w + c], ee = dv[(s * K + k) * w + c];
-        q += uu * vv;
-        qr += dd * vv;
-        qc += uu * ee;
+        const float2 uv = ud[(s * K + k) * h + r], ve = vd[(s * K + k) * w + cc];
+        qq += uv.x * ve.x;
+        qr += uv.y * ve.x;
+        qc += uv.x * ve.y;
       }
-      if (!cut) q = qr = qc = 0.0f;
+      if (!cut) qq = qr = qc = 0.0f;
       const float f = p[2 * S + s];
-      mdl += q * f;
-      A[s] = qr * f;
-      A[S + s] = qc * f;
-      A[2 * S + s] = q;
+      mdl += qq * f;
+      X[s] = qr * f;
+      X[S + s] = qc * f;
+      X[2 * S + s] = qq;
     }
-    const float wt = wgt[pix];
-    const float diff = img0[pix] - mdl;
+    const float swt = sw[pc];
+    const float diff = img0[pc] - mdl;
 #pragma unroll
-    for (int i = 0; i < P3; ++i) {
-      const float awi = A[i] * wt;
+    for (int i = 0; i < P3; ++i) X[i] = in ? X[i] * swt : 0.0f;
+    X[P3] = in ? diff * swt : 0.0f;
+    if (kFinal) fap += (in && mw[pc] && isfinite(x[pc])) ? diff : 0.0f;
 #pragma unroll
-      for (int j = 0; j <= i; ++j) acc[tri(i, j)] += awi * A[j];
-      jtg[i] += awi * diff;
+    for (int i = 0; i <= P3; ++i) xt[i * kLd + slot] = X[i];
+    __syncwarp();
+    const int nk = min(4, (npix - base + 7) >> 3);
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) {
+      if (kb < nk) {
+        uint32_t hi[NC][4], lo[NC][4];
+#pragma unroll
+        for (int m = 0; m < NC; ++m) {
+          // (X[k0][c], X[k0+4][c]) for k0 = 8kb + q and c = 16m + g, then c + 8:
+          const float* col = xt + (16 * m + g) * kLd + kb * 8 + 2 * q;
+          const float2 c0 = *reinterpret_cast<const float2*>(col);
+          const float2 c8 = *reinterpret_cast<const float2*>(col + 8 * kLd);
+          split(c0.x, hi[m][0], lo[m][0]);
+          split(c8.x, hi[m][1], lo[m][1]);
+          split(c0.y, hi[m][2], lo[m][2]);
+          split(c8.y, hi[m][3], lo[m][3]);
+        }
+#pragma unroll
+        for (int m = 0; m < NC; ++m)
+#pragma unroll
+          for (int n = 0; n < 2 * NC; ++n) {
+            // B = X[:, 8n..8n+7] is A's fragment of group n/2: regs (0, 2) or (1, 3).
+            const int gm = n >> 1, o = n & 1;
+            mma(hh[m][n], hi[m], hi[gm][o], hi[gm][o + 2]);
+            mma(hl[m][n], hi[m], lo[gm][o], lo[gm][o + 2]);
+          }
+      }
     }
-    if (kFinal) fap += (mw[pix] && isfinite(x[pix])) ? diff : 0.0f;
+    __syncwarp();
   }
+  // C fragment element e of tile (m, n) is M[16m + g + 8(e >> 1)][8n + 2q + (e & 1)].
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
+  for (int m = 0; m < NC; ++m)
 #pragma unroll
-    for (int e = 0; e < NT; ++e) acc[e] += __shfl_xor_sync(kFull, acc[e], off);
+    for (int n = 0; n < 2 * NC; ++n)
 #pragma unroll
-    for (int i = 0; i < P3; ++i) jtg[i] += __shfl_xor_sync(kFull, jtg[i], off);
-    if (kFinal) fap += __shfl_xor_sync(kFull, fap, off);
+      for (int e = 0; e < 4; ++e)
+        msh[(16 * m + g + 8 * (e >> 1)) * LM + 8 * n + 2 * q + (e & 1)] = hh[m][n][e] + hl[m][n][e];
+  __syncwarp();
+#pragma unroll
+  for (int m = 0; m < NC; ++m)
+#pragma unroll
+    for (int n = 0; n < 2 * NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        msh[(8 * n + 2 * q + (e & 1)) * LM + 16 * m + g + 8 * (e >> 1)] += hl[m][n][e];
+  if (kFinal) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) fap += __shfl_xor_sync(kFull, fap, off);
   }
-  // dummy-star rows and columns frozen:
-#pragma unroll
-  for (int i = 0; i < P3; ++i) {
-#pragma unroll
-    for (int j = 0; j <= i; ++j) acc[tri(i, j)] = acc[tri(i, j)] * pv[i % S] * pv[j % S];
-    jtg[i] *= pv[i % S];
-  }
+  __syncwarp();
 }
 
-// In-place left-looking Cholesky of the packed lower triangle, with the
-// max(d, 1e-30) pivot clamp of ops/smallsolve.py.
-template <int P3>
-__device__ __forceinline__ void chol(float (&L)[P3 * (P3 + 1) / 2], bool damp) {
+// Lane i < 3S: row i of JtWJ into r and (JtWg)_i into t, dummy-star rows
+// and columns frozen (other lanes read row 0; their values are not used).
+template <int S>
+__device__ __forceinline__ void load_row(const float* msh, const float (&pv)[S], unsigned vbits,
+                                         int lane, float (&r)[3 * S], float& t) {
+  constexpr int P3 = 3 * S;
+  constexpr int LM = 16 * n_groups(S) + 1;
+  const int i = lane < P3 ? lane : 0;
+  const float pvi = (vbits >> (i % S)) & 1u ? 1.0f : 0.0f;
+#pragma unroll
+  for (int j = 0; j < P3; ++j) r[j] = msh[i * LM + j] * pvi * pv[j % S];
+  t = msh[i * LM + P3] * pvi;
+}
+
+// Cholesky of the symmetric P3 x P3 matrix whose row i lane i holds in r,
+// right-looking, with the max(d, 1e-30) pivot clamp of ops/smallsolve.py:
+// lane i ends with row i of L in r[0..i], every lane with 1 / L[j][j] in
+// di (one rsqrt a pivot; the chain of 3S steps has no division).  With
+// kSolve, t is lane i's b_i and x gets A^-1 b in every lane.
+template <int P3, bool kSolve>
+__device__ __forceinline__ void chol(float (&r)[P3], float t, float (&di)[P3], float (&x)[P3],
+                                     int lane) {
+  float col[P3];                            // lane m: col[k] = L[k][m] for k > m
+#pragma unroll
+  for (int k = 0; k < P3; ++k) col[k] = 0.0f;
 #pragma unroll
   for (int j = 0; j < P3; ++j) {
-    float ajj = L[tri(j, j)];
-    if (damp) ajj = ajj * (1.0f + kLambda) + 1e-8f;
-    float s = 0.0f;
+    const float d = nmax(__shfl_sync(kFull, r[j], j), 1e-30f);
+    const float inv = rsqrtf(d);
+    di[j] = inv;
+    const float lij = r[j] * inv;            // L[i][j] in lane i > j
+    r[j] = lane == j ? d * inv : lij;
+    if (kSolve) {                            // forward: y_j = (b_j - sum L[j][k] y_k) / L[j][j]
+      const float yj = __shfl_sync(kFull, t, j) * inv;
+      t = lane == j ? yj : (lane > j ? t - lij * yj : t);
+    }
 #pragma unroll
-    for (int k = 0; k < j; ++k) s += L[tri(j, k)] * L[tri(j, k)];
-    const float ljj = sqrtf(nmax(ajj - s, 1e-30f));
-    L[tri(j, j)] = ljj;
-    const float inv = 1.0f / ljj;
+    for (int k = j + 1; k < P3; ++k) {
+      const float lkj = __shfl_sync(kFull, lij, k);
+      r[k] -= lij * lkj;
+      if (kSolve) col[k] = lane == j ? lkj : col[k];
+    }
+  }
+  if (kSolve) {                              // back: L^T x = y, lane m keeps y_m in t
 #pragma unroll
-    for (int i = j + 1; i < P3; ++i) {
-      float t = 0.0f;
-#pragma unroll
-      for (int k = 0; k < j; ++k) t += L[tri(i, k)] * L[tri(j, k)];
-      L[tri(i, j)] = (L[tri(i, j)] - t) * inv;
+    for (int i = P3 - 1; i >= 0; --i) {
+      const float xi = __shfl_sync(kFull, t, i) * di[i];
+      x[i] = xi;
+      t = lane < i ? t - col[i] * xi : t;
     }
   }
 }
 
+// Two full blocks an SM (<= 128 registers) measured fastest for S <= 5;
+// S = 6..8 needs more registers than that and keeps one.
 template <int S, int K>
-__global__ void __launch_bounds__(kThreads) psf_warm_fit_kernel(const Args a) {
+__global__ void __launch_bounds__(kMaxWarps * 32, S <= 5 ? 2 : 1)
+psf_warm_fit_kernel(const Args a) {
   constexpr int P3 = 3 * S;
-  constexpr int NT = P3 * (P3 + 1) / 2;
+  constexpr int NC = n_groups(S);
   extern __shared__ float smem[];
   const int h = a.h, w = a.w, npix = a.h * a.w;
+  const int nw = blockDim.x >> 5;
   float* Fu = smem;
   float* Fv = Fu + a.Lzu * K;
-  for (int e = threadIdx.x; e < a.Lzu * K; e += kThreads) Fu[e] = a.Fu[e];
-  for (int e = threadIdx.x; e < a.Lzv * K; e += kThreads) Fv[e] = a.Fv[e];
+  for (int e = threadIdx.x; e < a.Lzu * K; e += blockDim.x) Fu[e] = a.Fu[e];
+  for (int e = threadIdx.x; e < a.Lzv * K; e += blockDim.x) Fv[e] = a.Fv[e];
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long b = (long long)blockIdx.x * kWarps + warp;
+  const long long b = (long long)blockIdx.x * nw + warp;
   if (b >= a.B) return;                     // whole warps leave; no block sync follows
-  const int per_warp = 2 * npix + 2 * S * K * (h + w);
-  float* img0 = Fv + a.Lzv * K + warp * per_warp;
-  float* wgt = img0 + npix;
-  float* ax = wgt + npix;
+  float* img0 = smem + table_floats(K, a.Lzu, a.Lzv) + warp * warp_floats(S, K, h, w);
+  float* sw = img0 + npix;
+  float2* ax = reinterpret_cast<float2*>(sw + npix);
+  float* xt = reinterpret_cast<float*>(ax + S * K * (h + w));
+  float* msh = xt + 16 * NC * kLd;
+  for (int e = lane; e < 16 * NC * kLd; e += 32) xt[e] = 0.0f;   // padding columns stay 0
 
   const size_t base = (size_t)b * (size_t)npix;
   for (int pix = lane; pix < npix; pix += 32) {
@@ -293,68 +428,58 @@ __global__ void __launch_bounds__(kThreads) psf_warm_fit_kernel(const Args a) {
     const float x0 = good ? x : 0.0f;
     const float var = fabsf(x0 + a.bkg[base + pix]) + a.var_const;
     img0[pix] = x0;
-    wgt[pix] = good ? 1.0f / nmax(var, 1e-9f) : 0.0f;
+    sw[pix] = good ? sqrtf(1.0f / nmax(var, 1e-9f)) : 0.0f;
   }
-  float p[P3], pv[S], jtg[P3], acc[NT], fap;
+  float p[P3], pv[S], r[P3], di[P3], dp[P3], t, fap;
+  unsigned vbits = 0;
 #pragma unroll
   for (int i = 0; i < P3; ++i) p[i] = a.p0[(size_t)b * P3 + i];
 #pragma unroll
-  for (int s = 0; s < S; ++s) pv[s] = a.valid[(size_t)b * S + s] ? 1.0f : 0.0f;
+  for (int s = 0; s < S; ++s) {
+    pv[s] = a.valid[(size_t)b * S + s] ? 1.0f : 0.0f;
+    vbits |= a.valid[(size_t)b * S + s] ? 1u << s : 0u;
+  }
   __syncwarp();
 
   for (int it = 0; it < a.n_iters; ++it) {
     eval_axes<S, K>(a, Fu, Fv, p, ax, lane);
-    normal_eq<S, K, false>(a, img0, wgt, ax, nullptr, nullptr, p, pv, acc, jtg, fap, lane);
-    chol<P3>(acc, true);
+    normal_eq<S, K, false>(a, img0, sw, ax, xt, msh, nullptr, nullptr, p, fap, lane);
+    load_row<S>(msh, pv, vbits, lane, r, t);
 #pragma unroll
-    for (int i = 0; i < P3; ++i) {          // L y = Jtg
-      float t = jtg[i];
-#pragma unroll
-      for (int k = 0; k < i; ++k) t -= acc[tri(i, k)] * jtg[k];
-      jtg[i] = t / acc[tri(i, i)];
-    }
-#pragma unroll
-    for (int i = P3 - 1; i >= 0; --i) {     // L^T dp = y
-      float t = jtg[i];
-#pragma unroll
-      for (int k = i + 1; k < P3; ++k) t -= acc[tri(k, i)] * jtg[k];
-      jtg[i] = t / acc[tri(i, i)];
-    }
+    for (int j = 0; j < P3; ++j) r[j] = lane == j ? r[j] * (1.0f + kLambda) + 1e-8f : r[j];
+    chol<P3, true>(r, t, di, dp, lane);
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      const float rn = p[s] + jtg[s] * pv[s];
-      const float cn = p[S + s] + jtg[S + s] * pv[s];
+      const float rn = p[s] + dp[s] * pv[s];
+      const float cn = p[S + s] + dp[S + s] * pv[s];
       p[s] = pv[s] > 0.0f ? nclip(rn, -2.0f, (float)(h + 1)) : rn;
       p[S + s] = pv[s] > 0.0f ? nclip(cn, -2.0f, (float)(w + 1)) : cn;
-      p[2 * S + s] = nmax(p[2 * S + s] + jtg[2 * S + s] * pv[s], 0.0f);
+      p[2 * S + s] = nmax(p[2 * S + s] + dp[2 * S + s] * pv[s], 0.0f);
     }
-    __syncwarp();                           // all lanes done reading ax
   }
 
   // Final covariance and MOMF correction.
   eval_axes<S, K>(a, Fu, Fv, p, ax, lane);
-  normal_eq<S, K, true>(a, img0, wgt, ax, a.img + base, a.miniw + base, p, pv, acc, jtg, fap,
-                        lane);
-  float dmax = acc[tri(0, 0)];
+  normal_eq<S, K, true>(a, img0, sw, ax, xt, msh, a.img + base, a.miniw + base, p, fap, lane);
+  load_row<S>(msh, pv, vbits, lane, r, t);
+  float dmax = __shfl_sync(kFull, r[0], 0);
 #pragma unroll
-  for (int i = 1; i < P3; ++i) dmax = nmax(dmax, acc[tri(i, i)]);
+  for (int i = 1; i < P3; ++i) dmax = nmax(dmax, __shfl_sync(kFull, r[i], i));
   const float ridge = 1e-6f * nmax(dmax, 1.0f);
 #pragma unroll
-  for (int i = 0; i < P3; ++i) acc[tri(i, i)] += ridge;
-  chol<P3>(acc, false);
+  for (int j = 0; j < P3; ++j) r[j] = lane == j ? r[j] + ridge : r[j];
+  chol<P3, false>(r, t, di, dp, lane);
   float var_t = 0.0f;
 #pragma unroll
   for (int s = 0; s < S; ++s) {             // diag(A^-1)[kk] = |(L^-1)[:, kk]|^2
     const int kk = 2 * S + s;
-    float x[P3];
+    float y = lane == kk ? 1.0f : 0.0f;     // lane i: the rhs e_kk, then its update
     float var = 0.0f;
 #pragma unroll
-    for (int i = kk; i < P3; ++i) {
-      float t = i == kk ? 1.0f : 0.0f;
-#pragma unroll
-      for (int k = kk; k < i; ++k) t -= acc[tri(i, k)] * x[k];
-      x[i] = t / acc[tri(i, i)];
-      var += x[i] * x[i];
+    for (int j = kk; j < P3; ++j) {
+      const float xj = __shfl_sync(kFull, y, j) * di[j];
+      var += xj * xj;
+      y = lane > j ? y - r[j] * xj : y;
     }
     var_t += var * a.onehot[(size_t)b * S + s];
   }
@@ -367,53 +492,63 @@ __global__ void __launch_bounds__(kThreads) psf_warm_fit_kernel(const Args a) {
 }
 
 template <int S, int K>
-int launch(const Args& a, cudaStream_t stream) {
-  const int per_warp = 2 * a.h * a.w + 2 * S * K * (a.h + a.w);
-  const size_t smem = sizeof(float) * ((size_t)(a.Lzu + a.Lzv) * K + (size_t)kWarps * per_warp);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        psf_warm_fit_kernel<S, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const long long blocks = (a.B + kWarps - 1) / kWarps;
-  psf_warm_fit_kernel<S, K><<<(unsigned)blocks, kThreads, smem, stream>>>(a);
+int launch(const Args& a, int warps, cudaStream_t stream) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  auto bytes = [&](int nw) {
+    return sizeof(float) *
+           ((size_t)table_floats(K, a.Lzu, a.Lzv) + (size_t)nw * warp_floats(S, K, a.h, a.w));
+  };
+  while (warps > 1 && bytes(warps) > (size_t)optin) --warps;
+  const size_t smem = bytes(warps);
+  e = cudaFuncSetAttribute(psf_warm_fit_kernel<S, K>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = (a.B + warps - 1) / warps;
+  psf_warm_fit_kernel<S, K><<<(unsigned)blocks, warps * 32, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <int S>
-int launch_k(const Args& a, int K, cudaStream_t stream) {
+int launch_k(const Args& a, int K, int warps, cudaStream_t stream) {
   switch (K) {
-    case 1: return launch<S, 1>(a, stream);
-    case 2: return launch<S, 2>(a, stream);
-    case 3: return launch<S, 3>(a, stream);
-    default: return launch<S, 4>(a, stream);
+    case 1: return launch<S, 1>(a, warps, stream);
+    case 2: return launch<S, 2>(a, warps, stream);
+    case 3: return launch<S, 3>(a, warps, stream);
+    default: return launch<S, 4>(a, warps, stream);
   }
 }
 
 }  // namespace
 
+// warps: instances per block (1..8), fewer where the shared memory of that
+// many does not fit one block.
 extern "C" int psf_warm_fit(const float* img, const float* bkg, const uint8_t* miniw,
                             const float* p0, const uint8_t* valid, const float* onehot,
                             const float* Fu, const float* Fv, float* params, float* flux_ap,
                             float* fluxvar, long long B, int h, int w, int S, int K, int os,
                             int bu_lo, int bu_hi, int L0u, int Lzu, float cy, int bv_lo,
                             int bv_hi, int L0v, int Lzv, float cx, int n_iters,
-                            float var_const, float cutoff, void* stream) {
-  if (B <= 0 || (B + kWarps - 1) / kWarps > 0x7fffffffLL || h < 1 || w < 1 || h > kHWMax ||
-      w > kHWMax || K < 1 || K > kKMax || os < 1 || S < 1 || S > kSMax || n_iters < 0)
+                            float var_const, float cutoff, int warps, void* stream) {
+  if (B <= 0 || B > 0x7fffffffLL || h < 1 || w < 1 || h > kHWMax || w > kHWMax || K < 1 ||
+      K > kKMax || os < 1 || S < 1 || S > kSMax || n_iters < 0 || warps < 1 ||
+      warps > kMaxWarps)
     return (int)cudaErrorInvalidValue;
   const Args a{img, bkg, miniw, p0, valid, onehot, Fu, Fv, params, flux_ap, fluxvar, B, h, w,
                os, bu_lo, bu_hi, L0u, Lzu, cy, bv_lo, bv_hi, L0v, Lzv, cx, n_iters,
                var_const, cutoff * cutoff};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (S) {
-    case 1: return launch_k<1>(a, K, s);
-    case 2: return launch_k<2>(a, K, s);
-    case 3: return launch_k<3>(a, K, s);
-    case 4: return launch_k<4>(a, K, s);
-    case 5: return launch_k<5>(a, K, s);
-    case 6: return launch_k<6>(a, K, s);
-    case 7: return launch_k<7>(a, K, s);
-    default: return launch_k<8>(a, K, s);
+    case 1: return launch_k<1>(a, K, warps, s);
+    case 2: return launch_k<2>(a, K, warps, s);
+    case 3: return launch_k<3>(a, K, warps, s);
+    case 4: return launch_k<4>(a, K, warps, s);
+    case 5: return launch_k<5>(a, K, warps, s);
+    case 6: return launch_k<6>(a, K, warps, s);
+    case 7: return launch_k<7>(a, K, warps, s);
+    default: return launch_k<8>(a, K, warps, s);
   }
 }

@@ -10,7 +10,9 @@ radial component (three times per frame in the prepare stage).
 
 - On a CUDA tensor the table comes from the hand-written Hopper kernel
   ``ops/csrc/segment_hist.cu`` (:func:`segment_histogram_cuda`): one launch
-  for all frames, shared-memory atomics into a private table per block.
+  for all frames, one wave of blocks (:func:`blocks_per_frame`), each
+  counting 4 samples a thread and step (:func:`vector_head`) into a private
+  shared-memory table.
 - On a CPU tensor it is one ``torch.bincount`` of the flat (frame,
   segment, bucket) cell of every good sample
   (:func:`segment_histogram_plain`), also what ``chip_smoke.py`` holds the
@@ -23,16 +25,53 @@ tensor always goes to the kernel or raises; nothing falls back.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ._kernels import SEGMENT_HIST, KernelError
 
-__all__ = ["segment_histogram", "segment_histogram_plain", "segment_histogram_cuda"]
+__all__ = ["segment_histogram", "segment_histogram_plain", "segment_histogram_cuda",
+           "blocks_per_frame", "vector_head"]
 
-#: Blocks in flight the launch aims for (H100: 132 SMs, two 80 KB tables each).
-_TARGET_BLOCKS = 4 * 132
 #: Fewest samples a block strides over before more blocks per frame are added.
 _MIN_SAMPLES_PER_BLOCK = 32768
+
+
+def blocks_per_frame(n_frames: int, n: int, resident: int) -> int:
+    """Blocks per frame of one launch: the device's ``resident`` blocks
+    shared by the frames (one wave), never more than one per
+    ``_MIN_SAMPLES_PER_BLOCK`` samples, at least one."""
+    return max(1, min(resident // max(n_frames, 1), -(-n // _MIN_SAMPLES_PER_BLOCK)))
+
+
+def vector_head(seg_ptr: int, bucket_ptr: int, good_ptr: int, n_frames: int, n: int) -> int:
+    """Samples before the first 16-byte boundary that the kernel's 4-wide
+    loads start from (0-3), or -1 for its scalar loop: the int32 ``seg``
+    and ``bucket`` and the byte ``good`` must sit at the same offset mod 4
+    elements, and every frame's row must keep it (``n % 4 == 0`` unless
+    there is one frame)."""
+    off = (bucket_ptr % 16) // 4
+    if n < 8 or (n_frames > 1 and n % 4) or (seg_ptr % 16) // 4 != off or good_ptr % 4 != off:
+        return -1
+    return (4 - off) % 4
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(device_index: int, n_segments: int, n_buckets: int) -> int:
+    """Blocks of one ``n_segments x n_buckets`` table that run at once on
+    the card (fixed for a device and table, so asked once); raises
+    :class:`KernelError` for a table larger than one block's shared memory."""
+    lib = SEGMENT_HIST.lib()
+    with torch.cuda.device(device_index):
+        cap = lib.segment_hist_max_cells()
+        if n_segments * n_buckets > cap:
+            raise KernelError(f"segment_hist: a {n_segments} x {n_buckets} table exceeds the "
+                              f"{cap} int32 cells of one block's shared memory")
+        resident = lib.segment_hist_resident_blocks(n_segments, n_buckets)
+    if resident <= 0:
+        raise KernelError(f"segment_hist occupancy query failed: CUDA error {-resident}")
+    return resident
 
 
 def _as_frames(bucket, good):
@@ -77,20 +116,17 @@ def segment_histogram_cuda(seg, bucket, good, n_segments: int, n_buckets: int) -
     if nf == 0 or n == 0:
         out = torch.zeros(nf, n_segments, n_buckets, dtype=torch.float32, device=dev)
         return out[0] if squeeze else out
-    lib = SEGMENT_HIST.lib()
+    resident = _resident_blocks(dev.index, n_segments, n_buckets)
     with torch.cuda.device(dev):
-        cap = lib.segment_hist_max_cells()
-        if n_segments * n_buckets > cap:
-            raise KernelError(f"segment_hist: a {n_segments} x {n_buckets} table exceeds the "
-                              f"{cap} int32 cells of one block's shared memory")
         counts = torch.empty(nf, n_segments, n_buckets, dtype=torch.int32, device=dev)
         out = torch.empty(nf, n_segments, n_buckets, dtype=torch.float32, device=dev)
         seg, good = seg.contiguous(), good.contiguous()
-        per_frame = max(1, min(-(-n // _MIN_SAMPLES_PER_BLOCK), -(-_TARGET_BLOCKS // nf)))
+        head = vector_head(seg.data_ptr(), bucket.data_ptr(), good.data_ptr(), nf, n)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.segment_hist(seg.data_ptr(), bucket.data_ptr(), good.data_ptr(),
-                              counts.data_ptr(), out.data_ptr(), nf, n, n_segments,
-                              n_buckets, per_frame, stream)
+        rc = SEGMENT_HIST.lib().segment_hist(
+            seg.data_ptr(), bucket.data_ptr(), good.data_ptr(), counts.data_ptr(),
+            out.data_ptr(), nf, n, n_segments, n_buckets, blocks_per_frame(nf, n, resident),
+            head, stream)
     if rc != 0:
         raise KernelError(f"segment_hist launch failed: CUDA error {rc}")
     SEGMENT_HIST.launches += 1

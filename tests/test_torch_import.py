@@ -155,6 +155,24 @@ def test_no_module_imports_jax():
     assert not offenders, offenders
 
 
+def test_psf_bound_counts_the_same_work():
+    """chip_smoke's PSF operation count, split into the normal equations
+    (which may run on the tensor cores) and the rest, sums to the count of
+    the first design's code at every S, K and stamp."""
+    from chip_smoke import psf_flops
+    for B, S, K, h, it in ((92160, 5, 3, 15, 6), (180, 5, 3, 15, 12), (7, 8, 4, 32, 0),
+                           (3, 1, 1, 11, 2)):
+        P3, npix = 3 * S, h * h
+        axis = S * 2 * h * (64 + 16 * K + 4)
+        pixel = npix * (S * (10 + 6 * K) + 1 + P3 * (P3 + 1) + 3 * P3)
+        chol = 2 * P3 ** 3 // 3 + 3 * P3
+        step = axis + pixel + chol + 2 * P3 ** 2 + 10 * S
+        final = axis + pixel + 2 * npix + chol + S * P3 ** 2
+        normal, rest = psf_flops(B, S, K, h, h, it)
+        assert normal + rest == B * (5 * npix + it * step + final)
+        assert normal == B * (it + 1) * npix * (P3 * (P3 + 1) + 3 * P3)
+
+
 @pytest.mark.cuda
 def test_band_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
@@ -191,7 +209,11 @@ def test_band_kernel_matches_plain_on_card():
 def test_psf_kernel_matches_plain_on_card(tmp_path):
     """psf_warm_fit against its plain version at S=3 (the well-posed problems
     of tests/test_psf_pallas.py, its tight bounds) and S=5, K=3 (a two-star
-    table PRF, its crowded-stamp percentile bounds)."""
+    table PRF, its crowded-stamp percentile bounds); then the edges of the
+    tensor-core design under the crowded bounds: S = 1, 5, 6 and 8 (one and
+    two 16-column groups), K = 1 and 4, stamps of 11, 15, 17 and 32 px (pixel
+    counts not multiples of 8 or 32), an all-NaN stamp that must not move,
+    and n_iters = 0, which must return the start."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from photometry_tpu_torch.models.prf import PRF
@@ -236,6 +258,25 @@ def test_psf_kernel_matches_plain_on_card(tmp_path):
         assert np.percentile(pos, 90) < 5e-3 and np.percentile(rel, 90) < 5e-3, S
         if S == 3:
             assert np.percentile(rel, 95) < 1e-3, np.percentile(rel, 95)
+    from chip_smoke import psf_fit_check, psf_instances, table_prf
+    prfs = {K: table_prf(PRF, str(tmp_path), K, "cuda") for K in (1, 3, 4)}
+    for S, K, side, n_iters, B in ((1, 1, 11, 12, 256), (5, 4, 15, 6, 512), (6, 3, 17, 6, 256),
+                                   (8, 4, 32, 6, 128), (5, 1, 15, 0, 256)):
+        inputs = psf_instances(rng, prfs[K], B, S, side, side, nan_frac=0.01)
+        inputs[0][0] = np.nan
+        args = [torch.as_tensor(a, device="cuda") for a in inputs]
+        before = PSF_WARM_FIT.launches
+        got = fused_warm_fit_cuda(args[0], args[1], 1.0, *args[2:], prfs[K], (side, side), S,
+                                  n_iters)
+        torch.cuda.synchronize()
+        assert PSF_WARM_FIT.launches == before + 1
+        want = fused_warm_fit_plain(args[0], args[1], 1.0, *args[2:], prfs[K], (side, side), S,
+                                    n_iters)
+        pg = got["params"].cpu().numpy()
+        assert np.array_equal(pg[0], inputs[2][0]), (S, K, side)
+        if n_iters == 0:
+            assert np.array_equal(pg, inputs[2])
+        psf_fit_check(got, want, inputs[3], S, "crowded", f"S={S} K={K} {side}x{side}")
 
 
 @pytest.mark.cuda
@@ -264,9 +305,13 @@ def test_median15_kernel_matches_plain_on_card():
 
 @pytest.mark.cuda
 def test_segment_hist_kernel_matches_plain_on_card():
-    """The segment-histogram kernel against its bincount: invalid and
-    out-of-range samples, empty segments, one bucket, a 64-ring table, and
-    a table too large for shared memory refused."""
+    """The segment-histogram kernel against its bincount, bit for bit:
+    invalid and out-of-range samples, empty segments, one bucket, a 64-ring
+    table, N not a multiple of 4 (scalar loop on 3 frames, 4-wide loads and
+    a tail on 1), arrays starting one element in (a scalar head) and a
+    bucket array alone misaligned (the scalar loop), F = 1 and F = 64, N <
+    32, one cell with 2^20 samples of one frame, and a table too large for
+    shared memory refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from photometry_tpu_torch.ops import seghist
@@ -275,19 +320,34 @@ def test_segment_hist_kernel_matches_plain_on_card():
     n = 200_001
     seg = rng.integers(-2, 44, n).astype(np.int32)
     seg[(seg >= 5) & (seg <= 9)] = 11
-    cases = [(rng.integers(-3, 515, (4, n)), rng.uniform(size=(4, n)) < 0.7, 40),
-             (np.full((2, n), 3), np.ones((2, n), bool), 40),
-             (rng.integers(0, 512, (2, n)), np.ones((2, n), bool), 64)]
-    for b, good, n_seg in cases:
-        args = [torch.as_tensor(a, device="cuda") for a in
-                (seg, b.astype(np.int32), good)]
+    cases = [(seg, rng.integers(-3, 515, (4, n)), rng.uniform(size=(4, n)) < 0.7, 40),
+             (seg, np.full((2, n), 3), np.ones((2, n), bool), 40),
+             (seg, rng.integers(0, 512, (2, n)), np.ones((2, n), bool), 64),
+             (seg, rng.integers(0, 512, (1, n)), rng.uniform(size=(1, n)) < 0.9, 40),
+             (seg[:1 << 16], rng.integers(0, 512, (64, 1 << 16)), np.ones((64, 1 << 16), bool),
+              40),
+             (seg[:13], rng.integers(0, 512, (2, 13)), np.ones((2, 13), bool), 40),
+             (np.zeros(1 << 20, np.int32), np.full((1, 1 << 20), 5), np.ones((1, 1 << 20), bool),
+              40)]
+    for sg, b, good, n_seg in cases:
+        args = [torch.as_tensor(a, device="cuda") for a in (sg, b.astype(np.int32), good)]
         before = SEGMENT_HIST.launches
         got = seghist.segment_histogram_cuda(*args, n_seg, 512)
         torch.cuda.synchronize()
         assert SEGMENT_HIST.launches == before + 1
         assert torch.equal(got, seghist.segment_histogram_plain(*args, n_seg, 512))
+    assert float(got[0, 0, 5]) == 1 << 20
+    N = 65540
+    sb = torch.randint(0, 40, (N + 1,), device="cuda", dtype=torch.int32)
+    bb = torch.randint(0, 512, (4 * N + 1,), device="cuda", dtype=torch.int32)
+    gb = torch.rand(4 * N + 1, device="cuda") < 0.8
+    b1, g1 = bb[1:].view(4, N), gb[1:].view(4, N)
+    for sg, head in ((sb[1:], 3), (sb[:N], -1)):
+        assert seghist.vector_head(sg.data_ptr(), b1.data_ptr(), g1.data_ptr(), 4, N) == head
+        assert torch.equal(seghist.segment_histogram_cuda(sg, b1, g1, 40, 512),
+                           seghist.segment_histogram_plain(sg, b1, g1, 40, 512))
     with pytest.raises(KernelError):
-        seghist.segment_histogram_cuda(*args, 128, 512)
+        seghist.segment_histogram_cuda(sb[:N], b1, g1, 128, 512)
 
 
 @pytest.mark.cuda

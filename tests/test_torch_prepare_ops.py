@@ -150,6 +150,36 @@ def test_segment_histogram_skips_out_of_range():
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("frames, n, resident, want", [
+    (64, 1 << 20, 264, 4),        # the prepare stage's 64-frame chunk: one wave of 256 blocks
+    (32, 1 << 20, 264, 8),        # the partial chunk: more blocks per frame
+    (1, 1 << 20, 264, 32),        # one frame: one block per 32,768 samples
+    (3, 100_003, 264, 4),
+    (1, 13, 264, 1),              # fewer samples than a warp
+    (600, 1 << 20, 264, 1),       # more frames than resident blocks: several waves
+])
+def test_histogram_blocks_per_frame(frames, n, resident, want):
+    assert seghist.blocks_per_frame(frames, n, resident) == want
+
+
+@pytest.mark.parametrize("offsets, frames, n, want", [
+    ((0, 0, 0), 64, 1 << 20, 0),            # torch's aligned allocations
+    ((4, 4, 1), 4, 65540, 3),               # all three one element in: a 3-sample head
+    ((8, 8, 2), 1, 4001, 2),
+    ((0, 4, 1), 4, 65540, -1),              # seg and bucket disagree: the scalar loop
+    ((4, 4, 0), 4, 65540, -1),              # good disagrees
+    ((0, 0, 0), 3, 100_003, -1),            # rows of frames 1, 2 lose the alignment
+    ((0, 0, 0), 1, 100_003, 0),             # one frame: a scalar tail only
+    ((0, 0, 0), 2, 4, -1),                  # too few samples for 4-wide loads
+])
+def test_histogram_vector_head(offsets, frames, n, want):
+    """The alignment rule of the kernel's 4-wide loads, on byte addresses
+    (seg and bucket int32, good one byte a sample)."""
+    base = 1 << 20
+    ptrs = [base + off for off in offsets]
+    assert seghist.vector_head(*ptrs, frames, n) == want
+
+
 def test_segment_kde_mode_matches_jax():
     values, segs, mask, _, _ = _hist_inputs(9, 70000, 2)
     got = n(stats.segment_kde_mode(t(values), t(segs), 12, mask=t(mask), min_count=8))

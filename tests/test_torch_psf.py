@@ -220,6 +220,18 @@ def test_fused_plain_matches_jax_pallas(S, n_iters):
                                    rtol=2e-2)
 
 
+@pytest.mark.parametrize("B, n_sms, want", [
+    (180 * 512, 132, 8),          # a chunk's warm fits: full blocks
+    (180, 132, 1),                # its first-cadence fit: one instance a block
+    (1000, 132, 3),
+    (1, 132, 1),
+])
+def test_fused_warps_per_block(B, n_sms, want):
+    from photometry_tpu_torch.models.psf_fused import MAX_WARPS, warps_per_block
+    got = warps_per_block(B, n_sms)
+    assert got == want and 1 <= got <= MAX_WARPS
+
+
 def _separated_problem(jp, B=8, S=3, h=15, w=15, seed=2):
     """B stamps of S resolved stars (neighbours 2.5-5 px from a central
     target, fluxes 800-3800), noise 0.8 on a pedestal of 5, a start 0.25 off
