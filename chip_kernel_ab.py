@@ -1,40 +1,48 @@
 #!/usr/bin/env python3
-"""Time the port's redesigned kernels against their first designs on one CUDA card.
+"""Time the port's redesigned kernels against the designs they replaced on one CUDA card.
 
-The first designs of segment_hist and psf_warm_fit (a 512-thread block per
-private table with one scalar sample per thread and step; a warp per PSF
-instance with the normal equations in registers, a shuffle butterfly and a
-per-lane Cholesky) are read from ``--first DIR``, which holds
-``segment_hist.cu`` and ``psf_warm_fit.cu`` as git keeps them from before
-the redesign::
+The earlier designs are read from ``--first DIR``, as git keeps them from
+before each redesign; the script times every pair whose earlier source it
+finds there::
 
     mkdir -p local/first
-    for k in segment_hist psf_warm_fit; do
+    for k in median15 band_extract; do          # redesigned after b07d001
+      git show b07d001:photometry_tpu_torch/ops/csrc/$k.cu > local/first/$k.cu
+    done
+    for k in segment_hist psf_warm_fit; do      # redesigned after aaf6824
       git show aaf6824:photometry_tpu_torch/ops/csrc/$k.cu > local/first/$k.cu
     done
 
-This script builds them beside the current sources in
-``photometry_tpu_torch/ops/csrc/`` (one nvcc each, in parallel, the port's
-flags), holds both designs to the plain versions, and times them in turns
-(first, current, current, first) in this one process, at ``chip_smoke.py``'s
-main shapes:
+It builds them beside the current sources in ``photometry_tpu_torch/ops/csrc/``
+(one nvcc each, in parallel, the port's flags), holds both designs to the
+plain versions, and times them in turns (first, current, current, first) in
+this one process, at ``chip_smoke.py``'s main shapes:
 
+- median15 (the first design bisects each pixel's keys alone): (8, 2048,
+  2048) frames of chip_smoke's phase 2c, and one 64-frame prepare chunk of
+  residual-like frames (phase 3's star field with fresh noise, no sky),
+  bit for bit against each other and against the plain version at 8 frames;
+- band_extract (the first design: a warp per cadence over each target's
+  bounding box): chip_smoke's phase 2 main shape (1,024 targets of 17x17,
+  30% masks, on the (512, 2048, 2048) cube), and the main path's own launch
+  (the 10,240 targets of phase 3's ``extract_aperture_batch``, its masks,
+  windows and corners recorded from that call);
 - segment_hist: 64 frames x 2^20 samples x 39 rings x 512 buckets, on
   synthetic and on real buckets (``chip_smoke.hist_cases``), beside one
   ``torch.bincount`` of the same cells;
 - psf_warm_fit: 180 targets x 512 cadences of 15x15 stamps, S=5, K=3, 6
   iterations (the warm fits), and 180 instances at 12 iterations (a chunk's
-  first-cadence fit);
-- the PSF slice of chip_smoke's phase 4 (``extract_psf_batch`` on the 2,048
-  brightest targets of its context) with either design behind the same
-  wrapper: its wall, then again under torch.profiler for the kernel's
-  device time and share.
+  first-cadence fit), then the PSF slice of chip_smoke's phase 4
+  (``extract_psf_batch`` on the 2,048 brightest targets of its context) with
+  either design behind the same wrapper: its wall, then again under
+  torch.profiler for the kernel's device time and share.
 
 Each time is the median over ``--reps`` runs of a loop of launches between
 two CUDA events, divided by the loop's length; launches go straight to the
 libraries with their arguments prepared once, so no wrapper's Python is
 timed.  Prints one line per case, the card's name and power limit, and last
-a JSON line of every time.  Exits non-zero without a CUDA card.
+a JSON line of every time.  Exits non-zero without a CUDA card or without
+any earlier design.
 
 Usage:  python3 chip_kernel_ab.py [--first DIR] [--seed N] [--reps N]
 """
@@ -75,6 +83,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _FIRST_PSF = {"psf_warm_fit": (_I, [_P] * 11 + [_L] + [_I] * 5 + [_I] * 4 + [_F] + [_I] * 4
                                 + [_F] + [_I] + [_F] * 2 + [_P])}
 _FIRST_HIST = {"segment_hist": (_I, [_P] * 5 + [_I, _L, _I, _I, _I, _P])}
+_FIRST_MEDIAN = {"median15": (_I, [_P] * 2 + [_I] * 3 + [_P])}
+_FIRST_BAND = {"band_extract_sums": (_I, [_P] * 9 + [_I] * 6 + [_P])}
+SIGNATURES = {"segment_hist": _FIRST_HIST, "psf_warm_fit": _FIRST_PSF,
+              "median15": _FIRST_MEDIAN, "band_extract": _FIRST_BAND}
 
 
 def library(name, signatures, path):
@@ -96,13 +108,12 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=7)
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--first", default=os.path.join(HERE, "local", "first"),
-                        help="directory of the first designs' segment_hist.cu and "
-                             "psf_warm_fit.cu")
+                        help="directory of the earlier designs' sources (see the docstring)")
     args = parser.parse_args()
-    sources = {k: os.path.join(args.first, k + ".cu") for k in ("segment_hist", "psf_warm_fit")}
-    missing = [p for p in sources.values() if not os.path.isfile(p)]
-    if missing:
-        print(f"first designs missing: {missing} (see the docstring)", file=sys.stderr)
+    sources = {k: os.path.join(args.first, k + ".cu") for k in SIGNATURES}
+    sources = {k: p for k, p in sources.items() if os.path.isfile(p)}
+    if not sources:
+        print(f"no earlier design in {args.first} (see the docstring)", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -111,34 +122,33 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import chip_smoke as cs
     sys.meta_path.insert(0, cs._Blocked())
-    from photometry_tpu_torch.models import psf_fused
-    from photometry_tpu_torch.models.prf import PRF
-    from photometry_tpu_torch.models.psf_common import CUTOFF_RADIUS
-    from photometry_tpu_torch.ops import seghist
-    from photometry_tpu_torch.ops._kernels import PSF_WARM_FIT, SEGMENT_HIST, build_all
+    from photometry_tpu_torch.ops._kernels import (BAND_EXTRACT, MEDIAN15, PSF_WARM_FIT,
+                                                   SEGMENT_HIST, build_all)
 
     dev = torch.device("cuda")
     card = cs.card_line()
     work = tempfile.mkdtemp(prefix="chip_kernel_ab_")
     tic = time.perf_counter()
-    first = {"segment_hist": library("segment_hist_first", _FIRST_HIST,
-                                     sources["segment_hist"]),
-             "psf_warm_fit": library("psf_warm_fit_first", _FIRST_PSF,
-                                     sources["psf_warm_fit"])}
+    first = {k: library(f"{k}_first", SIGNATURES[k], p) for k, p in sources.items()}
     with ThreadPoolExecutor(1) as ex:
-        job = ex.submit(build, first.values())
+        job = ex.submit(build, list(first.values()))
         build_all()
         job.result()
     loaded = "(loaded, built by an earlier process)"
+    current = {"segment_hist": SEGMENT_HIST, "psf_warm_fit": PSF_WARM_FIT, "median15": MEDIAN15,
+               "band_extract": BAND_EXTRACT}
+    names = {"segment_hist": ("segment_hist_kernel",), "median15": ("median15_kernel",),
+             "band_extract": ("band_extract_kernel",)}
+    regs = []
+    for k, lib in first.items():
+        if k == "psf_warm_fit":
+            now, then = cs.ptxas_summary(PSF_WARM_FIT.build_log), cs.ptxas_summary(lib.build_log)
+        else:
+            now = cs.ptxas_regs(current[k].build_log, names[k])
+            then = cs.ptxas_regs(lib.build_log, names[k])
+        regs.append(f"{k} current {now or loaded}, first {then or loaded}")
     print(f"build: current and first designs in {time.perf_counter() - tic:.1f} s; registers/"
-          f"spill stores: psf_warm_fit<S,K> current "
-          f"{cs.ptxas_summary(PSF_WARM_FIT.build_log) or loaded}; "
-          f"first {cs.ptxas_summary(first['psf_warm_fit'].build_log) or loaded}; segment_hist "
-          f"current {cs.ptxas_regs(SEGMENT_HIST.build_log, ('segment_hist_kernel',)) or loaded}, "
-          f"first {cs.ptxas_regs(first['segment_hist'].build_log, ('segment_hist_kernel',))}",
-          flush=True)
-    h1, p1 = first["segment_hist"].lib(), first["psf_warm_fit"].lib()
-    h2, p2 = SEGMENT_HIST.lib(), PSF_WARM_FIT.lib()
+          f"spill stores: " + "; ".join(regs), flush=True)
     stream = torch.cuda.current_stream(dev).cuda_stream
     times = {}
 
@@ -153,44 +163,150 @@ def main() -> int:
         print(f"{case}: " + "; ".join(f"{k} {' / '.join(f'{x:.4f}' for x in v)} ms"
                                       for k, v in got.items()) + f" ({card})", flush=True)
 
-    # --- segment_hist ------------------------------------------------------------
     rng = np.random.default_rng(args.seed)
     rows, cols, tmag, img0 = cs.make_field(rng)
-    seg_t, S, cases = cs.hist_cases(dev, rng, img0)
-    nf, ns, nb = cs.HIST_MAIN
-    counts = torch.empty(nf, S, nb, dtype=torch.int32, device=dev)
-    out1 = torch.empty(nf, S, nb, device=dev)
-    out2 = torch.empty(nf, S, nb, device=dev)
-    resident = h2.segment_hist_resident_blocks(S, nb)
-    per_frame2 = seghist.blocks_per_frame(nf, ns, resident)
-    per_frame1 = max(1, min(-(-ns // 32768), -(-(4 * 132) // nf)))
-    for what, b_t, good_t in cases:
-        head = seghist.vector_head(seg_t.data_ptr(), b_t.data_ptr(), good_t.data_ptr(), nf, ns)
-        ptrs = (seg_t.data_ptr(), b_t.data_ptr(), good_t.data_ptr())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
 
-        def v1():
-            cs.check(h1.segment_hist(*ptrs, counts.data_ptr(), out1.data_ptr(), nf, ns, S, nb,
-                                     per_frame1, stream) == 0, "first segment_hist launch")
+    # --- median15 ----------------------------------------------------------------
+    if "median15" in first:
+        from photometry_tpu_torch.ops import median15 as m15
+        m1, m2 = first["median15"].lib(), MEDIAN15.lib()
+        nf, H, W = cs.MEDIAN_MAIN
+        x8 = 100.0 + 30.0 * torch.randn(nf, H, W, device=dev, generator=gen)
+        idx = torch.randint(0, x8.numel(), (4000,), device=dev, generator=gen)
+        x8.view(-1)[idx] = torch.finfo(torch.float32).max
+        base = torch.as_tensor(img0, device=dev)
+        sigma = torch.sqrt(torch.clamp(base, min=0.0) + 25.0)
+        x64 = base + sigma * torch.randn(64, H, W, device=dev, generator=gen)
+        for what, x in ((f"phase 2c frames {tuple(x8.shape)}", x8),
+                        (f"one prepare chunk of residual-like frames {tuple(x64.shape)}", x64)):
+            outs = {k: torch.empty_like(x) for k in ("first", "current")}
 
-        def v2():
-            cs.check(h2.segment_hist(*ptrs, counts.data_ptr(), out2.data_ptr(), nf, ns, S, nb,
-                                     per_frame2, head, stream) == 0, "segment_hist launch")
+            def call(lib, k, x=x, outs=outs):
+                return lambda: cs.check(lib.median15(x.data_ptr(), outs[k].data_ptr(),
+                                                     *x.shape, stream) == 0, f"{k} median launch")
 
-        ok = good_t & (seg_t >= 0)[None]
-        flat = ((torch.arange(nf, device=dev)[:, None] * S + seg_t.long()[None]) * nb
-                + b_t.long())[ok]
-        v1(), v2()
-        want = seghist.segment_histogram_plain(seg_t, b_t, good_t, S, nb)
-        cs.check(torch.equal(out1, want) and torch.equal(out2, want),
-                 f"segment_hist {what}: a design != plain")
-        turns(f"segment_hist {what} ({nf} x {ns} x {S} x {nb}; blocks per frame: first "
-              f"{per_frame1}, current {per_frame2}; head {head})",
-              {"first": v1, "current": v2,
-               "bincount": lambda: torch.bincount(flat, minlength=nf * S * nb)}, 20)
-        del b_t, good_t, flat
-    del cases, counts, out1, out2
+            fns = {"first": call(m1, "first"), "current": call(m2, "current")}
+            fns["first"](), fns["current"]()
+            torch.cuda.synchronize()
+            cs.check(cs.bit_equal(outs["first"], outs["current"]),
+                     f"median15 {what}: the designs differ")
+            if x.shape[0] <= 8:
+                cs.check(cs.bit_equal(outs["current"], m15.median_filter_plain(x)),
+                         f"median15 {what}: current != plain")
+            turns(f"median15 {what}, bit-equal", fns, 3 if x.shape[0] <= 8 else 1)
+        del x8, x64, outs, base, sigma
 
-    # --- psf_warm_fit ------------------------------------------------------------
+    # --- the photometry cube (band_extract, the PSF slice) --------------------------
+    ctx = captured = None
+    if "band_extract" in first or "psf_warm_fit" in first:
+        from photometry_tpu_torch.core.engine import extract_aperture_batch
+        from photometry_tpu_torch.ops import bandext
+        cube = cs.make_cubes(img0, gen, dev)
+        _, _, ctx = cs.photometry_context(work, rows, cols, tmag, cube, dev)
+    if "band_extract" in first:
+        captured = []
+        band_sums = bandext.band_sums
+
+        def recording(*a, **kw):
+            captured.append(a[:7] + (a[7] if len(a) > 7 else kw.get("windows"),))
+            return band_sums(*a, **kw)
+
+        with mock.patch.object(bandext, "band_sums", recording):
+            extract_aperture_batch(ctx, list(range(1, cs.N_TARGETS + 1)))
+        b1 = first["band_extract"].lib()
+        hw = 17
+        rng_b = np.random.default_rng([args.seed, 3])
+        r0s = rng_b.integers(0, cs.H - hw, cs.N_PLAIN).astype(np.int32)
+        c0s = rng_b.integers(0, cs.W - hw, cs.N_PLAIN).astype(np.int32)
+        masks = rng_b.uniform(size=(cs.N_PLAIN, hw, hw)) < 0.3
+        phase2 = tuple(cube) + tuple(torch.as_tensor(a, device=dev) for a in (masks, r0s, c0s))
+        for what, (im, er, bk, fl, mk, r0, c0, win) in (
+                (f"phase 2 main shape ({cs.N_PLAIN} targets {hw}x{hw})", phase2 + (None,)),
+                (f"the main path's launch ({captured[0][4].shape[0]} targets "
+                 f"{captured[0][4].shape[1]}x{captured[0][4].shape[2]})", captured[0])):
+            T_ = im.shape[0]
+            launch_args = ((im, er, bk, fl), mk, r0, c0, win)
+            v1, out1 = cs.band_launcher(*launch_args, lib=b1)
+            v2, out2 = cs.band_launcher(*launch_args)
+            v1(), v2()
+            want = bandext.band_sums_plain(im, er, bk, fl, mk, r0, c0, win)
+            e1 = cs.band_sums_err(out1, want, f"first band design, {what}")
+            e2 = cs.band_sums_err(out2, want, f"current band design, {what}")
+            bound = cs.band_bytes(mk.cpu().numpy(), T_, None if win is None
+                                  else win.cpu().numpy()) / cs.PEAK_BYTES * 1e3
+            fns = {"first": v1, "current": v2}
+            turns(f"band_extract {what}, T={T_}, kernel alone (vs plain: first {e1:.3g}, "
+                  f"current {e2:.3g}; bytes bound {bound:.3f} ms)", fns, 10)
+            # The same through band_sums_cuda (its layout work, targets in frame order):
+            fns = {}
+            for k, lib in (("first", b1), ("current", BAND_EXTRACT.lib())):
+                def wrapped(lib=lib):
+                    with mock.patch.object(BAND_EXTRACT, "_lib", lib):
+                        bandext.band_sums_cuda(im, er, bk, fl, mk, r0, c0, win)
+                fns[k] = wrapped
+            turns(f"band_extract {what}, T={T_}, through band_sums_cuda",
+                  fns, 10)
+        del phase2, out1, out2, want, captured, v1, v2
+
+    # --- segment_hist --------------------------------------------------------------
+    if "segment_hist" in first:
+        from photometry_tpu_torch.ops import seghist
+        h1, h2 = first["segment_hist"].lib(), SEGMENT_HIST.lib()
+        seg_t, S, cases = cs.hist_cases(dev, rng, img0)
+        nf, ns, nb = cs.HIST_MAIN
+        counts = torch.empty(nf, S, nb, dtype=torch.int32, device=dev)
+        out1 = torch.empty(nf, S, nb, device=dev)
+        out2 = torch.empty(nf, S, nb, device=dev)
+        resident = h2.segment_hist_resident_blocks(S, nb)
+        per_frame2 = seghist.blocks_per_frame(nf, ns, resident)
+        per_frame1 = max(1, min(-(-ns // 32768), -(-(4 * 132) // nf)))
+        for what, b_t, good_t in cases:
+            head = seghist.vector_head(seg_t.data_ptr(), b_t.data_ptr(), good_t.data_ptr(), nf,
+                                       ns)
+            ptrs = (seg_t.data_ptr(), b_t.data_ptr(), good_t.data_ptr())
+
+            def v1():
+                cs.check(h1.segment_hist(*ptrs, counts.data_ptr(), out1.data_ptr(), nf, ns, S,
+                                         nb, per_frame1, stream) == 0, "first segment_hist launch")
+
+            def v2():
+                cs.check(h2.segment_hist(*ptrs, counts.data_ptr(), out2.data_ptr(), nf, ns, S,
+                                         nb, per_frame2, head, stream) == 0,
+                         "segment_hist launch")
+
+            ok = good_t & (seg_t >= 0)[None]
+            flat = ((torch.arange(nf, device=dev)[:, None] * S + seg_t.long()[None]) * nb
+                    + b_t.long())[ok]
+            v1(), v2()
+            want = seghist.segment_histogram_plain(seg_t, b_t, good_t, S, nb)
+            cs.check(torch.equal(out1, want) and torch.equal(out2, want),
+                     f"segment_hist {what}: a design != plain")
+            turns(f"segment_hist {what} ({nf} x {ns} x {S} x {nb}; blocks per frame: first "
+                  f"{per_frame1}, current {per_frame2}; head {head})",
+                  {"first": v1, "current": v2,
+                   "bincount": lambda: torch.bincount(flat, minlength=nf * S * nb)}, 20)
+            del b_t, good_t, flat
+        del cases, counts, out1, out2
+
+    # --- psf_warm_fit ----------------------------------------------------------------
+    if "psf_warm_fit" in first:
+        psf_ab(cs, args, dev, work, first["psf_warm_fit"].lib(), PSF_WARM_FIT, ctx, stream,
+               card, times, turns)
+
+    print(card)
+    print(json.dumps({"card": card, "times_ms": times}))
+    return 0
+
+
+def psf_ab(cs, args, dev, work, p1, PSF_WARM_FIT, ctx, stream, card, times, turns):
+    """psf_warm_fit's two designs at the main shapes, then the PSF slice with each."""
+    import torch
+    from photometry_tpu_torch.models import psf_fit, psf_fused
+    from photometry_tpu_torch.models.prf import PRF
+    from photometry_tpu_torch.models.psf_common import CUTOFF_RADIUS
+    p2 = PSF_WARM_FIT.lib()
     pm = cs.PSF_MAIN
     prf = cs.table_prf(PRF, work, pm["K"], dev)
     (bu_lo, bu_hi, L0u, Fu), (bv_lo, bv_hi, L0v, Fv) = psf_fused._kernel_tables(prf, pm["h"],
@@ -225,13 +341,9 @@ def main() -> int:
                              inputs[3], pm["S"], "crowded", f"{k} design, {what}")
         turns(f"psf_warm_fit {what} ({B} instances of {pm['h']}x{pm['h']}, S={pm['S']}, "
               f"K={pm['K']}, {n_iters} iterations)", fns, 3 if B > 1000 else 20)
+        del img, bkg, p0, valid, mini, onehot, valid8, mini8, outs, want, inputs
 
-    # --- the PSF slice (chip_smoke phase 4) with either design ---------------------
-    del img, bkg, p0, valid, mini, onehot, valid8, mini8, outs, want, inputs
-    from photometry_tpu_torch.models import psf_fit
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(args.seed)
-    _, _, ctx = cs.photometry_context(work, rows, cols, tmag, cs.make_cubes(img0, gen, dev), dev)
+    # The PSF slice (chip_smoke phase 4) with either design:
     ctx._context_prf = prf                     # as psf_common.context_prf memoizes it
     sids = list(range(1, cs.N_PSF + 1))        # the brightest (tmag sorted)
     walls = {}
@@ -249,10 +361,6 @@ def main() -> int:
     print(f"PSF slice of {cs.N_PSF} targets: wall " + "; ".join(
         f"{k} {' / '.join(f'{x:.1f}' for x in v)} ms" for k, v in walls.items())
           + f" ({card})", flush=True)
-
-    print(card)
-    print(json.dumps({"card": card, "times_ms": times}))
-    return 0
 
 
 if __name__ == "__main__":

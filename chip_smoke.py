@@ -10,11 +10,17 @@ targets), 4, 6 (on phase 3's cube), 5:
 0. imports: ``jax``, ``jaxlib``, ``h5py`` and ``photometry_tpu`` refused.
 1. device: the card's name and power limit; the five kernels are built with
    nvcc for sm_90a from ``photometry_tpu_torch/ops/csrc/``, one nvcc each,
-   started together (registers and spills printed).
+   started together (registers and spills of every kernel printed).
 2. band kernel vs its plain torch version on the card: adversarial inputs
    (NaN pixels, an all-zero frame, NaN err/background, shenanigans flags,
-   stamps straddling 64x128 cells), then the main path's shape (2048x2048
-   CCD, T=512, 1,024 targets of 17x17 and 33x33) with median times.
+   stamps straddling 64x128 cells), adversarial stamps (a 1-pixel mask, a
+   full one, masks on each stamp edge and on its border ring, an empty
+   mask, windows cut short, 33x33 stamps flush with the frame, T=37: sums
+   against plain with counts exact, two runs bit-equal), then the main
+   path's shape (2048x2048 CCD, T=512, 1,024 targets of 17x17 and 33x33)
+   with median times (through band_extract_flux_batch, through
+   band_sums_cuda, and the kernel alone) beside the bytes bound and the
+   bound of the 32-byte sectors the pixels touch.
 2b. PSF kernel vs its plain torch version on the card: the problems of
    tests/test_psf_pallas.py redrawn, then adversarial instances (NaN
    pixels, an all-NaN stamp, dummy stars, blends, a star clipped at the
@@ -25,7 +31,10 @@ targets), 4, 6 (on phase 3's cube), 5:
    on the tensor cores.
 2c. the 15x15 median and segment-histogram kernels vs their plain torch
    versions on the card, bit for bit: adversarial inputs (a 3.4e38 outlier,
-   a constant frame, a 6x5 frame, signed zeros; invalid and out-of-range
+   a constant frame, a 6x5 frame, signed zeros, a few distinct values on a
+   2078x2136 frame, negative frames, +-3.4e38 side by side and in blocks,
+   denormals, sides that are not multiples of the kernel's 32x32 tile;
+   invalid and out-of-range
    samples, empty segments, every sample in one bucket, N % 4 != 0, a
    table too large for shared memory), then the prepare stage's shapes
    ((8, 2048, 2048) frames; 64 frames x 1024^2 samples x the CCD's 39
@@ -46,7 +55,9 @@ targets), 4, 6 (on phase 3's cube), 5:
 3. the aperture slice at full CCD size: a seeded 12,000-star field (Tmag
    7.5-13), cubes on the card (T=512, ~28 GB), ``SectorContext.from_arrays``,
    ``extract_aperture_batch`` on the 10,240 brightest targets (the band
-   kernel's launch count must rise), 1,024 of them re-extracted by the
+   kernel's launch count must rise; its launch's arguments are recorded,
+   and that launch is run again: sums against plain, two runs bit-equal,
+   its times beside both bounds), 1,024 of them re-extracted by the
    plain path, then ``photometry_batch`` on one 256-task lease with
    products read back.
 4. the PSF slice on the same context: a synthetic K=3 table PRF written
@@ -70,9 +81,9 @@ targets), 4, 6 (on phase 3's cube), 5:
    on these motionless frames, below 0.005 px at the reference frame) are
    checked; the first chunk's background fit and 8 frames' residuals are
    re-run with the plain versions and must be equal; stage walls, frames
-   per second, the device busy share of stages 1-5, the histogram kernel's
-   device time per launch and stage 6's peak memory (around its call) are
-   printed.
+   per second, the device busy share of stages 1-5, the median and
+   histogram kernels' device time per launch and stage 6's peak memory
+   (around its call) are printed.
 6. ECC registration at full size: 32 copies of phase 3's star field shifted
    on the card by a known drift plus jitter (up to 1.5 px, FFT phase ramps)
    with fresh noise, registered by ``MotionModel.calc_kernels_batch``
@@ -98,6 +109,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -217,13 +229,157 @@ def adversarial_inputs(rng, T=16, H=128, W=256, N=14, h=17, w=17):
     return imgs, errs, bkgs, flags, masks, r0s, c0s
 
 
-def band_bytes(masks, T):
+def band_bytes(masks, T, windows=None):
     """Bytes band_extract_flux_batch must move: image, err and background
     (f32) under each mask and the flags (u8) under each window (the whole
-    stamp here) for every cadence, the mask bytes once, and the five
-    outputs (3 f32, a 2-f32 centroid and a bool) per target and cadence."""
+    stamp without windows) for every cadence, the mask bytes once, and the
+    five outputs (3 f32, a 2-f32 centroid and a bool) per target and cadence."""
     N, h, w = masks.shape
-    return T * (12 * int(masks.sum()) + N * h * w) + N * h * w + N * T * 21
+    n_win = N * h * w if windows is None else int(np.asarray(windows).sum())
+    return T * (12 * int(masks.sum()) + n_win) + N * h * w + N * T * 21
+
+
+def band_sector_bytes(masks, r0s, c0s, T, width, windows=None):
+    """band_bytes with every pixel read counted as the whole 32-byte sector
+    it lies in (the card reads no less): per cadence, the sectors of the
+    three float32 planes under each mask and of the flag plane under each
+    window, each sector once per target.  A frame's bytes are a multiple of
+    32, so a pixel's sector is the same in every cadence."""
+    masks = np.asarray(masks, bool)
+    N, h, w = masks.shape
+    wins = np.ones_like(masks) if windows is None else np.asarray(windows, bool)
+    ii, jj = np.mgrid[0:h, 0:w]
+    per_cadence = 0
+    for n in range(N):
+        addr = (int(r0s[n]) + ii) * width + (int(c0s[n]) + jj)
+        per_cadence += 3 * 32 * np.unique(addr[masks[n]] // 8).size
+        per_cadence += 32 * np.unique(addr[wins[n]] // 32).size
+    return T * per_cadence + N * h * w + N * T * 21
+
+
+COUNTS = (1, 2, 8, 9)          # band sums that are counts: exact
+
+
+def band_sums_err(got, want, what):
+    """Max |got - want| of (N, 10, T) band sums: counts exact, sums within
+    RTOL/ATOL; fails otherwise."""
+    import torch
+    got, want = got.double(), want.double()
+    for q in range(got.shape[1]):
+        a, b = got[:, q], want[:, q]
+        if q in COUNTS:
+            check(torch.equal(a, b), f"{what}: count q{q} differs")
+        else:
+            check(bool((a - b).abs().le(ATOL + RTOL * b.abs()).all()),
+                  f"{what}: sum q{q} off by up to {(a - b).abs().max().item():.3g}")
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def band_adversarial(dev, rng):
+    """Phase 2's stamp cases for the compacted layout: a 1-pixel mask, a full
+    mask, masks on each edge of the stamp and on its border ring, an empty
+    mask, windows cut short, 33x33 stamps flush with the frame's edges, and
+    T = 37 (not a multiple of the 32-cadence block); the kernel's sums
+    against the plain ones, and the same bits twice."""
+    import torch
+    from photometry_tpu_torch.ops import bandext
+    T_, H_, W_, hw = 37, 96, 160, 33
+    imgs = rng.normal(100, 5, (T_, H_, W_)).astype(np.float32)
+    imgs[2, 40:50, 40:50] = np.nan
+    imgs[5] = 0.0
+    errs = (np.sqrt(np.abs(imgs)) + 1.0).astype(np.float32)
+    errs[7, 10, 10] = np.inf
+    bkgs = rng.normal(20, 1, (T_, H_, W_)).astype(np.float32)
+    bkgs[9, 60, 60] = np.nan
+    flags = (rng.uniform(size=(T_, H_, W_)) < 0.05).astype(np.uint8) * 4
+    masks = np.zeros((10, hw, hw), bool)
+    masks[0, 16, 16] = True                                  # one pixel
+    masks[1] = True                                          # the full stamp
+    masks[2, 0, :] = True                                    # each edge alone
+    masks[3, -1, :] = True
+    masks[4, :, 0] = True
+    masks[5, :, -1] = True
+    masks[6, [0, -1], :] = True
+    masks[6, :, [0, -1]] = True                              # the border ring
+    masks[8] = rng.uniform(size=(hw, hw)) < 0.4
+    masks[9] = rng.uniform(size=(hw, hw)) < 0.05             # mask 7 stays empty
+    windows = np.ones_like(masks)
+    windows[7:, :, 25:] = False                              # windows cut short
+    masks &= windows
+    r0s = np.array([0, H_ - hw, 5, 0, H_ - hw, 30, 1, 60, 17, 0], np.int32)
+    c0s = np.array([0, W_ - hw, 7, W_ - hw, 0, 90, 2, 100, 50, 127], np.int32)
+    args = [torch.as_tensor(a, device=dev)
+            for a in (imgs, errs, bkgs, flags, masks, r0s, c0s)]
+    err = 0.0
+    for win in (None, torch.as_tensor(windows, device=dev)):
+        got = bandext.band_sums_cuda(*args, windows=win)
+        again = bandext.band_sums_cuda(*args, windows=win)
+        torch.cuda.synchronize()
+        check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+              "band adversarial: two runs differ")
+        err = max(err, band_sums_err(got, bandext.band_sums_plain(*args, windows=win),
+                                     "band adversarial stamps"))
+    print(f"phase 2 adversarial stamps (1-pixel, full, edge and border-ring masks, an empty "
+          f"mask, windows cut short, {hw}x{hw} flush with the frame, T={T_}): kernel sums == "
+          f"plain (counts exact, max |diff| {err:.3g}), two runs bit-equal", flush=True)
+    return err
+
+
+def band_launcher(cube, masks, r0s, c0s, windows=None, lib=None):
+    """A zero-argument launch of the band kernel (or of ``lib``, a library
+    with its entry point) straight to the library, its arguments prepared
+    once (no wrapper, no launch count), and the (N, 10, T) output it
+    writes: for timing the kernel alone, on the targets in the order given."""
+    import torch
+    from photometry_tpu_torch.ops import bandext
+    from photometry_tpu_torch.ops._kernels import BAND_EXTRACT
+    images, errs, bkgs, flags = cube
+    T_, H_, W_ = images.shape
+    N, h, w = masks.shape
+    win = torch.ones_like(masks, dtype=torch.bool) if windows is None else windows.bool()
+    mw = (masks.to(torch.uint8) | (win.to(torch.uint8) << 1)).contiguous()
+    bbox = bandext._window_bbox(mw)
+    out = torch.empty(N, bandext.NQ, T_, device=images.device)
+    lib = lib or BAND_EXTRACT.lib()
+    stream = torch.cuda.current_stream(images.device).cuda_stream
+    args = (mw, r0s, c0s, bbox, out)               # alive as long as the launcher
+
+    def launch():
+        check(lib.band_extract_sums(*(x.data_ptr() for x in cube + args), N, T_, H_, W_, h, w,
+                                    stream) == 0, "band_extract_sums launch")
+    return launch, out
+
+
+def band_main_phase(captured, card):
+    """Phase 3's own band launch again, on the arguments the main path gave
+    it: the kernel's sums against the plain ones, twice bit-equal, and
+    its times (alone and through band_sums_cuda) beside both bounds."""
+    import torch
+    from photometry_tpu_torch.ops import bandext
+    check(len(captured) == 1, f"phase 3 recorded {len(captured)} band launches, not 1")
+    (a, kw), = captured
+    images, errs, bkgs, flags, masks, r0s, c0s = a[:7]
+    windows = a[7] if len(a) > 7 else kw.get("windows")
+    cube = (images, errs, bkgs, flags)
+    got = bandext.band_sums_cuda(*cube, masks, r0s, c0s, windows)
+    check(torch.equal(got.view(torch.int32), bandext.band_sums_cuda(
+        *cube, masks, r0s, c0s, windows).view(torch.int32)), "band main path: two runs differ")
+    err = band_sums_err(got, bandext.band_sums_plain(*cube, masks, r0s, c0s, windows),
+                        "band main path")
+    launch, _ = band_launcher(cube, masks, r0s, c0s, windows)
+    alone = cuda_ms(launch)
+    wrapped = cuda_ms(lambda: bandext.band_sums_cuda(*cube, masks, r0s, c0s, windows))
+    m, w_ = masks.cpu().numpy(), None if windows is None else windows.cpu().numpy()
+    r, c = r0s.cpu().numpy(), c0s.cpu().numpy()
+    T_, _, W_ = images.shape
+    bound = band_bytes(m, T_, w_) / PEAK_BYTES * 1e3
+    sector = band_sector_bytes(m, r, c, T_, W_, w_) / PEAK_BYTES * 1e3
+    print(f"phase 3 band kernel on the main path's launch ({m.shape[0]} targets, stamps "
+          f"{m.shape[1]}x{m.shape[2]}, {int(m.sum())} mask pixels, T={T_}): kernel alone "
+          f"{alone:.3f} ms (targets in catalog order), band_sums_cuda {wrapped:.3f} ms "
+          f"(frame order); bound {bound:.3f} ms by bytes, {sector:.3f} ms by 32-byte "
+          f"sectors; sums == plain (counts exact, max |diff| {err:.3g}), two runs "
+          f"bit-equal ({card})", flush=True)
 
 
 def make_field(rng):
@@ -501,6 +657,19 @@ def median_phase(dev, rng, gen, card, result):
              "6x5 frames": rng.normal(5.0, 2.0, (3, 6, 5)).astype(f32),
              "signed zeros 33x47": rng.choice([0.0, -0.0, 1.0, -1.0], (2, 33, 47)).astype(f32),
              "1x1 frame": np.array([[[3.0]]], f32)}
+    adv = np.random.default_rng(12)
+    huge = adv.normal(0.0, 1.0, (1, 131, 257)).astype(f32)
+    huge[0, 20, 20], huge[0, 20, 21] = 3.4028235e38, -3.4028235e38   # side by side
+    huge[0, 40:52, 40:52] = 3.4028235e38           # windows whose median is +-3.4e38
+    huge[0, 40:52, 52:64] = -3.4028235e38
+    cases.update({
+        "a few distinct values 2078x2136": adv.choice([1.0, 2.0, 3.0, 5.0], (1, 2078, 2136),
+                                                      p=[0.6, 0.2, 0.1, 0.1]).astype(f32),
+        "negative frames 131x257": adv.normal(-50.0, 20.0, (2, 131, 257)).astype(f32),
+        "+-3.4e38 side by side and in blocks 131x257": huge,
+        "denormals and zeros 70x90": np.where(adv.uniform(size=(1, 70, 90)) < 0.2, 0.0,
+                                              adv.normal(0.0, 1e-39, (1, 70, 90))).astype(f32),
+        "only -0.0 and +0.0 80x70": adv.choice([0.0, -0.0], (1, 80, 70)).astype(f32)})
     for name, x in cases.items():
         xt = torch.as_tensor(x, device=dev)
         got = m15.median15_cuda(xt)
@@ -522,12 +691,10 @@ def median_phase(dev, rng, gen, card, result):
     lib_ms = cuda_ms(lambda: median_unfold(x), reps=1)
     nbytes = 2 * x.numel() * 4
     bound = nbytes / PEAK_BYTES * 1e3
-    ops = nf * H * W * (225 * 2 + 12 * (225 * 7 * 2 + 20))
     print(f"phase 2c median15 main shape {MEDIAN_MAIN}: kernel == plain bit for bit; kernel "
           f"{ms:.3f} ms ({ms / nf:.3f} ms/frame), plain {plain_ms:.3f} ms, unfold+median "
           f"{lib_ms:.3f} ms (equal: {lib_eq}), bound {bound:.4f} ms by bytes "
-          f"({nbytes / 1e6:.1f} MB); selection as written <= {ops / 1e12:.2f} T integer ops "
-          f"({card})", flush=True)
+          f"({nbytes / 1e6:.1f} MB) ({card})", flush=True)
     result["median15"].update(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                               bound_by="bytes", library_ms=lib_ms)
 
@@ -1164,6 +1331,10 @@ def prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result,
           f"launches median15 {MEDIAN15.launches}, segment_hist {SEGMENT_HIST.launches}",
           flush=True)
     print(f"phase 5 device time by kernel: {top_device_ops(prof)}", flush=True)
+    med = [d / 1e3 for _, d in kernel_spans(prof, "median15_kernel")]
+    if med:
+        print(f"phase 5 median15: {len(med)} launches, device ms " + ", ".join(
+            f"{d:.3f}" for d in med) + f" (total {sum(med):.3f}) ({card})", flush=True)
     hist = [(c + f) / 1e3 for (_, c), (_, f) in zip(kernel_spans(prof, "segment_hist_kernel"),
                                                     kernel_spans(prof, "to_float_kernel"))]
     if hist:
@@ -1318,9 +1489,10 @@ def main() -> int:
     print(f"phase 1 psf_warm_fit<S,K> registers/spill stores: "
           f"{ptxas_summary(PSF_WARM_FIT.build_log)}", flush=True)
     print("phase 1 registers/spill stores: "
-          + ptxas_regs(MEDIAN15.build_log + SEGMENT_HIST.build_log + STAMP_FLUX.build_log,
-                       ("median15_kernel", "segment_hist_kernel", "to_float_kernel",
-                        "stamp_flux_kernel")), flush=True)
+          + ptxas_regs(BAND_EXTRACT.build_log + MEDIAN15.build_log + SEGMENT_HIST.build_log
+                       + STAMP_FLUX.build_log,
+                       ("band_extract_kernel", "median15_kernel", "segment_hist_kernel",
+                        "to_float_kernel", "stamp_flux_kernel")), flush=True)
     lap("1")
     result = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "library_ms": None} for name, (src, rep) in KERNELS.items()}
@@ -1337,6 +1509,7 @@ def main() -> int:
         want = host(extract_flux_core(*t_args, h, w, windows=windows))
         err = max_err(got, want, "adversarial")
     print(f"phase 2 adversarial: kernel == plain (max |diff| {err:.3g})", flush=True)
+    err = max(err, band_adversarial(dev, np.random.default_rng([args.seed, 6])))
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -1365,11 +1538,23 @@ def main() -> int:
             return extract_flux_core(*cube, *m_args, hw, hw)
 
         main_err = max(main_err, max_err(host(kern()), host(plain()), f"main shape {hw}x{hw}"))
+        sums = bandext.band_sums_cuda(*cube, *m_args)
+        check(torch.equal(sums.view(torch.int32),
+                          bandext.band_sums_cuda(*cube, *m_args).view(torch.int32)),
+              f"band main shape {hw}x{hw}: two runs differ")
+        main_err = max(main_err, band_sums_err(sums, bandext.band_sums_plain(*cube, *m_args),
+                                               f"band sums main shape {hw}x{hw}"))
+        launch, _ = band_launcher(cube, *m_args)
+        alone = cuda_ms(launch)
+        wrapped = cuda_ms(lambda: bandext.band_sums_cuda(*cube, *m_args))
         kern_ms[hw], plain_ms[hw] = cuda_ms(kern), cuda_ms(plain)
         band_bound[hw] = band_bytes(masks, T) / PEAK_BYTES * 1e3
-        print(f"phase 2 main shape ({T}, {H}, {W}), {N_PLAIN} targets {hw}x{hw}: kernel "
-              f"{kern_ms[hw]:.3f} ms, plain {plain_ms[hw]:.3f} ms (median of 5), bound "
-              f"{band_bound[hw]:.3f} ms by bytes ({card})", flush=True)
+        sector = band_sector_bytes(masks, r0s, c0s, T, W) / PEAK_BYTES * 1e3
+        print(f"phase 2 main shape ({T}, {H}, {W}), {N_PLAIN} targets {hw}x{hw}: "
+              f"band_extract_flux_batch {kern_ms[hw]:.3f} ms (band_sums_cuda {wrapped:.3f}, the "
+              f"kernel alone {alone:.3f}), plain {plain_ms[hw]:.3f} ms (median of 5), bound "
+              f"{band_bound[hw]:.3f} ms by bytes, {sector:.3f} ms by 32-byte sectors; sums "
+              f"== plain (counts exact), two runs bit-equal ({card})", flush=True)
     result["band_extract"].update(max_abs_err=max(err, main_err), ms=kern_ms[17],
                                   plain_ms=plain_ms[17], bound_ms=band_bound[17],
                                   bound_by="bytes")
@@ -1476,16 +1661,26 @@ def main() -> int:
     starid = np.arange(1, N_STARS + 1)
     sids = [int(s) for s in starid[:N_TARGETS]]           # the brightest (tmag sorted)
 
+    captured = []
+
+    def recording_band_sums(*a, **kw):
+        """bandext.band_sums as the main path calls it, its arguments kept."""
+        captured.append((a, kw))
+        return band_sums(*a, **kw)
+
+    band_sums = bandext.band_sums
     torch.cuda.synchronize()
     reset_counts()
     tic = time.perf_counter()
-    results = extract_aperture_batch(ctx, sids)
+    with mock.patch.object(bandext, "band_sums", recording_band_sums):
+        results = extract_aperture_batch(ctx, sids)
     torch.cuda.synchronize()
     wall = time.perf_counter() - tic
     result["band_extract"]["launches"] = BAND_EXTRACT.launches
     check(BAND_EXTRACT.launches > 0, "the aperture slice did not launch the band kernel")
     print(f"phase 3 slice: {N_TARGETS} targets in {wall:.2f} s = {N_TARGETS / wall:.1f} "
           f"targets/s ({card}); band kernel launches {BAND_EXTRACT.launches}", flush=True)
+    band_main_phase(captured, card)
 
     good = [r for r in results if r.status in (STATUS.OK, STATUS.WARNING)]
     n_ok = sum(r.status == STATUS.OK for r in results)

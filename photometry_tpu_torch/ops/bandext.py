@@ -89,6 +89,14 @@ def _window_bbox(mw: torch.Tensor) -> torch.Tensor:
     return torch.where(any_[:, None], box, 0).to(torch.int32).contiguous()
 
 
+def _frame_order(r0s, c0s, W: int):
+    """The targets in frame order (row-major stamp corners): the kernel's
+    blocks that run together then read nearby rows of each plane.  A
+    target's sums do not depend on its place in the launch;
+    ``out.index_copy_(0, order, sums)`` puts the rows back."""
+    return torch.argsort(r0s.long() * W + c0s.long())
+
+
 def band_sums_cuda(images, images_err, backgrounds, pixelflags, masks, r0s, c0s,
                    windows=None) -> torch.Tensor:
     """The 10 sums (N, NQ, T) from the CUDA kernel, on the images' card."""
@@ -111,12 +119,14 @@ def band_sums_cuda(images, images_err, backgrounds, pixelflags, masks, r0s, c0s,
     for name, x in (("r0s", r0s), ("c0s", c0s)):
         if x.device != dev or x.dtype != torch.int32 or tuple(x.shape) != (N,):
             raise ValueError(f"{name}: need an int32 (N,) tensor on {dev}")
-    if N and bool((r0s.min() < 0) | (r0s.max() > H - h) | (c0s.min() < 0)
-                  | (c0s.max() > W - w)):
-        raise ValueError("stamp corners put a stamp outside the (H, W) frame")
-    mw = (masks.to(torch.uint8) | (_as_windows(masks, windows).to(torch.uint8) << 1)).contiguous()
+    # Checked after the launch, so the card is not idle while the host
+    # waits: the kernel reads nothing for a stamp outside the frame.
+    outside = ((r0s.min() < 0) | (r0s.max() > H - h) | (c0s.min() < 0)
+               | (c0s.max() > W - w)) if N else None
+    mw = masks.to(torch.uint8) | (_as_windows(masks, windows).to(torch.uint8) << 1)
+    order = _frame_order(r0s, c0s, W)
+    mw, r0s, c0s = mw[order].contiguous(), r0s[order].contiguous(), c0s[order].contiguous()
     bbox = _window_bbox(mw)
-    r0s, c0s = r0s.contiguous(), c0s.contiguous()
     out = torch.empty(N, NQ, T, dtype=torch.float32, device=dev)
     lib = BAND_EXTRACT.lib()
     with torch.cuda.device(dev):
@@ -128,7 +138,9 @@ def band_sums_cuda(images, images_err, backgrounds, pixelflags, masks, r0s, c0s,
     if rc != 0:
         raise KernelError(f"band_extract_sums launch failed: CUDA error {rc}")
     BAND_EXTRACT.launches += 1
-    return out
+    if N and bool(outside):
+        raise ValueError("stamp corners put a stamp outside the (H, W) frame")
+    return torch.empty_like(out).index_copy_(0, order, out)
 
 
 def band_sums(images, images_err, backgrounds, pixelflags, masks, r0s, c0s,

@@ -22,24 +22,34 @@
 // and contracts them against dense (M, 8192) piece patches on the MXU,
 // because there a scattered 17-px read moves whole 4 KB (8, 128) tiles.
 // On Hopper a 17-float row is three 32-byte sectors, so each target reads
-// its own window directly.  The dense cell form would do M*8192
+// its own pixels directly.  The dense cell form would do M*8192
 // multiply-adds per cell and cadence (~14 TFLOP for a full CCD at
 // N=10,240, T=1312), ~96% of them against zeros.  Hence no counterpart of
 // the piece decomposition (build_piece_patches, _patches_device): a
 // target is never split into pieces, and nothing is contracted.
 //
-// What bounds it.  Device-memory bytes: at most N*T*h_win*w_win*13 B
-// (f32 image, err, background + u8 flags) over each target's window (the
-// bounding box of mask | window); image/err/background are read only
-// where the mask is set, flags only where the window is.  Arithmetic is a
-// few flops per byte, far below the card's ridge point.
+// What bounds it.  Device-memory bytes: per target and cadence, 12 bytes
+// (f32 image, err, background) at each mask pixel and the flag byte at
+// each window pixel; the card reads whole 32-byte sectors, so the least it
+// can move is the sectors those pixels touch.  Arithmetic is a few flops
+// per byte, far below the card's ridge point.
 //
-// Design.  One block per (target, block of TB cadences).  The block stages
-// the target's mask|window bytes in shared memory once, then each warp
-// reduces one cadence at a time: lanes stride the flattened window, each
-// lane keeps 10 partial sums in registers, a warp-shuffle tree adds them,
-// and lane 0 writes the 10 outputs.  Stamps too large for shared memory
-// read the mask bytes from global memory instead (same arithmetic).
+// Design.  One block per (target, block of 32 cadences), 8 warps.  The
+// block compacts the target's bounding box (the nonzero bytes of mask |
+// window) into two lists in shared memory, its mask pixels and its
+// window-only pixels, each row-major and each entry packing (i << 16) | j
+// with the window bit on top; boxes beyond 2,048 pixels go in chunks of
+// 2,048.  Each warp then takes one cadence at a time: its lanes stride the
+// lists (two entries unrolled, so their loads issue together), a shuffle
+// tree reduces the 10 sums, and lane 0 adds them into the block's results
+// in shared memory, which leave as coalesced out[n, q, t0:t0+32] rows.  The
+// first design (lanes striding the whole bounding box, skipping its empty
+// pixels) read the same sectors but walked the mostly empty boxes of the
+// main path's 49 x 49 stamps.  On an H100 the time follows the sectors
+// read: four cadences a warp with all their loads issued first and a
+// halving exchange for the reduction (127 registers) were slower than this
+// (60 registers, 4 blocks an SM).  The order of every sum is fixed by the
+// lists and the chunks: the same inputs give the same bits on every run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,13 +59,22 @@ namespace {
 constexpr int kQ = 10;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kTimeBlock = 64;          // cadences per block
-constexpr uint8_t kShenanigans = 4;     // PixelQualityFlags.BackgroundShenanigans
-// Largest stamp (h * w mask bytes) staged in shared memory; larger stamps
-// read their mask bytes from global memory.
-constexpr size_t kMaxStagedBytes = 200 * 1024;
+constexpr int kTimeBlock = 32;                // cadences a block
+constexpr int kPer = 8;                      // box pixels a thread compacts per chunk
+constexpr int kChunk = kThreads * kPer;      // 2,048
+constexpr uint8_t kShenanigans = 4;          // PixelQualityFlags.BackgroundShenanigans
+constexpr uint32_t kWinBit = 1u << 31;
 
-template <bool kStage>
+__device__ __forceinline__ int warp_inclusive_scan(int v, int lane)
+{
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, v, d);
+    if (lane >= d) v += u;
+  }
+  return v;
+}
+
 __global__ void __launch_bounds__(kThreads)
 band_extract_kernel(const float* __restrict__ img, const float* __restrict__ err,
                     const float* __restrict__ bkg, const uint8_t* __restrict__ flags,
@@ -64,40 +83,73 @@ band_extract_kernel(const float* __restrict__ img, const float* __restrict__ err
                     const int32_t* __restrict__ bbox,    // (N, 4): i_lo, i_hi, j_lo, j_hi (excl.)
                     float* __restrict__ out,             // (N, kQ, T)
                     int T, int H, int W, int h, int w) {
-  extern __shared__ uint8_t smem[];
+  __shared__ uint32_t mlist[kChunk];
+  __shared__ uint32_t wlist[kChunk];
+  __shared__ int wsum[2][kWarps];
+  __shared__ float res[kQ][kTimeBlock];
   const int n = blockIdx.x;
   const int t_begin = blockIdx.y * kTimeBlock;
   const int t_end = min(t_begin + kTimeBlock, T);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const uint8_t* mw_n = mw + (size_t)n * h * w;
-
-  const uint8_t* m_src = mw_n;
-  if (kStage) {
-    for (int k = threadIdx.x; k < h * w; k += kThreads) smem[k] = mw_n[k];
-    __syncthreads();
-    m_src = smem;
-  }
-
   const int i_lo = bbox[4 * n + 0], i_hi = bbox[4 * n + 1];
   const int j_lo = bbox[4 * n + 2], j_hi = bbox[4 * n + 3];
-  const int bw = j_hi - j_lo;
-  const int area = max(i_hi - i_lo, 0) * max(bw, 0);
   const int r0 = r0s[n], c0 = c0s[n];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool inside = r0 >= 0 && c0 >= 0 && r0 <= H - h && c0 <= W - w;  // else the wrapper raises
+  const int bw = max(j_hi - j_lo, 1);
+  const int area = inside ? max(i_hi - i_lo, 0) * max(j_hi - j_lo, 0) : 0;
   const size_t plane = (size_t)H * W;
-
-  for (int t = t_begin + warp; t < t_end; t += kWarps) {
-    float s[kQ];
+  const size_t corner = inside ? (size_t)r0 * W + c0 : 0;
+  const int nt = t_end - t_begin;
+  // res sums each cadence's chunks in chunk order; zeroed before the
+  // first barrier below (or the last, for an empty box).
+  for (int k = threadIdx.x; k < kQ * kTimeBlock; k += kThreads) {
+    res[k / kTimeBlock][k % kTimeBlock] = 0.f;
+  }
+  for (int chunk = 0; chunk < area; chunk += kChunk) {
+    // Compact this chunk of the box: thread k takes its pixels k*8 .. k*8+7.
+    uint32_t ent[kPer];
+    uint8_t code[kPer];
+    int nm = 0, nw = 0;
 #pragma unroll
-    for (int q = 0; q < kQ; ++q) s[q] = 0.f;
-    const size_t base = (size_t)t * plane;
-    for (int p = lane; p < area; p += 32) {
-      const int i = i_lo + p / bw;
-      const int j = j_lo + p % bw;
-      const uint8_t m = m_src[i * w + j];
-      if (!m) continue;
-      const size_t off = base + (size_t)(r0 + i) * W + (c0 + j);
-      if (m & 1) {
-        const float x = img[off];
+    for (int k = 0; k < kPer; ++k) {
+      const int p = chunk + threadIdx.x * kPer + k;
+      const int i = i_lo + p / bw, j = j_lo + p % bw;
+      code[k] = p < area ? mw_n[(size_t)i * w + j] : (uint8_t)0;
+      ent[k] = ((uint32_t)i << 16) | (uint32_t)j | ((code[k] & 2) ? kWinBit : 0u);
+      nm += code[k] & 1;
+      nw += code[k] == 2;
+    }
+    const int im = warp_inclusive_scan(nm, lane), iw = warp_inclusive_scan(nw, lane);
+    if (lane == 31) { wsum[0][warp] = im; wsum[1][warp] = iw; }
+    __syncthreads();
+    int om = im - nm, ow = iw - nw, n_mask = 0, n_win = 0;
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v) {
+      om += v < warp ? wsum[0][v] : 0;
+      ow += v < warp ? wsum[1][v] : 0;
+      n_mask += wsum[0][v];
+      n_win += wsum[1][v];
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      if (code[k] & 1) mlist[om++] = ent[k];
+      else if (code[k] == 2) wlist[ow++] = ent[k];
+    }
+    __syncthreads();
+
+    for (int tt = warp; tt < nt; tt += kWarps) {
+      const size_t base = (size_t)(t_begin + tt) * plane + corner;
+      float s[kQ];
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) s[q] = 0.f;
+#pragma unroll 2
+      for (int e = lane; e < n_mask; e += 32) {
+        const uint32_t en = mlist[e];
+        const int i = (en >> 16) & 0x7fff, j = en & 0xffff;
+        const size_t p = base + (size_t)i * W + j;
+        const float x = __ldg(img + p), er = __ldg(err + p), b = __ldg(bkg + p);
+        const uint8_t f = (en & kWinBit) ? __ldg(flags + p) : (uint8_t)0;
         if (isfinite(x)) {
           s[0] += x;
           s[1] += 1.f;
@@ -108,26 +160,37 @@ band_extract_kernel(const float* __restrict__ img, const float* __restrict__ err
           }
         }
         if (x == 0.f) s[2] += 1.f;
-        const float e = err[off];
-        if (isfinite(e)) s[6] += e * e;
-        const float b = bkg[off];
+        if (isfinite(er)) s[6] += er * er;
         if (isfinite(b)) {
           s[7] += b;
           s[8] += 1.f;
         }
+        if (f & kShenanigans) s[9] += 1.f;
       }
-      if ((m & 2) && (flags[off] & kShenanigans)) s[9] += 1.f;
-    }
+#pragma unroll 4
+      for (int e = lane; e < n_win; e += 32) {
+        const uint32_t en = wlist[e];
+        const size_t p = base + (size_t)((en >> 16) & 0x7fff) * W + (en & 0xffff);
+        if (__ldg(flags + p) & kShenanigans) s[9] += 1.f;
+      }
 #pragma unroll
-    for (int q = 0; q < kQ; ++q) {
+      for (int q = 0; q < kQ; ++q) {
 #pragma unroll
-      for (int d = 16; d > 0; d >>= 1) s[q] += __shfl_down_sync(0xffffffffu, s[q], d);
-    }
-    if (lane == 0) {
-      float* o = out + (size_t)n * kQ * T + t;
+        for (int d = 16; d > 0; d >>= 1) s[q] += __shfl_down_sync(0xffffffffu, s[q], d);
+      }
+      if (lane == 0) {
 #pragma unroll
-      for (int q = 0; q < kQ; ++q) o[(size_t)q * T] = s[q];
+        for (int q = 0; q < kQ; ++q) res[q][tt] += s[q];
+      }
     }
+    __syncthreads();   // the lists are rewritten by the next chunk
+  }
+
+  __syncthreads();
+  float* o = out + (size_t)n * kQ * T + t_begin;
+  for (int k = threadIdx.x; k < kQ * kTimeBlock; k += kThreads) {
+    const int q = k / kTimeBlock, tt = k % kTimeBlock;
+    if (tt < nt) o[(size_t)q * T + tt] = res[q][tt];
   }
 }
 
@@ -135,28 +198,18 @@ band_extract_kernel(const float* __restrict__ img, const float* __restrict__ err
 
 extern "C" {
 
-// Launch on `stream`; returns cudaGetLastError() (0 = launched).
+// Launch on `stream`; returns cudaGetLastError() (0 = launched), or
+// cudaErrorInvalidValue for stamps taller than 32,767 or wider than 65,535
+// pixels (the packed entries).
 int band_extract_sums(const float* img, const float* err, const float* bkg,
                       const uint8_t* flags, const uint8_t* mw, const int32_t* r0s,
                       const int32_t* c0s, const int32_t* bbox, float* out, int N, int T,
                       int H, int W, int h, int w, void* stream) {
   if (N == 0 || T == 0) return (int)cudaSuccess;
+  if (h > 0x7fff || w > 0xffff) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)N, (unsigned)((T + kTimeBlock - 1) / kTimeBlock));
-  const size_t smem = (size_t)h * w;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (smem <= kMaxStagedBytes) {
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(band_extract_kernel<true>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    band_extract_kernel<true><<<grid, kThreads, smem, s>>>(
-        img, err, bkg, flags, mw, r0s, c0s, bbox, out, T, H, W, h, w);
-  } else {
-    band_extract_kernel<false><<<grid, kThreads, 0, s>>>(
-        img, err, bkg, flags, mw, r0s, c0s, bbox, out, T, H, W, h, w);
-  }
+  band_extract_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      img, err, bkg, flags, mw, r0s, c0s, bbox, out, T, H, W, h, w);
   return (int)cudaGetLastError();
 }
 

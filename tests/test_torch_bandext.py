@@ -7,6 +7,7 @@ as tests/test_bandext.py:41), booleans equal.
 
 import numpy as np
 import pytest
+import torch
 import jax.numpy as jnp
 
 from torch_parity import assert_extraction_parity, n, t
@@ -88,6 +89,85 @@ def test_window_bbox():
     mw[1, 5, 0] = 1
     box = n(bandext._window_bbox(t(mw)))
     np.testing.assert_array_equal(box, [[1, 4, 2, 6], [5, 6, 0, 1], [0, 0, 0, 0]])
+
+
+def _kernel_lists(code, chunk):
+    """A numpy model of the band kernel's compaction for one target: its
+    bounding box (of the nonzero codes) row-major in chunks of ``chunk``
+    pixels, each chunk as (mask pixels, window-only pixels) in box order."""
+    nz = np.argwhere(code != 0)
+    if not len(nz):
+        return []
+    (i0, j0), (i1, j1) = nz.min(axis=0), nz.max(axis=0) + 1
+    box = [(i, j) for i in range(i0, i1) for j in range(j0, j1)]
+    return [([p for p in box[a:a + chunk] if code[p] & 1],
+             [p for p in box[a:a + chunk] if code[p] == 2]) for a in range(0, len(box), chunk)]
+
+
+@pytest.mark.parametrize("hw, chunk", [(17, 2048), (60, 2048), (17, 64)])
+def test_kernel_compaction_model_sums_to_plain(hw, chunk):
+    """The kernel's pixel lists (mask pixels, then window-only pixels, per
+    chunk of the box), summed as the kernel sums them, give the plain sums:
+    every mask pixel once, every window-only pixel's flag once, counts
+    exact; a 60x60 box takes two chunks of 2,048 and a 17x17 one five of 64."""
+    rng = np.random.default_rng(8)
+    T, H, W, N = 3, 80, 96, 6
+    imgs = rng.normal(100, 5, (T, H, W)).astype(np.float32)
+    imgs[1, 10:30, 10:30] = np.nan
+    imgs[2, 40:60, 40:60] = 0.0
+    errs = (np.sqrt(np.abs(imgs)) + 1.0).astype(np.float32)
+    bkgs = rng.normal(20, 1, (T, H, W)).astype(np.float32)
+    flags = (rng.uniform(size=(T, H, W)) < 0.1).astype(np.uint8) * 4
+    masks = rng.uniform(size=(N, hw, hw)) < 0.4
+    masks[0] = False
+    masks[1] = True
+    windows = np.ones_like(masks)
+    windows[2:, :, hw - 5:] = False
+    masks &= windows
+    r0s = rng.integers(0, H - hw + 1, N).astype(np.int32)
+    c0s = rng.integers(0, W - hw + 1, N).astype(np.int32)
+    code = masks.astype(np.uint8) | (windows.astype(np.uint8) << 1)
+    got = np.zeros((N, 10, T))
+    for k in range(N):
+        lists = _kernel_lists(code[k], chunk)
+        listed = [p for mask, win in lists for p in mask + win]
+        assert sorted(listed) == sorted(map(tuple, np.argwhere(code[k] != 0)))
+        for mask, win in lists:
+            for (i, j) in mask + win:
+                pix = (slice(None), r0s[k] + i, c0s[k] + j)
+                f = (flags[pix] & 4) != 0
+                if code[k, i, j] & 2:
+                    got[k, 9] += f
+                if not code[k, i, j] & 1:
+                    continue
+                x, e, b = imgs[pix], errs[pix], bkgs[pix]
+                fin = np.isfinite(x)
+                got[k, 0] += np.where(fin, x, 0)
+                got[k, 1] += fin
+                got[k, 2] += x == 0
+                wgt = np.where(fin & (x > 0), x, 0)
+                got[k, 3] += wgt
+                got[k, 4] += wgt * j
+                got[k, 5] += wgt * i
+                got[k, 6] += np.where(np.isfinite(e), e * e, 0)
+                got[k, 7] += np.where(np.isfinite(b), b, 0)
+                got[k, 8] += np.isfinite(b)
+    want = n(bandext.band_sums_plain(*[t(a) for a in (imgs, errs, bkgs, flags, masks, r0s,
+                                                       c0s)], windows=t(windows)))
+    np.testing.assert_array_equal(got[:, [1, 2, 8, 9]], want[:, [1, 2, 8, 9]])
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
+
+
+def test_frame_order_puts_rows_back():
+    rng = np.random.default_rng(9)
+    r0s = t(rng.integers(0, 50, 40).astype(np.int32))
+    c0s = t(rng.integers(0, 70, 40).astype(np.int32))
+    order = bandext._frame_order(r0s, c0s, 80)
+    key = n(r0s).astype(np.int64) * 80 + n(c0s)
+    assert np.all(np.diff(key[n(order)]) >= 0)
+    sums = t(rng.normal(size=(40, 10, 3)).astype(np.float32))
+    back = torch.empty_like(sums).index_copy_(0, order, sums[order])
+    assert torch.equal(back, sums)
 
 
 def test_cuda_path_refuses_cpu_tensors():

@@ -304,6 +304,94 @@ def test_median15_kernel_matches_plain_on_card():
 
 
 @pytest.mark.cuda
+def test_median15_kernel_adversarial_on_card():
+    """The shared-probe median against its plain version, bit for bit, where
+    it is hardest: a few distinct values (most windows all ties), negative
+    frames, +-3.4e38 side by side and in blocks large enough to hold a
+    window's median, denormals with zeros of both signs, frames of only
+    -0.0 and +0.0 (the float probes never split that pair), and frames whose
+    sides are not multiples of the 32 x 32 block tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from photometry_tpu_torch.ops import median15
+    rng = np.random.default_rng(5)
+    big = 3.4028235e38
+    huge = rng.normal(0.0, 1.0, (1, 131, 257)).astype(np.float32)
+    huge[0, 20, 20], huge[0, 20, 21] = big, -big
+    huge[0, 40:52, 40:52] = big
+    huge[0, 40:52, 52:64] = -big
+    cases = [rng.choice([1.0, 2.0, 3.0, 5.0], (2, 300, 200), p=[0.6, 0.2, 0.1, 0.1]),
+             rng.choice([-1.0, 1.0], (1, 33, 65)),
+             rng.normal(-50.0, 20.0, (2, 131, 257)), huge,
+             np.where(rng.uniform(size=(1, 70, 90)) < 0.2, rng.choice([0.0, -0.0], (1, 70, 90)),
+                      rng.normal(0.0, 1e-39, (1, 70, 90))),
+             rng.choice([0.0, -0.0], (1, 80, 70)),
+             rng.normal(0.0, 15.0, (1, 2078, 2136))]
+    for x in cases:
+        xt = torch.as_tensor(np.asarray(x, np.float32), device="cuda")
+        got = median15.median15_cuda(xt)
+        torch.cuda.synchronize()
+        want = median15.median_filter_plain(xt)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), tuple(x.shape)
+
+
+@pytest.mark.cuda
+def test_band_kernel_stamp_cases_on_card():
+    """The band kernel's compacted lists on the stamps that stress them: a
+    1-pixel mask, a full one, masks on each edge and on the border ring, an
+    empty mask, windows cut short, 33x33 and 60x60 stamps (two chunks of the
+    box) flush with the frame, and T = 37 (not a multiple of the 32-cadence
+    block); counts exact, sums at rtol 1e-4 + atol 1e-3, the same bits on
+    two runs, and a corner outside the frame refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from photometry_tpu_torch.ops import bandext
+    rng = np.random.default_rng(6)
+    T, H, W = 37, 128, 192
+    imgs = rng.normal(100, 5, (T, H, W)).astype(np.float32)
+    imgs[2, 40:50, 40:50] = np.nan
+    imgs[5] = 0.0
+    errs = (np.sqrt(np.abs(imgs)) + 1.0).astype(np.float32)
+    errs[7, 10, 10] = np.inf
+    bkgs = rng.normal(20, 1, (T, H, W)).astype(np.float32)
+    flags = (rng.uniform(size=(T, H, W)) < 0.05).astype(np.uint8) * 4
+    cube = [torch.as_tensor(a, device="cuda") for a in (imgs, errs, bkgs, flags)]
+    for hw in (33, 60):
+        masks = np.zeros((10, hw, hw), bool)
+        masks[0, hw // 2, hw // 2] = True
+        masks[1] = True
+        masks[2, 0, :] = True
+        masks[3, -1, :] = True
+        masks[4, :, 0] = True
+        masks[5, :, -1] = True
+        masks[6, [0, -1], :] = True
+        masks[6, :, [0, -1]] = True
+        masks[8] = rng.uniform(size=(hw, hw)) < 0.4
+        masks[9] = rng.uniform(size=(hw, hw)) < 0.05
+        windows = np.ones_like(masks)
+        windows[7:, :, hw - 8:] = False
+        masks &= windows
+        r0s = rng.integers(0, H - hw + 1, 10).astype(np.int32)
+        c0s = rng.integers(0, W - hw + 1, 10).astype(np.int32)
+        r0s[:2], c0s[:2] = [0, H - hw], [W - hw, 0]
+        args = [torch.as_tensor(a, device="cuda") for a in (masks, r0s, c0s)]
+        for win in (None, torch.as_tensor(windows, device="cuda")):
+            got = bandext.band_sums_cuda(*cube, *args, windows=win)
+            again = bandext.band_sums_cuda(*cube, *args, windows=win)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+            want = bandext.band_sums_plain(*cube, *args, windows=win)
+            counts = [1, 2, 8, 9]
+            assert torch.equal(got[:, counts], want[:, counts])
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                                       atol=1e-3)
+    bad = args[2].clone()
+    bad[3] = W - 60 + 1
+    with pytest.raises(ValueError, match="outside"):
+        bandext.band_sums_cuda(*cube, args[0], args[1], bad)
+
+
+@pytest.mark.cuda
 def test_segment_hist_kernel_matches_plain_on_card():
     """The segment-histogram kernel against its bincount, bit for bit:
     invalid and out-of-range samples, empty segments, one bucket, a 64-ring

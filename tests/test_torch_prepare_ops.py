@@ -245,6 +245,123 @@ def test_median_filter2d_matches_jax(mode):
                                       want)
 
 
+# A numpy model of the median kernel's selection (ops/csrc/median15.cu): 8
+# vertically adjacent windows share the probes of each pass and count them
+# per strip row; the passes end when the strip holds <= 16 keys in the
+# union of the brackets (one sorted list, walked per output) or when every
+# bracket holds <= 12 window keys or one key.  The probes are placed as the
+# kernel places them, with float32 fractions and a high-word product, and
+# never at -0.0 (the kernel compares values as floats, which tie -0.0 with
+# +0.0); a bracket of just -0.0 and +0.0 is finished by counting -0.0 keys.
+_MG, _MS, _G, _NP = 16, 12, 8, 8
+
+
+def _ordkeys(x):
+    i = np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+    return np.where(i < 0, i ^ 0x7fffffff, i)
+
+
+def _probe(lo, hi, q, n):
+    d = (hi - lo) & 0xffffffff
+    frac = int(np.float32(q + 1) * (np.float32(4294967296.0) / np.float32(n + 1)))
+    m = lo + min(max((d * frac) >> 32, 1), d - 1)
+    return (0 if hi > 0 else -2) if m == -1 else m      # never -0.0 (the kernel's float compares)
+
+
+def _strip_select(strip):
+    """The 113th smallest key of the 8 windows (rows g..g+14) of a (22, 15)
+    strip, and the number of passes."""
+    lo = [int(strip.min()) - 1] * _G
+    hi = [int(strip.max())] * _G
+    cl, ch = [0] * _G, [225] * _G
+    sl, sh = [0] * _G, [strip.size] * _G
+    passes = 0
+    while True:
+        a, b = int(np.argmin(lo)), int(np.argmax(hi))
+        LO, HI = lo[a], hi[b]
+        if sh[b] - sl[a] <= _MG:
+            rows, cols = np.nonzero((strip > LO) & (strip <= HI))
+            order = np.argsort(strip[rows, cols], kind="stable")
+            keys, rows = strip[rows, cols][order], rows[order]
+            out = []
+            for g in range(_G):
+                sel = keys[(keys > lo[g]) & (rows >= g) & (rows < g + 15)]
+                out.append(int(sel[113 - cl[g] - 1]))
+            return out, passes
+        open_ = [hi[g] - lo[g] > 1 and ch[g] - cl[g] > _MS and (lo[g], hi[g]) != (-2, 0)
+                 for g in range(_G)]
+        if not any(open_):
+            out = []
+            for g in range(_G):
+                win = strip[g:g + 15].ravel()
+                sel = np.sort(win[(win > lo[g]) & (win <= hi[g])])
+                if (lo[g], hi[g]) == (-2, 0):          # -0.0 and +0.0: count the -0.0 keys
+                    out.append(-1 if 113 - cl[g] <= (win == -1).sum() else 0)
+                    continue
+                assert hi[g] - lo[g] <= 1 or len(sel) <= _MS
+                out.append(hi[g] if hi[g] - lo[g] <= 1 else int(sel[113 - cl[g] - 1]))
+            return out, passes
+        brackets = list(dict.fromkeys((lo[g], hi[g]) for g in range(_G) if open_[g]))
+        nb = len(brackets)
+        probes = [_probe(*brackets[j % nb], j // nb, (_NP - 1 - j % nb) // nb + 1)
+                  for j in range(_NP)]
+        passes += 1
+        assert passes <= 32
+        le = (strip[:, :, None] <= np.array(probes)).sum(axis=1)          # (22, 8)
+        cum = np.vstack([np.zeros(_NP, np.int64), np.cumsum(le, axis=0)])
+        for g in range(_G):
+            for m, c, s_ in zip(probes, cum[g + 15] - cum[g], cum[-1]):
+                if c >= 113:
+                    if m < hi[g]:
+                        hi[g], ch[g], sh[g] = m, int(c), int(s_)
+                elif m > lo[g]:
+                    lo[g], cl[g], sl[g] = m, int(c), int(s_)
+
+
+def _median_model(x):
+    """The model over (F, H, W) frames: float32 medians and the passes per strip."""
+    F, H, W = x.shape
+    keys = np.empty((F, H, W), np.int64)
+    passes = []
+    ri_all = n(median15.reflect_indices(torch.arange(-7, H + _G + 7), H))
+    ci_all = n(median15.reflect_indices(torch.arange(-7, W + 7), W))
+    for f in range(F):
+        k = _ordkeys(x[f])
+        for y0 in range(0, H, _G):
+            for xx in range(W):
+                got, p = _strip_select(k[np.ix_(ri_all[y0:y0 + 22], ci_all[xx:xx + 15])])
+                passes.append(p)
+                rows = min(_G, H - y0)
+                keys[f, y0:y0 + rows, xx] = got[:rows]
+    back = np.where(keys < 0, keys ^ 0x7fffffff, keys) & 0xffffffff
+    return back.astype(np.uint32).view(np.float32), np.array(passes)
+
+
+@pytest.mark.parametrize("case", ["noise", "residual", "few_values", "signed_zeros",
+                                  "zeros_only", "gradient", "outliers", "tiny"])
+def test_median_kernel_selection_model_matches_plain(case):
+    """The kernel's shared-probe selection, modelled in numpy, equals the
+    plain median bit for bit on random windows, tie-heavy ones (a few
+    distinct values, signed zeros, only -0.0 and +0.0), windows whose
+    medians differ (a steep gradient), 3.4e38 outliers and a frame
+    narrower than the halo."""
+    rng = np.random.default_rng(11)
+    x = {"noise": lambda: rng.normal(100, 30, (1, 24, 20)),
+         "residual": lambda: rng.normal(0, 15, (1, 24, 20)),
+         "few_values": lambda: rng.choice([1.0, 2.0, 3.0], (1, 24, 20)),
+         "signed_zeros": lambda: rng.choice([0.0, -0.0, 1.0, -1.0], (1, 17, 19)),
+         "zeros_only": lambda: rng.choice([0.0, -0.0], (1, 24, 20)),
+         "gradient": lambda: np.arange(24)[None, :, None] * 10.0 + rng.normal(0, 1, (1, 24, 20)),
+         "outliers": lambda: np.where(rng.uniform(size=(1, 24, 20)) < 0.05, 3.4028235e38,
+                                      rng.normal(100, 30, (1, 24, 20))),
+         "tiny": lambda: rng.normal(5, 2, (2, 6, 5))}[case]().astype(np.float32)
+    got, passes = _median_model(x)
+    want = n(median15.median_filter_plain(t(x)))
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    if case in ("noise", "residual"):
+        assert passes.mean() < 4.0, passes.mean()
+
+
 def test_median_dispatch_cpu_uses_plain():
     """On the CPU the wrappers run the plain versions; the kernels' launch
     counts stay put."""
