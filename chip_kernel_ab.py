@@ -12,6 +12,8 @@ finds there::
     for k in segment_hist psf_warm_fit; do      # redesigned after aaf6824
       git show aaf6824:photometry_tpu_torch/ops/csrc/$k.cu > local/first/$k.cu
     done
+    git show 1ae214a:photometry_tpu_torch/ops/csrc/stamp_flux.cu \
+        > local/first/stamp_flux.cu                 # redesigned after 1ae214a
 
 It builds them beside the current sources in ``photometry_tpu_torch/ops/csrc/``
 (one nvcc each, in parallel, the port's flags), holds both designs to the
@@ -27,6 +29,13 @@ this one process, at ``chip_smoke.py``'s main shapes:
   30% masks, on the (512, 2048, 2048) cube), and the main path's own launch
   (the 10,240 targets of phase 3's ``extract_aperture_batch``, its masks,
   windows and corners recorded from that call);
+- stamp_flux (the first design: a block per target and 64 cadences, a warp
+  per cadence over the target's pixel offsets): chip_smoke's phase 2d main
+  shape (the 10,240 targets of phase 3, one 17x17 window each with its K2P2
+  mask, on the (512, 2048, 2048) cube), in turns: the first design on the
+  caller's order, the first design on frame order, the current design (on
+  frame order, as its wrapper launches it) twice; then both behind
+  ``stamp_flux_cuda``, which sorts the targets and puts the rows back;
 - segment_hist: 64 frames x 2^20 samples x 39 rings x 512 buckets, on
   synthetic and on real buckets (``chip_smoke.hist_cases``), beside one
   ``torch.bincount`` of the same cells;
@@ -85,8 +94,10 @@ _FIRST_PSF = {"psf_warm_fit": (_I, [_P] * 11 + [_L] + [_I] * 5 + [_I] * 4 + [_F]
 _FIRST_HIST = {"segment_hist": (_I, [_P] * 5 + [_I, _L, _I, _I, _I, _P])}
 _FIRST_MEDIAN = {"median15": (_I, [_P] * 2 + [_I] * 3 + [_P])}
 _FIRST_BAND = {"band_extract_sums": (_I, [_P] * 9 + [_I] * 6 + [_P])}
+_FIRST_STAMP = {"stamp_flux": (_I, [_P] * 5 + [_I] * 6 + [_P]), "stamp_flux_max_pixels": (_I, [])}
 SIGNATURES = {"segment_hist": _FIRST_HIST, "psf_warm_fit": _FIRST_PSF,
-              "median15": _FIRST_MEDIAN, "band_extract": _FIRST_BAND}
+              "median15": _FIRST_MEDIAN, "band_extract": _FIRST_BAND,
+              "stamp_flux": _FIRST_STAMP}
 
 
 def library(name, signatures, path):
@@ -123,7 +134,7 @@ def main() -> int:
     import chip_smoke as cs
     sys.meta_path.insert(0, cs._Blocked())
     from photometry_tpu_torch.ops._kernels import (BAND_EXTRACT, MEDIAN15, PSF_WARM_FIT,
-                                                   SEGMENT_HIST, build_all)
+                                                   SEGMENT_HIST, STAMP_FLUX, build_all)
 
     dev = torch.device("cuda")
     card = cs.card_line()
@@ -136,9 +147,9 @@ def main() -> int:
         job.result()
     loaded = "(loaded, built by an earlier process)"
     current = {"segment_hist": SEGMENT_HIST, "psf_warm_fit": PSF_WARM_FIT, "median15": MEDIAN15,
-               "band_extract": BAND_EXTRACT}
+               "band_extract": BAND_EXTRACT, "stamp_flux": STAMP_FLUX}
     names = {"segment_hist": ("segment_hist_kernel",), "median15": ("median15_kernel",),
-             "band_extract": ("band_extract_kernel",)}
+             "band_extract": ("band_extract_kernel",), "stamp_flux": ("stamp_flux_kernel",)}
     regs = []
     for k, lib in first.items():
         if k == "psf_warm_fit":
@@ -152,10 +163,10 @@ def main() -> int:
     stream = torch.cuda.current_stream(dev).cuda_stream
     times = {}
 
-    def turns(case, fns, n):
-        """Time fns = {"first": f, "current": g, ...} in the order first,
-        current, (others), current, first; store the medians."""
-        order = ["first", "current"] + [k for k in fns if k not in ("first", "current")]
+    def turns(case, fns, n, order=None):
+        """Time fns = {"first": f, "current": g, ...} in ``order`` (first,
+        current, the others), then in reverse; store the medians."""
+        order = order or ["first", "current"] + [k for k in fns if k not in ("first", "current")]
         got = {}
         for k in order + order[::-1]:
             got.setdefault(k, []).append(loop_ms(cs, fns[k], args.reps, n))
@@ -199,8 +210,8 @@ def main() -> int:
         del x8, x64, outs, base, sigma
 
     # --- the photometry cube (band_extract, the PSF slice) --------------------------
-    ctx = captured = None
-    if "band_extract" in first or "psf_warm_fit" in first:
+    ctx = captured = results = None
+    if first.keys() & {"band_extract", "psf_warm_fit", "stamp_flux"}:
         from photometry_tpu_torch.core.engine import extract_aperture_batch
         from photometry_tpu_torch.ops import bandext
         cube = cs.make_cubes(img0, gen, dev)
@@ -214,7 +225,7 @@ def main() -> int:
             return band_sums(*a, **kw)
 
         with mock.patch.object(bandext, "band_sums", recording):
-            extract_aperture_batch(ctx, list(range(1, cs.N_TARGETS + 1)))
+            results = extract_aperture_batch(ctx, list(range(1, cs.N_TARGETS + 1)))
         b1 = first["band_extract"].lib()
         hw = 17
         rng_b = np.random.default_rng([args.seed, 3])
@@ -249,6 +260,12 @@ def main() -> int:
             turns(f"band_extract {what}, T={T_}, through band_sums_cuda",
                   fns, 10)
         del phase2, out1, out2, want, captured, v1, v2
+
+    # --- stamp_flux ----------------------------------------------------------------
+    if "stamp_flux" in first:
+        stamp_ab(cs, dev, cube[0], results or extract_aperture_batch(
+            ctx, list(range(1, cs.N_TARGETS + 1))), rows, cols, first["stamp_flux"].lib(),
+                 STAMP_FLUX, turns)
 
     # --- segment_hist --------------------------------------------------------------
     if "segment_hist" in first:
@@ -298,6 +315,48 @@ def main() -> int:
     print(card)
     print(json.dumps({"card": card, "times_ms": times}))
     return 0
+
+
+def stamp_ab(cs, dev, images, results, rows, cols, s1, STAMP_FLUX, turns):
+    """stamp_flux's two designs at phase 2d's main shape, alone and behind
+    stamp_flux_cuda, each held to the plain version and run twice bit-equal."""
+    import torch
+    from photometry_tpu_torch.ops import bandext
+    from photometry_tpu_torch.ops import stamp_flux as sf
+    T_, H_, W_ = images.shape
+    masks, r0s, c0s = cs.stamp_windows(results, rows, cols, H_, W_)
+    m_t, r_t, c_t = (torch.as_tensor(a, device=dev) for a in (masks, r0s, c0s))
+    order = bandext._frame_order(r_t, c_t, W_)
+    want = sf.stamp_flux_plain(images, m_t, r_t, c_t)
+    sorted_args = (m_t[order], r_t[order], c_t[order])
+    launchers = {"first": cs.stamp_launcher(images, m_t, r_t, c_t, lib=s1),
+                 "first, frame order": cs.stamp_launcher(images, *sorted_args, lib=s1),
+                 "current": cs.stamp_launcher(images, *sorted_args)}
+    errs = {}
+    for k, (launch, out) in launchers.items():
+        launch()
+        torch.cuda.synchronize()
+        got = out.clone() if k == "first" else torch.empty_like(out).index_copy_(0, order, out)
+        launch()
+        torch.cuda.synchronize()
+        cs.check(cs.bit_equal(got if k == "first" else got[order], out),
+                 f"stamp_flux {k} design: two runs differ")
+        errs[k] = cs.stamp_err(got, want, f"stamp_flux {k} design")
+    bound = cs.stamp_bytes(masks, T_) / cs.PEAK_BYTES * 1e3
+    sector = cs.stamp_sector_bytes(masks, r0s, c0s, T_, W_, H_) / cs.PEAK_BYTES * 1e3
+    what = (f"stamp_flux phase 2d main shape ({len(masks)} targets, 17x17 windows, T={T_}; "
+            f"bounds {bound:.4f} ms by bytes, {sector:.4f} ms by 32-byte sectors)")
+    turns(f"{what}, kernel alone (vs plain: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + ")",
+          {k: launch for k, (launch, _) in launchers.items()}, 10,
+          order=["first", "first, frame order", "current"])
+    wrapped = {}
+    for k, lib in (("first", s1), ("current", STAMP_FLUX.lib())):
+        def call(lib=lib):
+            with mock.patch.object(STAMP_FLUX, "_lib", lib):
+                sf.stamp_flux_cuda(images, m_t, r_t, c_t)
+        wrapped[k] = call
+    turns(f"{what}, through stamp_flux_cuda (frame order)", wrapped, 10)
 
 
 def psf_ab(cs, args, dev, work, p1, PSF_WARM_FIT, ctx, stream, card, times, turns):

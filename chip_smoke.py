@@ -45,13 +45,17 @@ targets), 4, 6 (on phase 3's cube), 5:
 2d. the stamp-flux kernel vs its plain torch version on the card:
    adversarial inputs (NaN and ±inf pixels, an all-NaN cadence, an empty
    mask, stamps flush with and running past the bottom and right edges;
-   N = 1, 7, 9; masks of 1, 17, 33 and 64 px; T = 8 and 512; the domain's
-   ValueErrors and a mask too large for shared memory), then the main
-   shape: ``stamp_extract_flux`` on phase 3's (512, 2048, 2048) cube for its
-   10,240 targets, one 17x17 window each with the target's K2P2 mask cut to
-   it (the kernel's launch count must rise), held against the plain version
-   and against the band kernel's flux and finite-count sums, with median
-   times of kernel and plain version.
+   N = 1, 7, 9, 40; masks of 1, 17, 33 and 64 px; T = 8, 37 and 512;
+   planes that do not start on 16 bytes; crowded targets in reverse frame
+   order, two runs bit-equal; the domain's ValueErrors and a mask too large
+   for shared memory), then the main shape: ``stamp_extract_flux`` on
+   phase 3's (512, 2048, 2048) cube for its 10,240 targets, one 17x17
+   window each with the target's K2P2 mask cut to it (the kernel's launch
+   count must rise), held against the plain version and against the band
+   kernel's flux and finite-count sums, two runs bit-equal, with median
+   times of the kernel alone, ``stamp_flux_cuda`` and the plain version
+   beside the bytes bound and the 32-byte-sector and 64-byte-segment
+   bounds (``stamp_sector_bytes``).
 3. the aperture slice at full CCD size: a seeded 12,000-star field (Tmag
    7.5-13), cubes on the card (T=512, ~28 GB), ``SectorContext.from_arrays``,
    ``extract_aperture_batch`` on the 10,240 brightest targets (the band
@@ -255,6 +259,36 @@ def band_sector_bytes(masks, r0s, c0s, T, width, windows=None):
         per_cadence += 3 * 32 * np.unique(addr[masks[n]] // 8).size
         per_cadence += 32 * np.unique(addr[wins[n]] // 32).size
     return T * per_cadence + N * h * w + N * T * 21
+
+
+def stamp_bytes(masks, T):
+    """Bytes stamp_flux must move: each in-mask pixel (f32) once per cadence,
+    the masks (u8), the corners (2 int32) and the (N, T) float32 output once."""
+    N = masks.shape[0]
+    return int(masks.sum()) * T * 4 + masks.size + 8 * N + 4 * N * T
+
+
+def stamp_sector_bytes(masks, r0s, c0s, T, width, height=None, sector=32):
+    """Bytes stamp_flux must move, each pixel read counted as the whole
+    ``sector``-byte piece of the frame it lies in (32: the card's sectors;
+    64: the segments it fetches from device memory): per cadence, the union
+    over targets of the pieces under the in-mask pixels inside the frame (a
+    piece two windows share is read once), then the masks (u8), the
+    corners (2 int32) and the (N, T) float32 output once.  A frame's bytes
+    are a multiple of ``sector`` at the shapes this is used for, so a
+    pixel's piece is the same in every cadence."""
+    masks = np.asarray(masks, bool)
+    N, h, w = masks.shape
+    ii, jj = np.mgrid[0:h, 0:w]
+    sectors = []
+    for n in range(N):
+        rows, cols = int(r0s[n]) + ii, int(c0s[n]) + jj
+        keep = masks[n] & (cols < width)
+        if height is not None:
+            keep &= rows < height
+        sectors.append((rows * width + cols)[keep] // (sector // 4))
+    n_sec = np.unique(np.concatenate(sectors)).size if N else 0
+    return T * sector * n_sec + N * h * w + 8 * N + 4 * N * T
 
 
 COUNTS = (1, 2, 8, 9)          # band sums that are counts: exact
@@ -841,6 +875,19 @@ def stamp_case(rng, T, H, W, N, h):
     return imgs, masks, r0s, c0s
 
 
+def stamp_crowded_case(rng, T, H, W, N, h):
+    """N h x h stamps on a (T, H, W) cube with NaN pixels, their corners a
+    few pixels apart so that neighbours' masks share 32-byte sectors, handed
+    over in reverse frame order (the kernel's wrapper sorts them)."""
+    imgs = rng.normal(100, 5, (T, H, W)).astype(np.float32)
+    imgs[rng.uniform(size=imgs.shape) < 0.01] = np.nan
+    r0s = rng.integers(0, min(H - h, 12) + 1, N).astype(np.int32)
+    c0s = rng.integers(0, min(W - h, 24) + 1, N).astype(np.int32)
+    order = np.argsort(r0s.astype(np.int64) * W + c0s)[::-1]
+    masks = rng.uniform(size=(N, h, h)) < 0.3
+    return imgs, masks[order], r0s[order], c0s[order]
+
+
 def stamp_err(got, want, what):
     """Max |got - want| of (N, T) stamp fluxes; fails on another NaN pattern
     or outside RTOL/ATOL."""
@@ -872,6 +919,25 @@ def stamp_adversarial(dev, rng):
         if N > 3:
             g = got.cpu().numpy()
             check(np.isnan(g[2]).all() and np.isnan(g[3, 5]), "empty mask / all-NaN cadence")
+    # Planes that do not start on 16 bytes (the kernel reads single pixels
+    # then), T not a multiple of the kernel's cadence block, and crowded
+    # targets in reverse frame order, through stamp_flux_cuda:
+    imgs, masks, r0s, c0s = (torch.as_tensor(a, device=dev)
+                             for a in stamp_case(rng, 37, 64, 256, 9, 17))
+    flat = torch.empty(imgs.numel() + 1, device=dev)
+    shifted = flat[1:].view(imgs.shape)
+    shifted.copy_(imgs)
+    odd = [torch.as_tensor(a, device=dev) for a in stamp_case(rng, 8, 41, 259, 7, 17)]
+    crowd = [torch.as_tensor(a, device=dev) for a in stamp_crowded_case(rng, 37, 48, 96, 40, 17)]
+    for what, args in (("T = 37", (imgs, masks, r0s, c0s)), ("planes one float off 16 bytes",
+                                                            (shifted, masks, r0s, c0s)),
+                       ("41 x 259 planes", odd), ("crowded, reverse frame order", crowd)):
+        got = sf.stamp_flux_cuda(*args)
+        again = sf.stamp_flux_cuda(*args)
+        torch.cuda.synchronize()
+        check(bit_equal(got, again), f"stamp_flux {what}: two runs differ")
+        worst = max(worst, stamp_err(got, sf.stamp_flux_plain(*args), f"stamp_flux {what}"))
+    del flat, shifted
     imgs, masks, r0s, c0s = (torch.as_tensor(a, device=dev)
                              for a in stamp_case(rng, 16, 64, 256, 4, 17))
     refused = 0
@@ -896,10 +962,31 @@ def stamp_adversarial(dev, rng):
             continue
         fail(f"stamp_flux: {what} did not raise {err.__name__}")
     print(f"phase 2d stamp_flux adversarial (NaN and ±inf pixels, an all-NaN cadence, an empty "
-          f"mask, stamps flush with and past the edges; N = 1, 7, 9; masks 1, 17, 33, 64 px; "
-          f"T = 8, 512): kernel == plain (max |diff| {worst:.3g}); {refused} domain errors "
-          f"raised", flush=True)
+          f"mask, stamps flush with and past the edges; N = 1, 7, 9, 40; masks 1, 17, 33, 64 "
+          f"px; T = 8, 37, 512; planes off 16 bytes, 41 x 259 planes; crowded targets in "
+          f"reverse frame order, two runs bit-equal): kernel == plain (max |diff| "
+          f"{worst:.3g}); {refused} domain errors raised", flush=True)
     return worst
+
+
+def stamp_launcher(images, masks, r0s, c0s, lib=None):
+    """A zero-argument launch of the stamp kernel (or of ``lib``, a library
+    with its entry point) straight to the library, its arguments prepared
+    once (no wrapper, no launch count), and the (N, T) output it writes:
+    for timing the kernel alone, on the targets in the order given."""
+    import torch
+    from photometry_tpu_torch.ops._kernels import STAMP_FLUX
+    T_, H_, W_ = images.shape
+    N, h, w = masks.shape
+    args = (masks.to(torch.uint8).contiguous(), r0s.contiguous(), c0s.contiguous(),
+            torch.empty(N, T_, device=images.device))      # alive as long as the launcher
+    lib = lib or STAMP_FLUX.lib()
+    stream = torch.cuda.current_stream(images.device).cuda_stream
+
+    def launch():
+        check(lib.stamp_flux(images.data_ptr(), *(x.data_ptr() for x in args), N, T_, H_, W_, h,
+                             w, stream) == 0, "stamp_flux launch")
+    return launch, args[-1]
 
 
 def stamp_windows(results, rows, cols, H, W, h=17):
@@ -946,22 +1033,38 @@ def stamp_main(dev, cube, results, rows, cols, card, result, adv_err, h=17):
     Q = bandext.band_sums(*cube, m_t, r_t, c_t)
     band = torch.where(Q[:, 1] < 0.5, torch.nan, Q[:, 0])
     band_err = stamp_err(got, band, "stamp_flux vs band_extract flux")
+    check(bit_equal(got, sf.stamp_extract_flux(images, m_t, r_t, c_t, h, h)),
+          "stamp_flux main shape: two runs differ")
     n_nan = int(torch.isnan(got).sum())
     ms = cuda_ms(lambda: sf.stamp_flux_cuda(images, m_t, r_t, c_t))
+    order = bandext._frame_order(r_t, c_t, W_)
+    launch, _ = stamp_launcher(images, m_t[order], r_t[order], c_t[order])
+    alone = cuda_ms(launch)
     plain_ms = cuda_ms(lambda: sf.stamp_flux_plain(images, m_t, r_t, c_t), reps=3)
     N = len(results)
     npix = int(masks.sum())
-    nbytes = npix * T_ * 4 + N * T_ * 4 + masks.size + 8 * N
+    nbytes = stamp_bytes(masks, T_)
     bound = nbytes / PEAK_BYTES * 1e3
+    sbytes = stamp_sector_bytes(masks, r0s, c0s, T_, W_, H_)
+    sector = sbytes / PEAK_BYTES * 1e3
+    gbytes = stamp_sector_bytes(masks, r0s, c0s, T_, W_, H_, sector=64)
+    segment = gbytes / PEAK_BYTES * 1e3
     print(f"phase 2d stamp_flux main shape ({T_}, {H_}, {W_}), {N} targets, one {h}x{h} window "
           f"each with its K2P2 mask cut to it ({npix} mask pixels, {npix / N:.1f} per target): "
           f"kernel == plain (max |diff| {err:.3g}) and == band_extract flux where n_fin > 0 "
-          f"(max |diff| {band_err:.3g}); {n_nan} NaN outputs; kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {bound:.4f} ms by bytes ({nbytes / 1e6:.1f} MB); launches "
-          f"{launches}; no single torch call computes this masked NaN-aware window "
-          f"sum ({card})", flush=True)
-    result["stamp_flux"].update(max_abs_err=max(adv_err, err), ms=ms, plain_ms=plain_ms,
-                                bound_ms=bound, bound_by="bytes", library_ms=None)
+          f"(max |diff| {band_err:.3g}), two runs bit-equal; {n_nan} NaN outputs; kernel alone "
+          f"{alone:.3f} ms (frame order), stamp_flux_cuda {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+          f"bound {bound:.4f} ms by bytes ({nbytes / 1e6:.1f} MB, kernel at "
+          f"{100 * bound / alone:.0f}%), {sector:.4f} ms by 32-byte sectors ({sbytes / 1e6:.1f} "
+          f"MB, the union over targets; kernel at {100 * sector / alone:.0f}%), {segment:.4f} ms "
+          f"by 64-byte segments ({gbytes / 1e6:.1f} MB; kernel at {100 * segment / alone:.0f}%); "
+          f"launches "
+          f"{launches}; no single torch call computes this masked NaN-aware window sum ({card})",
+          flush=True)
+    result["stamp_flux"].update(max_abs_err=max(adv_err, err), ms=ms, kernel_ms=alone,
+                                plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                                sector_bound_ms=sector, segment_bound_ms=segment,
+                                library_ms=None)
 
 
 # --- phase 6: ECC registration against injected motion -------------------------

@@ -15,7 +15,9 @@ edge are dropped, which is what the TPU kernel's clamped, tile-snapped
 windows do.
 
 - On a CUDA tensor the sums come from the hand-written Hopper kernel
-  ``ops/csrc/stamp_flux.cu`` (:func:`stamp_flux_cuda`).
+  ``ops/csrc/stamp_flux.cu`` (:func:`stamp_flux_cuda`), which takes the
+  targets in frame order (:func:`in_frame_order`) and gives them back in
+  the caller's.
 - On a CPU tensor they come from torch gathers in target chunks of bounded
   size (:func:`stamp_flux_plain`), also what ``chip_smoke.py`` holds the
   kernel against on the card.
@@ -31,8 +33,9 @@ from __future__ import annotations
 import torch
 
 from ._kernels import STAMP_FLUX, KernelError
+from .bandext import _frame_order
 
-__all__ = ["stamp_extract_flux", "stamp_flux_plain", "stamp_flux_cuda"]
+__all__ = ["stamp_extract_flux", "stamp_flux_plain", "stamp_flux_cuda", "in_frame_order"]
 
 T_CHUNK = 8                 #: the JAX function's cadence granularity (T % 8 == 0)
 
@@ -64,27 +67,23 @@ def stamp_flux_plain(images, masks, r0s, c0s) -> torch.Tensor:
     return out
 
 
-def stamp_flux_cuda(images, masks, r0s, c0s) -> torch.Tensor:
-    """(N, T) float32 masked finite sums from the CUDA kernel, on the images' card."""
+def in_frame_order(fn, images, masks, r0s, c0s) -> torch.Tensor:
+    """``fn(images, masks, r0s, c0s)`` -> (N, T) run on the targets in frame
+    order (row-major corners, ``bandext._frame_order``), its rows put back
+    in the caller's order.  The kernel's blocks that run together then read
+    nearby rows of a plane, and a window two targets share is read while
+    it is still in L2; a target's sum does not depend on its place."""
+    order = _frame_order(r0s, c0s, images.shape[2])
+    out = fn(images, masks[order].contiguous(), r0s[order].contiguous(),
+             c0s[order].contiguous())
+    return torch.empty_like(out).index_copy_(0, order, out)
+
+
+def _launch(images, masks, r0s, c0s) -> torch.Tensor:
+    """One launch of the kernel on checked inputs, the targets in the order given."""
     dev = images.device
-    if dev.type != "cuda":
-        raise ValueError(f"stamp_flux_cuda needs CUDA tensors, got {dev}")
     T, H, W = images.shape
     N, h, w = masks.shape
-    if images.dtype != torch.float32 or not images.is_contiguous():
-        raise ValueError(f"images: need a contiguous float32 (T, H, W) tensor, got "
-                         f"{images.dtype}")
-    if masks.device != dev or masks.dtype not in (torch.bool, torch.uint8):
-        raise ValueError(f"masks: need a bool/uint8 (N, h, w) tensor on {dev}")
-    for name, x in (("r0s", r0s), ("c0s", c0s)):
-        if x.device != dev or x.dtype != torch.int32 or tuple(x.shape) != (N,):
-            raise ValueError(f"{name}: need an int32 ({N},) tensor on {dev}")
-    if N and bool((r0s.min() < 0) | (c0s.min() < 0)):
-        raise ValueError("stamp corners must not be negative")
-    masks = masks.contiguous()
-    if masks.dtype == torch.bool:
-        masks = masks.view(torch.uint8)
-    r0s, c0s = r0s.contiguous(), c0s.contiguous()
     out = torch.empty(N, T, dtype=torch.float32, device=dev)
     lib = STAMP_FLUX.lib()
     with torch.cuda.device(dev):
@@ -98,6 +97,31 @@ def stamp_flux_cuda(images, masks, r0s, c0s) -> torch.Tensor:
     if rc != 0:
         raise KernelError(f"stamp_flux launch failed: CUDA error {rc}")
     STAMP_FLUX.launches += 1
+    return out
+
+
+def stamp_flux_cuda(images, masks, r0s, c0s) -> torch.Tensor:
+    """(N, T) float32 masked finite sums from the CUDA kernel, on the images' card."""
+    dev = images.device
+    if dev.type != "cuda":
+        raise ValueError(f"stamp_flux_cuda needs CUDA tensors, got {dev}")
+    N = masks.shape[0]
+    if images.dtype != torch.float32 or not images.is_contiguous() or images.dim() != 3:
+        raise ValueError(f"images: need a contiguous float32 (T, H, W) tensor, got "
+                         f"{images.dtype}")
+    if masks.device != dev or masks.dtype not in (torch.bool, torch.uint8) or masks.dim() != 3:
+        raise ValueError(f"masks: need a bool/uint8 (N, h, w) tensor on {dev}")
+    for name, x in (("r0s", r0s), ("c0s", c0s)):
+        if x.device != dev or x.dtype != torch.int32 or tuple(x.shape) != (N,):
+            raise ValueError(f"{name}: need an int32 ({N},) tensor on {dev}")
+    # Checked after the launch, so that the card is not idle while the host
+    # waits; the kernel reads nothing for a target with a negative corner.
+    negative = ((r0s.min() < 0) | (c0s.min() < 0)) if N else None
+    if masks.dtype == torch.bool:
+        masks = masks.view(torch.uint8)
+    out = in_frame_order(_launch, images, masks, r0s, c0s)
+    if N and bool(negative):
+        raise ValueError("stamp corners must not be negative")
     return out
 
 
@@ -126,10 +150,10 @@ def stamp_extract_flux(images, masks, r0s, c0s, h: int, w: int) -> torch.Tensor:
             or c0s.shape != masks.shape[:1]:
         raise ValueError(f"masks {tuple(masks.shape)} and corners {tuple(r0s.shape)}, "
                          f"{tuple(c0s.shape)} do not match N stamps of ({h}, {w})")
+    if dev.type == "cuda":
+        return stamp_flux_cuda(images, masks, r0s, c0s)   # refuses negative corners itself
     if masks.shape[0] and bool((r0s.min() < 0) | (c0s.min() < 0)):
         raise ValueError("stamp corners must not be negative")
-    if dev.type == "cuda":
-        return stamp_flux_cuda(images, masks, r0s, c0s)
     if dev.type == "cpu":
         return stamp_flux_plain(images.to(torch.float32), masks, r0s, c0s)
     raise ValueError(f"no stamp extraction path for device {dev}")

@@ -441,26 +441,43 @@ def test_segment_hist_kernel_matches_plain_on_card():
 @pytest.mark.cuda
 def test_stamp_flux_kernel_matches_plain_on_card():
     """The stamp-flux kernel against its plain version (RTOL/ATOL of the
-    extraction: float32 sums in another order): NaN and ±inf pixels, an
-    empty mask, an all-NaN cadence, stamps flush with and past the edges,
-    N = 1 / 7 / 9, masks of 1 to 64 px, T = 8 and 512, and a mask too large
-    for shared memory refused."""
+    extraction: float32 sums in another order; the NaN pattern exact, two
+    runs bit-equal): NaN and ±inf pixels, an empty mask, an all-NaN
+    cadence, stamps flush with and past the edges, N = 1 / 7 / 9, masks of
+    1 to 64 px, T = 8, 37 and 512, 40 crowded targets whose masks share
+    sectors handed over in reverse frame order, planes that do not start on
+    16 bytes (41 x 259, and a cube one float into its storage), and a mask
+    too large for shared memory refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from chip_smoke import stamp_case
+    from chip_smoke import stamp_case, stamp_crowded_case
     from photometry_tpu_torch.ops import stamp_flux as sf
     from photometry_tpu_torch.ops._kernels import STAMP_FLUX, KernelError
     rng = np.random.default_rng(2)
-    for T, H, W, N, h in ((8, 40, 256, 1, 1), (8, 64, 256, 7, 17), (512, 64, 256, 9, 17),
-                          (512, 96, 384, 9, 64)):
-        args = [torch.as_tensor(a, device="cuda") for a in stamp_case(rng, T, H, W, N, h)]
+    cases = [stamp_case(rng, T, H, W, N, h) + (h,)
+             for T, H, W, N, h in ((8, 40, 256, 1, 1), (8, 64, 256, 7, 17), (512, 64, 256, 9, 17),
+                                   (512, 96, 384, 9, 64), (37, 64, 256, 9, 17),
+                                   (8, 41, 259, 7, 17))]
+    cases.append(stamp_crowded_case(rng, 37, 48, 96, 40, 17) + (17,))
+    imgs = cases[4][0]
+    flat = torch.empty(imgs.size + 1, device="cuda")
+    off16 = flat[1:].view(imgs.shape)
+    off16.copy_(torch.as_tensor(imgs))
+    for i, (*arrays, h) in enumerate(cases + [(off16,) + cases[4][1:]]):
+        args = [torch.as_tensor(a, device="cuda") for a in arrays]
         before = STAMP_FLUX.launches
-        got = sf.stamp_extract_flux(*args, h, h)
+        got = sf.stamp_flux_cuda(*args)
+        again = sf.stamp_flux_cuda(*args)
         torch.cuda.synchronize()
-        assert STAMP_FLUX.launches == before + 1
-        np.testing.assert_allclose(got.cpu().numpy(), sf.stamp_flux_plain(*args).cpu().numpy(),
-                                   rtol=torch_parity.RTOL, atol=torch_parity.ATOL,
-                                   equal_nan=True)
+        assert STAMP_FLUX.launches == before + 2
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32)), f"case {i}"
+        want = sf.stamp_flux_plain(*args).cpu().numpy()
+        np.testing.assert_array_equal(np.isnan(got.cpu().numpy()), np.isnan(want))
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=torch_parity.RTOL,
+                                   atol=torch_parity.ATOL, equal_nan=True)
+        if args[0].shape[0] % 8 == 0:
+            assert torch.equal(sf.stamp_extract_flux(*args, h, h).view(torch.int32),
+                               got.view(torch.int32))
     with pytest.raises(KernelError):
         sf.stamp_flux_cuda(args[0], torch.ones(1, 300, 300, dtype=torch.bool, device="cuda"),
                            args[2][:1], args[3][:1])

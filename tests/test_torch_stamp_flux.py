@@ -147,3 +147,67 @@ def test_plain_chunks_and_band_sums_agree(monkeypatch):
     band = np.where(Q[:, 1] < 0.5, np.nan, Q[:, 0])
     np.testing.assert_allclose(want, band, rtol=RTOL, equal_nan=True)
     np.testing.assert_array_equal(np.isnan(want), np.isnan(band))
+
+
+def _sector_bytes_per_cadence(masks, r0s, c0s, width, T=3, sector=32):
+    """chip_smoke.stamp_sector_bytes less its once-only bytes, per cadence."""
+    from chip_smoke import stamp_sector_bytes
+    masks = np.asarray(masks, bool)
+    N, h, w = masks.shape
+    got = stamp_sector_bytes(masks, np.asarray(r0s), np.asarray(c0s), T, width, sector=sector)
+    once = N * h * w + 8 * N + 4 * N * T
+    assert (got - once) % T == 0
+    return (got - once) // T
+
+
+@pytest.mark.parametrize("case,want", [
+    ("one pixel", 32),
+    ("8 aligned pixels", 32),
+    ("9 pixels", 64),
+    ("two targets share a sector", 32),
+    ("a pixel past the right edge", 32),
+    ("9 pixels in one 64-byte segment", 64),
+])
+def test_sector_bound_counts_sectors_once(case, want):
+    """The phase-2d sector bound: whole 32-byte sectors (8 float32 pixels of
+    a row, aligned in the frame), each counted once per cadence however
+    many windows read it, and nothing for pixels beyond the frame; with
+    64-byte segments, the segments."""
+    width = 64
+    if case == "9 pixels in one 64-byte segment":
+        assert _sector_bytes_per_cadence(np.ones((1, 1, 9)), [2], [16], width, sector=64) == want
+        return
+    if case == "one pixel":
+        masks, r0s, c0s = np.ones((1, 1, 1)), [3], [5]
+    elif case == "8 aligned pixels":
+        masks, r0s, c0s = np.ones((1, 1, 8)), [2], [16]
+    elif case == "9 pixels":
+        masks, r0s, c0s = np.ones((1, 1, 9)), [2], [16]
+    elif case == "two targets share a sector":
+        masks = np.zeros((2, 2, 4), bool)
+        masks[0, 1, :2] = True                    # row 5, cols 8-9
+        masks[1, 0, 2:] = True                    # row 5, cols 13-14
+        r0s, c0s = [4, 5], [8, 11]
+    else:
+        masks = np.zeros((1, 1, 4), bool)
+        masks[0, 0, [0, 3]] = True                # col 62 inside, col 65 past the edge
+        r0s, c0s = [7], [62]
+    assert _sector_bytes_per_cadence(masks, r0s, c0s, width) == want
+
+
+def test_frame_order_puts_rows_back():
+    """stamp_flux_cuda's host steps on the CPU, the plain version standing in
+    for the kernel: the targets reach it in frame order (row-major corners)
+    and its rows come back in the caller's order."""
+    images, masks, r0s, c0s, h, w = _edge_inputs(9, 17)
+    keys = []
+
+    def kernel(im, m, r, c):
+        keys.append(n(r).astype(np.int64) * im.shape[2] + n(c))
+        return sf.stamp_flux_plain(im, m, r, c)
+
+    args = [t(a) for a in (images, masks, r0s, c0s)]
+    got = sf.in_frame_order(kernel, *args)
+    assert np.all(np.diff(keys[0]) >= 0) and not np.all(np.diff(r0s.astype(np.int64)
+                                                              * 256 + c0s) >= 0)
+    np.testing.assert_array_equal(n(got), n(sf.stamp_flux_plain(*args)))
