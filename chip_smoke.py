@@ -2,10 +2,11 @@
 """Smoke run of photometry_tpu_torch on one CUDA card.
 
 Drives the port's FFI aperture, PSF and prepare paths, the flux-only stamp
-extraction and ECC registration through the entry points a user calls, with
+extraction, ECC registration and the default-method drain (both automatic
+switches: halo and linPSF) through the entry points a user calls, with
 JAX, h5py and the JAX package blocked from import.  Phases run in the order
 0, 1, 2, 2b, 2c, 2d (adversarial), 3, 2d (main shape, on phase 3's cube and
-targets), 4, 6 (on phase 3's cube), 5:
+targets), 4, 6 (on phase 3's cube), 7 (on phase 3's cubes), 5:
 
 0. imports: ``jax``, ``jaxlib``, ``h5py`` and ``photometry_tpu`` refused.
 1. device: the card's name and power limit; the five kernels are built with
@@ -94,6 +95,31 @@ targets), 4, 6 (on phase 3's cube), 5:
    (recovered within 0.05 px); the series then drives the jitter of
    ``extract_aperture_batch`` on 1,024 targets of a context over phase 3's
    cube, whose per-cadence ``pos_corr`` must follow it.
+7. the default-method drain at full CCD size, on phase 3's cubes with their
+   noise redrawn at a TESS-like level (variance (flux + 100) / 1425.6 s):
+   40 bright stars (Tmag 3.5-6.0, a 1% sinusoid, cores clipped at
+   SATURATION_FLUX with the charge bled along the column; half 1-2 px
+   inside the CCD's edges, half with a 160-row charge tail) and 32
+   pairs at 3.5-6.0 px (Tmag 10.0 and 10.3) are injected, a catalog and a
+   2,048-task todo.sqlite (method NULL) are written, and ``run_drain(...,
+   method=None, batch_size=256)`` runs with ``dispatcher.open_context``
+   handing back the phase's context (no h5py here).  Checks: every task
+   gets a final status, the band kernel launched once per recorded call,
+   each lease's sums equal ``band_sums_plain`` on that lease's own inputs
+   (counts exact, sums and aperture outputs within RTOL/ATOL, NaN patterns
+   equal), every OK aperture light curve is finite, >= 90% of the bright stars
+   end as halo through the automatic switch with both of the engine's
+   routes seen ("Stamp resize hit limit", "Too many stamp resizes") and
+   light curves correlating > 0.5 with their sinusoid, three halo products
+   read back with their WEIGHTMAP, >= 90% of the pair members end as
+   linPSF through the deblend switch and >= 90% of those within 5% of the
+   injected flux; the drain's first linPSF solve and first TV-min descent
+   (P7_PARITY targets each) equal a CPU re-run on copies of their inputs
+   (fluxes rtol 1e-4; weights rtol 5e-4, atol 1e-6, objective rel 1e-3).
+   Prints the drain's wall and its timers, the halo
+   flushes, the linPSF reruns' wall and peak memory, then the drain's
+   first two leases again under ``torch.profiler``: device busy share and
+   top device ops.
 
 Prints the wall of each phase, a JSON line of per-kernel results, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -147,6 +173,10 @@ HIST_MAIN = (64, 1 << 20, 512)           # a 64-frame chunk at hist_stride 2, 51
 # Phase 5: sector 27 (600 s FFIs: time smoothing over 9 frames), camera 1
 # CCD 1 (the camera centre sits off its corner: ~40 rings beyond 2400 px).
 PREP = {"T": 96, "sector": 27, "camera": 1, "ccd": 1, "chunk": 64}
+# Phase 7: 40 bright stars, 32 pairs, a todo of 2,048 tasks; charge tails of
+# the bright stars that must outgrow ten stamp resizes run this many rows.
+P7 = {"bright": 40, "pairs": 32, "todo": 2048, "tail": 160}
+P7_PARITY = 4                            # targets of phase 7's linPSF and TV-min re-run on the CPU
 RAW_SHAPE = (2078, 2136)                 # raw TESS FFI; science area rows 0:2048, cols 44:2092
 # NVIDIA H100 SXM data sheet: HBM bytes/s, float32 FLOP/s outside the tensor cores,
 # dense TF32 FLOP/s of the tensor cores (3xTF32 spends three products on one).
@@ -1129,6 +1159,516 @@ def ecc_phase(dev, img0, gen, rng, ctx_kw, sids, card, n_frames=32, n_targets=10
     check(dev_pc < 1e-5, "pos_corr does not follow the loaded movement kernels")
 
 
+# --- phase 7: the default-method drain -------------------------------------------
+
+def phase7_layout(rng, rows, cols, tmag, H_, W_):
+    """Positions and magnitudes of phase 7's injected stars.
+
+    Bright stars (Tmag 3.5-6.0) take the engine's two halo routes.  The
+    first half sit 1-2 px inside the left or right CCD edge ("edge": the
+    stamp cannot grow past the CCD, "Stamp resize hit limit").  The second
+    half (Tmag 3.5-4.5, all saturated) carry a faint charge tail
+    ``P7["tail"]`` rows up their column ("tail": the mask follows it past
+    ten resizes, "Too many stamp resizes."); each sits where no catalog
+    star lies within 4 columns of that corridor, whose watershed basin
+    would cut the tail off the target's mask.  The pairs are tests/test_deblend_switch.py's:
+    separations 3.5-6.0 px along (0.7, 0.714), Tmag 10.0 and 10.3, each at
+    a spot with no field star within 7 px and away from the bright stars.
+    Returns a dict of arrays."""
+    n_bright, n_pairs, tail = P7["bright"], P7["pairs"], P7["tail"]
+    n_edge = n_bright // 2
+    n_tail = n_bright - n_edge
+    span = np.linspace(60, H_ - 60, n_edge)
+    b_rows = list(span + rng.uniform(-5, 5, n_edge))
+    b_cols = list(np.where(np.arange(n_edge) % 2 == 0, rng.uniform(1.0, 2.0, n_edge),
+                           W_ - 1 - rng.uniform(1.0, 2.0, n_edge)))
+    for _ in range(200000):
+        if len(b_rows) == n_bright:
+            break
+        r, c = rng.uniform(40, H_ - tail - 40), rng.uniform(60, W_ - 60)
+        in_corridor = (np.abs(cols - c) <= 4) & (rows > r - 10) & (rows < r + tail + 10)
+        if in_corridor.any() or any(abs(c - c2) < 30 and abs(r - r2) < tail + 40
+                                    for r2, c2 in zip(b_rows[n_edge:], b_cols[n_edge:])):
+            continue
+        b_rows.append(r)
+        b_cols.append(c)
+    check(len(b_rows) == n_bright, f"phase 7: room for {len(b_rows) - n_edge} of {n_tail} "
+          "tail corridors")
+    b_rows, b_cols = np.array(b_rows), np.array(b_cols)
+    b_tmag = np.concatenate([rng.uniform(3.5, 6.0, n_edge), rng.uniform(3.5, 4.5, n_tail)])
+    route = np.array(["edge"] * n_edge + ["tail"] * n_tail)
+
+    pairs = []
+    seps = np.linspace(3.5, 6.0, n_pairs)
+    for _ in range(100000):
+        if len(pairs) == n_pairs:
+            break
+        r, c = rng.uniform(30, H_ - 40), rng.uniform(30, W_ - 40)
+        sep = seps[len(pairs)]
+        r2, c2 = r + sep * 0.7, c + sep * 0.714
+        if (np.min(np.hypot(rows - r, cols - c)) < 7 or np.min(np.hypot(rows - r2, cols - c2)) < 7
+                or np.any((np.abs(b_cols - c) < 40) & (r > b_rows - 40)
+                          & (r < b_rows + tail + 40))
+                or any(np.hypot(r - p[0], c - p[1]) < 20 for p in pairs)):
+            continue
+        pairs.append((r, c, r2, c2))
+    check(len(pairs) == n_pairs, f"phase 7: room for {len(pairs)} of {n_pairs} pairs")
+    p = np.array(pairs)
+    return {"b_rows": b_rows, "b_cols": b_cols, "b_tmag": b_tmag, "route": route,
+            "p_rows": np.stack([p[:, 0], p[:, 2]], 1).ravel(),
+            "p_cols": np.stack([p[:, 1], p[:, 3]], 1).ravel(),
+            "p_tmag": np.tile([10.0, 10.3], n_pairs)}
+
+
+def psf_window(r, c, win, H_, W_, integrated=False, wing=0.0, reach=7):
+    """Rows and columns of a star's window, clipped to the frame, and its
+    unit-flux PSF there: a Gaussian core of sigma 1.2 px, point-sampled
+    within 7 px as make_field's or ``integrated`` over each pixel as the
+    context PRF, plus a ``wing`` share of the flux in a Moffat halo (core
+    radius 2 px, beta 1.5) out to ``reach`` px, the extended wings a TESS
+    PSF has around bright stars."""
+    from scipy.special import erf
+    ri, ci = int(r), int(c)
+    r0, r1 = max(ri - max(win, reach), 0), min(ri + max(win, reach) + 1, H_)
+    c0, c1 = max(ci - reach, 0), min(ci + reach + 1, W_)
+    yy, xx = np.mgrid[r0:r1, c0:c1]
+    if integrated:
+        d = np.sqrt(2.0) * 1.2
+        psf = 0.25 * ((erf((yy - r + 0.5) / d) - erf((yy - r - 0.5) / d))
+                      * (erf((xx - c + 0.5) / d) - erf((xx - c - 0.5) / d)))
+    else:
+        psf = np.exp(-0.5 * ((yy - r) ** 2 + (xx - c) ** 2) / 1.2 ** 2) / (2 * np.pi * 1.2 ** 2)
+    psf[(np.abs(yy - ri) > 7) | (np.abs(xx - ci) > 7)] = 0.0
+    if wing:
+        d2 = (yy - r) ** 2 + (xx - c) ** 2
+        moffat = 0.5 / (np.pi * 4.0) * (1 + d2 / 4.0) ** -1.5
+        psf = (1 - wing) * psf + wing * np.where(d2 <= reach ** 2, moffat, 0.0)
+    return r0, r1, c0, c1, psf
+
+
+def renoise_phase7(images, errs, img0, gen, sky=100.0, exptime=1425.6):
+    """Redraw the cubes' noise at a TESS-like level, in place: the field
+    ``img0`` plus Gaussian noise of variance (flux + sky) / exptime per
+    cadence (the simulator's SimConfig bkg_level and exptime_eff).  The
+    halo's per-pixel median normalisation divides by pixel medians near 0,
+    which the e-/s-as-counts noise of the earlier phases swamps."""
+    import torch
+    base = torch.as_tensor(img0, device=images.device)
+    sigma = torch.sqrt((torch.clamp(base, min=0.0) + sky) / exptime)
+    errs[:] = sigma
+    for t0 in range(0, images.shape[0], 64):
+        n = min(64, images.shape[0] - t0)
+        images[t0:t0 + n] = base + sigma * torch.randn(n, *base.shape, device=images.device,
+                                                       generator=gen)
+
+
+def inject_phase7(images, errs, lay, gen, exptime=1425.6):
+    """Add phase 7's stars to the (T, H, W) cubes on their device.
+
+    Bright stars vary by a 1% sinusoid (two periods over the T cadences,
+    a random phase each) and hold 5% of their flux in extended wings out
+    to 40 px (``psf_window``).  Each cadence's core is clipped at
+    SATURATION_FLUX and the clipped charge of each column is spread along
+    that column, flux conserved: filled to saturation outward from the core
+    (a bleed), and for the "tail" stars 30% of it evenly over the column's
+    unsaturated pixels up to ``P7["tail"]`` rows above the star (a faint
+    charge tail).  Pairs
+    are constant, with the pixel-integrated PSF of the context's PRF.
+    Every injected pixel gets photon noise (variance flux / exptime) and
+    its error grows to match.  Returns the bright stars' (N, T)
+    modulations and the injected mean flux of every star."""
+    import torch
+    from photometry_tpu_torch.models.halo import SATURATION_FLUX as S
+    from photometry_tpu_torch.utils.mathutils import mag2flux
+    T_, H_, W_ = images.shape
+    tail = P7["tail"]
+    dev = images.device
+    tt = torch.arange(T_, device=dev, dtype=torch.float32)
+    nb = len(lay["b_tmag"])
+    phases = torch.rand(nb, generator=gen, device=dev) * 2 * np.pi
+    mods = 1.0 + 0.01 * torch.sin(4 * np.pi * tt[None] / T_ + phases[:, None])    # (nb, T)
+    means = []
+    stars = [(lay["b_rows"][i], lay["b_cols"][i], lay["b_tmag"][i], mods[i], lay["route"][i])
+             for i in range(nb)]
+    stars += [(r, c, m, None, "pair") for r, c, m in zip(lay["p_rows"], lay["p_cols"],
+                                                           lay["p_tmag"])]
+    for r, c, m, mod, route in stars:
+        win = 7 if route == "pair" else 40 if route == "edge" else tail + 10
+        r0, r1, c0, c1, psf = psf_window(r, c, win, H_, W_, integrated=route == "pair",
+                                         wing=0.0 if route == "pair" else 0.05,
+                                         reach=7 if route == "pair" else 40)
+        f = float(mag2flux(m))
+        psf_d = torch.as_tensor(psf, dtype=torch.float32, device=dev)
+        star = f * psf_d[None] * (mod[:, None, None] if mod is not None else 1.0)   # (T, h, w)
+        if route != "pair":
+            core = torch.clamp(star, max=S)
+            excess = (star - core).sum(dim=1)                               # (T, w)
+            if route == "tail":
+                tail_e, excess = 0.3 * excess, 0.7 * excess
+            # Fill outward from the star's row, alternating down and up:
+            k = torch.arange(r1 - r0, device=dev) + r0 - int(r)
+            order = torch.argsort(torch.abs(k) * 2 + (k < 0), stable=True)
+            cap = (S - core)[:, order]                                      # (T, h, w)
+            before = torch.cumsum(cap, dim=1) - cap
+            fill = torch.minimum(torch.clamp(excess[:, None, :] - before, min=0.0), cap)
+            core[:, order] += fill
+            if route == "tail":
+                wgt = ((core < 0.5 * S) & ((k > 0) & (k <= tail))[None, :, None]).float()
+                core += tail_e[:, None, :] * wgt / torch.clamp(wgt.sum(dim=1, keepdim=True),
+                                                              min=1.0)
+            star = core
+        noise = torch.sqrt(torch.clamp(star, min=0.0) / exptime) * torch.randn(
+            star.shape, device=dev, generator=gen)
+        images[:, r0:r1, c0:c1] += star + noise
+        errs[:, r0:r1, c0:c1] = torch.sqrt(errs[:, r0:r1, c0:c1] ** 2
+                                           + torch.clamp(star, min=0) / exptime)
+        means.append(float(star.sum(dim=(1, 2)).mean()))
+    return mods.cpu().numpy(), np.array(means)
+
+
+def write_todo(folder, sids, tmags, camera=1, ccd=1):
+    """todo.sqlite in the todolist schema (photometry_tpu/todolist.py:279-291),
+    every task an FFI target with no method, priorities by Tmag."""
+    import sqlite3
+    order = np.argsort(tmags, kind="stable")
+    with sqlite3.connect(os.path.join(folder, "todo.sqlite")) as conn:
+        conn.execute("""CREATE TABLE todolist (
+            priority INTEGER PRIMARY KEY ASC NOT NULL, starid INTEGER NOT NULL,
+            sector INTEGER NOT NULL, datasource TEXT NOT NULL DEFAULT 'ffi',
+            camera INTEGER NOT NULL, ccd INTEGER NOT NULL, cadence INTEGER NOT NULL,
+            method TEXT DEFAULT NULL, tmag REAL, status INTEGER DEFAULT NULL,
+            cbv_area INTEGER NOT NULL);""")
+        conn.executemany(
+            "INSERT INTO todolist (priority, starid, sector, camera, ccd, cadence, datasource, "
+            "tmag, cbv_area) VALUES (?, ?, 1, ?, ?, 1800, 'ffi', ?, ?);",
+            [(p + 1, int(sids[i]), camera, ccd, float(tmags[i]), camera * 100 + ccd * 10 + 1)
+             for p, i in enumerate(order)])
+        conn.execute("CREATE UNIQUE INDEX unique_target_idx ON todolist "
+                     "(starid, datasource, sector, camera, ccd, cadence);")
+        conn.execute("CREATE INDEX status_idx ON todolist (status);")
+
+
+def solve_parity(lin_solves, card):
+    """The drain's first linPSF solve, its first P7_PARITY targets again on
+    a CPU copy of their stamps, positions and PRF: fluxes within rtol 1e-4
+    (tests/test_psf_models.py:190) and 1e-4 of each star's median |flux|
+    (the card test's atol)."""
+    from photometry_tpu_torch.models import linpsf
+    from photometry_tpu_torch.models.prf import PRF
+    check(len(lin_solves) == 1, "phase 7: no linPSF solve was recorded")
+    (ins, prf, shape, S, got), = lin_solves
+    prf_cpu = PRF(prf.iprf, prf.oversample, prf.center_x, prf.center_y, info=dict(prf.info),
+                  device="cpu")
+    want = linpsf.linpsf_timeseries_batch(*(x.cpu() for x in ins), prf_cpu, shape, S)["fluxes"]
+    got, want = got.cpu().double().numpy(), want.double().numpy()           # (k, T, S)
+    atol = 1e-4 * np.median(np.abs(want), axis=1, keepdims=True)
+    d = np.abs(got - want)
+    rel = float(np.max(d / (atol + 1e-4 * np.abs(want) + 1e-300)))
+    print(f"phase 7 linPSF parity: the first solve's {got.shape[0]} targets x {got.shape[1]} "
+          f"cadences x S={S} (stamps {shape[0]}x{shape[1]}) on the card == a CPU re-run: max "
+          f"|diff| {d.max():.3g}, {rel:.3f} of the rtol 1e-4 bound ({card})", flush=True)
+    check(bool(np.all(d <= atol + 1e-4 * np.abs(want))),
+          f"phase 7: linPSF fluxes on the card differ from the CPU by up to {d.max():.3g}")
+
+
+def tvmin_parity(tv_runs, card):
+    """The halo flush's first TV-min descent, its P7_PARITY targets with the
+    most pixels again on a CPU copy of their normalised fluxes: weights within rtol
+    5e-4, atol 1e-6, objectives within rel 1e-3 (tests/test_halo.py:62-66);
+    masked pixels weigh exactly 0 and each row sums to 1."""
+    import torch
+    from photometry_tpu_torch.models import halo
+    check(len(tv_runs) == 1, "phase 7: no TV-min descent was recorded")
+    (ins, kw, w_got, v_got), = tv_runs
+    fn, gt, ok = (x.cpu() for x in ins)
+    w_want, v_want = halo.tvmin_weights_batch(fn, gt, ok, **kw)
+    w_got, v_got = w_got.cpu().double(), v_got.cpu().double()
+    w_want, v_want = w_want.double(), v_want.double()
+    dw = (w_got - w_want).abs()
+    dv = float(((v_got - v_want).abs() / v_want.abs()).max())
+    sums = float((w_got.sum(dim=-1) - 1.0).abs().max())
+    print(f"phase 7 TV-min parity: the flush's first descent, its {fn.shape[0]} largest "
+          f"targets x {fn.shape[1]} cadences x {ok.sum(dim=-1).tolist()} pixels ({kw}), of "
+          f"{fn.shape[2]} padded, on the card == "
+          f"a CPU re-run: weights max |diff| {float(dw.max()):.3g}, objective rel "
+          f"{dv:.3g}; masked weights 0, rows sum to 1 within {sums:.2g} ({card})", flush=True)
+    check(bool((dw <= 1e-6 + 5e-4 * w_want.abs()).all()),
+          f"phase 7: TV-min weights on the card differ from the CPU by up to {float(dw.max()):.3g}")
+    check(dv <= 1e-3, f"phase 7: TV-min objective on the card differs from the CPU by {dv:.3g}")
+    check(bool(torch.all(w_got[~ok] == 0)) and sums < 1e-5,
+          "phase 7: TV-min weights leak onto masked pixels or do not sum to 1")
+
+
+def drain_phase(work, dev, gen, rng, cubes, img0, rows, cols, tmag, wcs, card):
+    """Phase 7: the default-method drain at full CCD size (see the module docstring)."""
+    import sqlite3
+    import torch
+    from photometry_tpu_torch.catalog import make_catalog_from_arrays
+    from photometry_tpu_torch.core import dispatcher
+    from photometry_tpu_torch.core.drain import new_timers, run_drain
+    from photometry_tpu_torch.core.engine import SectorContext
+    from photometry_tpu_torch.core.status import STATUS
+    from photometry_tpu_torch.io import fits as pf
+    from photometry_tpu_torch.models import halo, linpsf
+    from photometry_tpu_torch.ops import bandext
+    from photometry_tpu_torch.ops._kernels import BAND_EXTRACT
+    images, errs, bkgs, flags = cubes
+    T_, H_, W_ = images.shape
+    tic = time.perf_counter()
+    lay = phase7_layout(rng, rows, cols, tmag, H_, W_)
+    renoise_phase7(images, errs, img0, gen)
+    mods, injected = inject_phase7(images, errs, lay, gen)
+    nb, npair = len(lay["b_tmag"]), len(lay["p_tmag"])
+    n0 = len(rows)
+    all_rows = np.concatenate([rows, lay["b_rows"], lay["p_rows"]])
+    all_cols = np.concatenate([cols, lay["b_cols"], lay["p_cols"]])
+    all_tmag = np.concatenate([tmag, lay["b_tmag"], lay["p_tmag"]])
+    sids = np.arange(1, len(all_rows) + 1)
+    b_sids, p_sids = sids[n0:n0 + nb], sids[n0 + nb:]
+    folder = os.path.join(work, "phase7")
+    os.makedirs(folder)
+    ra, dec = wcs.radec_of_rowcol(all_rows, all_cols)
+    cat = make_catalog_from_arrays(folder, 1, 1, 1, starid=sids, ra_j2000=ra, dec_j2000=dec,
+                                   pm_ra=np.zeros(len(sids)), pm_dec=np.zeros(len(sids)),
+                                   tmag=all_tmag, reference_time=2458340.0)
+    ctx_kw = dict(images=images, images_err=errs, backgrounds=bkgs, pixelflags=flags,
+                  sumimage=torch.nanmean(images, dim=0).cpu().numpy(),
+                  time=1325.3 + np.arange(T_) / 48.0, timecorr=np.zeros(T_, np.float32),
+                  cadenceno=np.arange(T_, dtype=np.int32), quality=np.zeros(T_, np.int32),
+                  catalog_path=cat, wcs=wcs, sector=1, camera=1, ccd=1,
+                  header={"PSFSIGMA": 1.2}, input_folder=folder, device=dev)
+    field = [int(s) for s in np.argsort(tmag, kind="stable")[:P7["todo"] - nb - npair] + 1]
+    todo = [int(s) for s in b_sids] + [int(s) for s in p_sids] + field
+    write_todo(folder, todo, all_tmag[np.array(todo) - 1])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    print(f"phase 7 inputs: {nb} bright stars (Tmag {lay['b_tmag'].min():.2f}-"
+          f"{lay['b_tmag'].max():.2f}, {np.sum(lay['route'] == 'edge')} on the CCD's edges, "
+          f"{np.sum(lay['route'] == 'tail')} with {P7['tail']}-row charge tails), "
+          f"{npair // 2} pairs at 3.5-6.0 px, injected into the ({T_}, {H_}, {W_}) cubes on "
+          f"the card; todo.sqlite of {len(todo)} tasks, method NULL "
+          f"({time.perf_counter() - tic:.1f} s)",
+          flush=True)
+
+    # Observers of the drain's own calls (each passes through unchanged):
+    aperture, flushes, lin_calls = {}, [], []
+    band_calls, lin_solves, tv_runs = [], [], []
+    run_aperture, flush, run_linpsf = (dispatcher.extract_aperture_batch,
+                                       dispatcher.HaloSwitchQueue.flush,
+                                       linpsf.extract_linpsf_batch)
+    run_band, run_solve, run_tvmin = (bandext.band_sums, linpsf.linpsf_timeseries_batch,
+                                      halo.tvmin_weights_batch)
+
+    def seen_aperture(ctx_, starids, **kw):
+        out = run_aperture(ctx_, starids, **kw)
+        aperture.update({r.starid: r for r in out})
+        return out
+
+    def seen_band(*a, **kw):
+        """Each lease's band launch: its arguments and the sums it returned."""
+        out = run_band(*a, **kw)
+        band_calls.append((a, kw, out))
+        return out
+
+    def seen_solve(imgs, rows_t, cols_t, valid, prf, shape, S):
+        """The first linPSF solve's inputs and fluxes, for its first P7_PARITY targets."""
+        out = run_solve(imgs, rows_t, cols_t, valid, prf, shape, S)
+        if not lin_solves:
+            k = P7_PARITY
+            lin_solves.append(([x[:k].clone() for x in (imgs, rows_t, cols_t, valid)],
+                               prf, shape, S, out["fluxes"][:k].clone()))
+        return out
+
+    def seen_tvmin(flux_norm, good_time, pixel_ok, **kw):
+        """The first TV-min descent's inputs and weights, for the P7_PARITY
+        targets with the most pixels."""
+        w, val = run_tvmin(flux_norm, good_time, pixel_ok, **kw)
+        if not tv_runs:
+            ok = torch.as_tensor(pixel_ok)
+            k = torch.argsort(ok.sum(dim=-1), descending=True, stable=True)[:P7_PARITY]
+            tv_runs.append(([torch.as_tensor(x)[k].clone()
+                             for x in (flux_norm, good_time, pixel_ok)], kw,
+                            w[k].clone(), val[k].clone()))
+        return w, val
+
+    def seen_flush(self, force=False):
+        tic_ = time.perf_counter()
+        out = flush(self, force)
+        if out:
+            flushes.append((len(out), time.perf_counter() - tic_, out))
+        return out
+
+    def seen_linpsf(ctx_, starids, **kw):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        tic_ = time.perf_counter()
+        out = run_linpsf(ctx_, starids, **kw)
+        peak = 0
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+        lin_calls.append((len(starids), time.perf_counter() - tic_, peak))
+        return out
+
+    def drain(timers):
+        ctx = SectorContext.from_arrays(**ctx_kw)
+        with mock.patch.object(dispatcher, "open_context", lambda *a, **k: ctx):
+            return run_drain(folder, 1, method=None, batch_size=256, timers=timers, device=dev)
+
+    timers = new_timers()
+    reset_counts()
+    with mock.patch.object(dispatcher, "extract_aperture_batch", seen_aperture), \
+            mock.patch.object(dispatcher.HaloSwitchQueue, "flush", seen_flush), \
+            mock.patch.object(linpsf, "extract_linpsf_batch", seen_linpsf), \
+            mock.patch.object(bandext, "band_sums", seen_band), \
+            mock.patch.object(linpsf, "linpsf_timeseries_batch", seen_solve), \
+            mock.patch.object(halo, "tvmin_weights_batch", seen_tvmin):
+        n_done = drain(timers)
+    band_launches = BAND_EXTRACT.launches
+    with sqlite3.connect(os.path.join(folder, "todo.sqlite")) as conn:
+        status = dict(conn.execute("SELECT starid, status FROM todolist"))
+        diag = {sid: (m, e or "", lc) for sid, m, e, lc in conn.execute(
+            "SELECT t.starid, d.method_used, d.errors, d.lightcurve FROM todolist t "
+            "JOIN diagnostics d ON t.priority = d.priority")}
+    final = {STATUS.OK.value, STATUS.WARNING.value, STATUS.ERROR.value, STATUS.SKIPPED.value}
+    counts = {s: sum(v == s for v in status.values()) for s in set(status.values())}
+    # A task another target's mask claimed before its lease is SKIPPED
+    # without being run (TaskManager's arbitration):
+    unleased = sum(s not in diag and status[s] == STATUS.SKIPPED.value for s in todo)
+    methods = [diag.get(s, ("none",))[0] for s in todo]
+    t = timers
+    print(f"phase 7 drain: {n_done} tasks in {t['wall']:.2f} s = {n_done / t['wall']:.1f} "
+          f"tasks/s with products ({card}); lease {t['lease']:.2f} s, context "
+          f"{t['context']:.2f} s, photometry {t['photometry']:.2f} s, save {t['save']:.2f} s "
+          f"({t.get('n_products', 0)} products), sqlite {t['sqlite']:.2f} s; "
+          f"{t['n_batches']} leases; band kernel launches {band_launches}; statuses "
+          + ", ".join(f"{'NULL' if s is None else STATUS(s).name} {c}"
+                      for s, c in sorted(counts.items(), key=lambda kv: kv[0] or 0))
+          + f" ({unleased} skipped before their lease); methods "
+          + ", ".join(f"{m} {methods.count(m)}" for m in sorted(set(methods))), flush=True)
+    check(None not in counts and set(counts) <= final,
+          f"phase 7: statuses left unfinished: {counts}")
+    check(n_done == len(diag) and n_done + unleased == len(todo),
+          f"phase 7: the drain returned {n_done}; {len(diag)} tasks have diagnostics, "
+          f"{unleased} were skipped unleased, of {len(todo)}")
+    check(band_launches > 0, "phase 7: the drain did not launch the band kernel")
+
+    # The band kernel's sums of every lease against the plain ones on that
+    # lease's own inputs, and the aperture outputs they give (phase 3's rules):
+    band_err, band_targets = 0.0, 0
+    for a, kw, got in band_calls:
+        args = a[:7]
+        windows = a[7] if len(a) > 7 else kw.get("windows")
+        want = bandext.band_sums_plain(*args, windows)
+        band_err = max(band_err, band_sums_err(got, want, "phase 7 band launch"))
+        masks, r0s, c0s = args[4:7]
+        size = masks.reshape(masks.shape[0], -1).to(torch.float32).sum(dim=1)
+        band_err = max(band_err, max_err(host(bandext._combine(got, r0s, c0s, size)),
+                                         host(bandext._combine(want, r0s, c0s, size)),
+                                         "phase 7 band launch"))
+        band_targets += masks.shape[0]
+    ap_good = [r for r in aperture.values() if r.status in (STATUS.OK, STATUS.WARNING)]
+    ap_fin = min((float(np.isfinite(r.lightcurve["flux"]).mean()) for r in ap_good),
+                 default=0.0)
+    print(f"phase 7 band kernel: {band_launches} launches in the drain ({len(band_calls)} "
+          f"recorded, {band_targets} targets x {T_} cadences); each lease's sums == plain on "
+          f"its own inputs (counts exact, max |diff| {band_err:.3g}); {len(ap_good)} of "
+          f"{len(aperture)} aperture results OK or WARNING, finite flux share min "
+          f"{ap_fin:.4f}", flush=True)
+    check(len(band_calls) == band_launches,
+          f"phase 7: {len(band_calls)} band calls recorded, {band_launches} launches counted")
+    check(all(r.lightcurve["flux"].shape == (T_,) for r in ap_good) and ap_fin > 0.99,
+          "phase 7: an aperture light curve is not finite or has the wrong shape")
+
+    # Bright stars: halo, by both routes, tracking the injected sinusoid.
+    halo_res = {int(tk["starid"]): r for _, _, out in flushes for tk, r in out}
+    routes = {"Stamp resize hit limit. Haloswitch quick break.": 0,
+              "Too many stamp resizes.": 0}
+    switched, corr = 0, []
+    for i, sid in enumerate(b_sids):
+        sid = int(sid)
+        for e in (aperture[sid].details.get("errors") or []) if sid in aperture else []:
+            if e in routes:
+                routes[e] += 1
+        m, errors, _ = diag.get(sid, ("none", "", None))
+        if m == "halo" and "Automatically switched to Halo photometry" in errors:
+            switched += 1
+            fl = halo_res[sid].lightcurve["flux"]
+            ok = np.isfinite(fl)
+            corr.append(float(np.corrcoef(fl[ok] / np.median(fl[ok]), mods[i][ok])[0, 1]))
+    n_flush = [n for n, _, _ in flushes]
+    print(f"phase 7 halo: {switched} of {nb} bright stars switched to halo (aperture errors: "
+          + ", ".join(f"{k!r} {v}" for k, v in routes.items())
+          + f"); {len(flushes)} queue flushes of {n_flush} targets in "
+          f"{[round(w, 3) for _, w, _ in flushes]} s; light curve vs injected sinusoid: "
+          f"correlation min {min(corr, default=np.nan):.3f}, median "
+          f"{np.median(corr) if corr else np.nan:.3f} ({card})", flush=True)
+    check(switched >= 0.9 * nb, f"phase 7: only {switched} of {nb} bright stars went to halo")
+    check(all(v > 0 for v in routes.values()), f"phase 7: a halo route never fired: {routes}")
+    check(len(corr) == switched and min(corr) > 0.5,
+          f"phase 7: a halo light curve does not follow its sinusoid: {sorted(corr)[:3]}")
+    read = 0
+    for sid in b_sids[:8]:
+        r = halo_res.get(int(sid))
+        if r is None or read == 3:
+            continue
+        hdus = pf.read_fits(r.details["filepath_lightcurve"])
+        names = [h.name for h in hdus]
+        check("WEIGHTMAP" in names, f"TIC {sid}: no WEIGHTMAP extension in the halo product")
+        wm = hdus[names.index("WEIGHTMAP")].data["WEIGHTMAP"]
+        check(np.array_equal(np.asarray(wm), r.details["halo_weightmap"]["weightmap"]),
+              f"TIC {sid}: WEIGHTMAP differs from the result's weightmap")
+        read += 1
+    check(read == 3, "phase 7: fewer than 3 halo products read back")
+
+    # Pairs: linPSF, recovering the injected flux.
+    lin, good = 0, 0
+    rel = []
+    for j, sid in enumerate(p_sids):
+        m, errors, path = diag.get(int(sid), ("none", "", None))
+        if m != "linpsf" or "Automatically switched to linPSF photometry" not in errors:
+            continue
+        lin += 1
+        flux = np.asarray(pf.read_fits(os.path.join(folder, path))[1].data["FLUX_RAW"],
+                          np.float64)
+        truth = injected[nb + j]
+        rel.append(abs(np.nanmean(flux) - truth) / truth)
+        good += rel[-1] < 0.05
+    lin_wall = sum(w for _, w, _ in lin_calls)
+    print(f"phase 7 linPSF: {lin} of {npair} pair members switched to linPSF, {good} of them "
+          f"within 5% of the injected mean flux (|rel| median {np.median(rel):.4f}, max "
+          f"{max(rel):.4f}); {len(lin_calls)} reruns of {[n for n, _, _ in lin_calls]} targets "
+          f"in {lin_wall:.2f} s, peak memory {max(p for _, _, p in lin_calls) / 1e9:.2f} GB "
+          f"above what was held ({card})", flush=True)
+    check(lin >= 0.9 * npair, f"phase 7: only {lin} of {npair} pair members went to linPSF")
+    check(good >= 0.9 * lin, f"phase 7: only {good} of {lin} linPSF pairs within 5%")
+    solve_parity(lin_solves, card)
+    tvmin_parity(tv_runs, card)
+
+    if dev.type == "cuda":
+        # The drain's first two leases again under torch.profiler, on a fresh
+        # todo (the bright stars' lease with its halo flush, and the next):
+        # the trace of all eight takes minutes to collect and sort.
+        n_prof = 512
+        os.replace(os.path.join(folder, "todo.sqlite"), os.path.join(folder, "done.sqlite"))
+        write_todo(folder, todo[:n_prof], all_tmag[np.array(todo[:n_prof]) - 1])
+        ptimers = new_timers()
+        tic = time.perf_counter()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            drain(ptimers)
+            torch.cuda.synchronize()
+        busy = device_busy_ms(prof)
+        print(f"phase 7 profile ({ptimers['n_done']} tasks, {ptimers['n_batches']} leases): device "
+              f"busy {busy:.1f} ms = {100 * busy / (ptimers['photometry'] * 1e3):.2f}% of the "
+              f"profiled photometry phase's {ptimers['photometry']:.2f} s (drain "
+              f"{ptimers['wall']:.2f} s profiled, {time.perf_counter() - tic:.1f} s with the "
+              f"trace's processing); top device ops: {top_device_ops(prof)} ({card})", flush=True)
+    return {"wall": t["wall"], "n": n_done}
+
+
 # --- phase 5: the prepare slice -------------------------------------------------
 
 class DictCube:
@@ -1899,13 +2439,18 @@ def main() -> int:
     # --- phase 6: ECC registration against injected motion --------------------------
     ecc_phase(dev, img0, gen, rng, ctx_kw, sids, card)
     lap("6")
+
+    # --- phase 7: the default-method drain, on phase 3's cubes ----------------------
+    drain_phase(work, dev, gen, np.random.default_rng([args.seed, 7]),
+                (images, errs, bkgs, flags), img0, rows, cols, tmag, wcs, card)
+    lap("7")
     del ctx, ctx_kw, cube, images, errs, bkgs, flags, res_psf, refit, results
     torch.cuda.empty_cache()
 
     # --- phase 5: the prepare slice --------------------------------------------
     prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result)
     lap("5")
-    print(f"phases 1-6 took {time.perf_counter() - t_start:.1f} s: "
+    print(f"phases 1-7 took {time.perf_counter() - t_start:.1f} s: "
           + ", ".join(f"{name} {b - a:.1f} s" for (_, a), (name, b) in zip(laps, laps[1:])),
           flush=True)
 

@@ -15,6 +15,10 @@ Ported so far, each TPU kernel as a hand-written Hopper kernel under
   (``band_extract.cu``), metrics, jitter, the batch dispatcher, the drain
   and the ``photometry`` CLI;
 - the PSF method with its fused warm-start fit (``psf_warm_fit.cu``);
+- the linPSF and halo methods (torch code: the JAX package runs them in
+  XLA, outside any Pallas kernel) and both automatic switches of the
+  default method, the halo switch queued across leases
+  (``HaloSwitchQueue``) and the linPSF deblend switch;
 - the prepare stage (FFIs -> cube): background fit with the ring
   histogram (``segment_hist.cu``), time smoothing, the Background
   Shenanigans detector with the 15x15 median (``median15.cu``), and the

@@ -3,8 +3,9 @@ CLI: run photometry from the TODO list on the port.
 
 Port of ``photometry_tpu/cli/photometry_cmd.py`` (reference run_tessphot.py):
 select a task by --starid, --priority, --random or queue order, or drain
-the whole queue with --all.  ``--method aperture`` and ``--method psf``
-(or the tasks' default method) are ported so far.
+the whole queue with --all.  ``--method`` forces aperture, psf, linpsf or
+halo; without it each task runs its own method (aperture with the automatic
+halo and linPSF switches by default).
 
 Usage:
     python -m photometry_tpu_torch.cli.photometry_cmd --version 1 [options] [input_folder]
@@ -23,7 +24,8 @@ def main(argv=None) -> int:
     parser.add_argument("-d", "--debug", action="store_true", help="Print debug messages.")
     parser.add_argument("-q", "--quiet", action="store_true",
                         help="Only report warnings and errors.")
-    parser.add_argument("-m", "--method", default=None, choices=("aperture", "psf"))
+    parser.add_argument("-m", "--method", default=None,
+                        choices=("aperture", "psf", "linpsf", "halo"))
     parser.add_argument("--starid", type=int, default=None)
     parser.add_argument("--priority", type=int, default=None)
     parser.add_argument("-r", "--random", action="store_true")

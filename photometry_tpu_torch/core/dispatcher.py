@@ -1,18 +1,19 @@
 """
 Method dispatcher for task batches, on the port's engine.
 
-Port of the aperture and PSF paths of ``photometry_tpu/core/dispatcher.py``
-(reference tessphot.py:52-135): ``open_context``, ``ContextCache``,
-``photometry_batch`` and the threaded product writer.  Failures of the
-photometry itself become STATUS.ERROR results carrying the traceback, as in
-the reference (tessphot.py:20-49) — except what says the port or the card
-cannot do the work: ``NotImplementedError``, a CUDA kernel's ``KernelError``
-and ``torch.OutOfMemoryError`` propagate.
+Port of ``photometry_tpu/core/dispatcher.py`` (reference tessphot.py:52-135):
+``open_context``, ``ContextCache``, ``photometry_batch`` over the methods
+aperture, psf, linpsf and halo, the automatic halo switch (inline, or
+deferred across leases by ``HaloSwitchQueue``), the automatic linPSF deblend
+switch, ``photometry_single`` and the threaded product writer.
 
-Not ported yet: the linpsf and halo methods and the automatic halo and
-linPSF-deblend switches.  A task asking for one of those methods raises
-``NotImplementedError`` naming it, and so does a default-method batch in
-which a switch would fire.
+Failures of the photometry itself become STATUS.ERROR results carrying the
+traceback, as in the reference (tessphot.py:20-49), and a switch whose rerun
+fails keeps the aperture results — except what says the port or the card
+cannot do the work: ``NotImplementedError``, a CUDA kernel's ``KernelError``
+and ``torch.OutOfMemoryError`` propagate, from a method group, from either
+switch's rerun and from a queue's flush alike.  Diagnostics plots
+(``plot_folder``) and TPF contexts are not ported.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from ..device import resolve_device
 from ..io.settings import load_settings
 from ..ops._kernels import KernelError
 from ..utils.logutils import capture_warnings
@@ -35,10 +37,16 @@ from .status import STATUS
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["photometry_batch", "open_context", "default_time_corrector", "ContextCache"]
+__all__ = ["photometry_batch", "photometry_single", "open_context", "default_time_corrector",
+           "ContextCache", "HaloSwitchQueue"]
 
 _HALO_SWITCH_ERRORS = ("Too many stamp resizes.",
                        "Stamp resize hit limit. Haloswitch quick break.")
+
+#: What says the port or the card cannot do the work: never a target's
+#: failure, so neither a method group nor a switch's rerun turns it into
+#: results.
+_PROPAGATE = (NotImplementedError, KernelError, torch.OutOfMemoryError)
 
 
 @functools.lru_cache(maxsize=1)
@@ -139,33 +147,148 @@ def _needs_deblend_switch(res: TargetResult, settings) -> bool:
     return is_blend or truncated
 
 
-def _run_method(ctx, starids, method: str) -> list:
+def _run_method(ctx, starids, method: str, keep_diag: bool = False, **kw) -> list:
     if method == "aperture":
-        return extract_aperture_batch(ctx, starids)
+        return extract_aperture_batch(ctx, starids, **kw)
+    if method == "halo":
+        from ..models.halo import extract_halo_batch
+        return extract_halo_batch(ctx, starids, **kw)
     if method == "psf":
         from ..models.psf_fit import extract_psf_batch
-        return extract_psf_batch(ctx, starids)
+        return extract_psf_batch(ctx, starids, keep_diag=keep_diag, **kw)
+    if method == "linpsf":
+        from ..models.linpsf import extract_linpsf_batch
+        return extract_linpsf_batch(ctx, starids, keep_diag=keep_diag, **kw)
     raise ValueError(f"Invalid method: '{method}'")
+
+
+def _decorate(res, task):
+    res.details.setdefault("task", {}).update({k: task.get(k) for k in ("priority", "datasource")})
+
+
+def _run_halo_switch(ctx, switch: list, prev_results: dict):
+    """Rerun halo photometry for switch candidates, decorated like the
+    reference's automatic switch (tessphot.py:86-111): the aperture pass's
+    edge_flux is carried over, the switch is recorded in the errors column,
+    and captured warnings persist.  Returns the decorated results in task
+    order, or None if the halo rerun failed on a target's data (callers
+    keep the aperture results); what says the port or the card cannot do
+    the work propagates.
+    """
+    sids = [int(t["starid"]) for t in switch]
+    logger.warning("Auto-switching %d target(s) to halo photometry", len(sids))
+    try:
+        with capture_warnings() as halo_messages:
+            out = _run_method(ctx, sids, "halo")
+    except _PROPAGATE:
+        raise
+    except Exception:
+        logger.exception("Halo switch failed; keeping aperture results")
+        return None
+    for t, res in zip(switch, out):
+        res.details["edge_flux"] = prev_results[int(t["starid"])].details.get("edge_flux")
+        res.details.setdefault("errors", []).append("Automatically switched to Halo photometry")
+        if halo_messages:
+            res.details["errors"].extend(halo_messages)
+        _decorate(res, t)
+    return out
+
+
+class HaloSwitchQueue:
+    """Accumulate halo-switch candidates across lease batches.
+
+    A lease of 256 targets yields a handful of switch candidates; they
+    queue here so that the halo descent runs over many of them at once, as
+    one batch, once ``min_flush`` accumulate ([haloswitch] min_batch,
+    default 32, as in the JAX package), when the drain moves
+    to another CCD (the queue pins its SectorContext: flush BEFORE the
+    ContextCache evicts it), or at the drain's end (``flush(force=True)``).
+    """
+
+    def __init__(self, min_flush: Optional[int] = None, timers: Optional[dict] = None):
+        if min_flush is None:
+            min_flush = load_settings().getint("haloswitch", "min_batch", fallback=32)
+        self.min_flush = max(int(min_flush), 1)
+        self._ctx = None
+        self._items = []      # (task, aperture TargetResult)
+        self._save_args = {}
+        self._timers = timers
+
+    @property
+    def pending(self) -> int:
+        return len(self._items)
+
+    def matches(self, task: dict) -> bool:
+        """Is the pinned context safe across ``task``'s batch?  An FFI batch
+        of another CCD evicts (and closes) it, so the caller flushes first."""
+        if self._ctx is None or task["datasource"] != "ffi":
+            return True
+        return (int(task["sector"]) == self._ctx.sector
+                and int(task["camera"]) == self._ctx.camera
+                and int(task["ccd"]) == self._ctx.ccd)
+
+    def add(self, ctx, task: dict, aperture_result, **save_args):
+        assert ctx.datasource == "ffi", "defer only FFI targets"
+        assert self._ctx is None or self._ctx is ctx, "flush the queue before switching contexts"
+        self._ctx = ctx
+        self._save_args = save_args
+        self._items.append((task, aperture_result))
+
+    def should_flush(self) -> bool:
+        return len(self._items) >= self.min_flush
+
+    def flush(self, force: bool = False) -> list:
+        """Run the queued halo batch; returns resolved ``(task, result)``.
+
+        Below ``min_flush`` and not ``force``, returns [] (keeps queueing).
+        If the halo rerun fails on the targets' data, the aperture results
+        are resolved instead.  Light-curve products are written here with
+        the save arguments captured at add-time.
+        """
+        if not self._items or (not force and not self.should_flush()):
+            return []
+        items, ctx = self._items, self._ctx
+        self._items, self._ctx = [], None
+        tasks = [t for t, _ in items]
+        tic = _timer()
+        out = _run_halo_switch(ctx, tasks, {int(t["starid"]): r for t, r in items})
+        if self._timers is not None:
+            self._timers["photometry"] += _timer() - tic
+        if out is None:
+            out = [r for _, r in items]
+            for r in out:
+                r.details.pop("halo_switch_deferred", None)
+        sa = self._save_args
+        if sa.get("save", True):
+            _save_results_parallel(ctx, out, sa.get("output_folder"), sa.get("version"),
+                                   timers=self._timers)
+        return list(zip(tasks, out))
 
 
 def photometry_batch(ctx, tasks: list, output_folder: Optional[str] = None,
                      version: Optional[int] = None, save: bool = True,
+                     halo_queue: Optional[HaloSwitchQueue] = None,
                      timers: Optional[dict] = None) -> list:
     """Run photometry for a batch of compatible tasks on one context.
 
-    Tasks without an explicit method run aperture photometry; each method's
-    group runs as one batch.  When ``save``, light curves of OK/WARNING
-    results are written.  ``timers`` (a core.drain.new_timers dict)
-    accumulates the wall of the photometry and product-save phases.
+    Tasks without an explicit method run aperture photometry; of those,
+    bright targets matching the halo-switch condition are rerun with halo,
+    and blends matching the deblend condition with linPSF.  When ``save``,
+    light curves of OK/WARNING results are written.
+
+    With ``halo_queue``, FFI halo-switch candidates are queued for a later
+    batched rerun instead of rerunning inline; their interim results come
+    back flagged ``details["halo_switch_deferred"]`` and must be withheld
+    from save_result until :meth:`HaloSwitchQueue.flush` resolves them.
+    ``timers`` (a core.drain.new_timers dict) accumulates the wall of the
+    photometry and product-save phases.
     """
     settings = load_settings()
+    tmag_limit = settings.getfloat("haloswitch", "tmag_limit", fallback=6.0)
+    flux_limit = settings.getfloat("haloswitch", "flux_limit", fallback=0.01)
     by_method = {}
     for task in tasks:
         by_method.setdefault(task.get("method") or "aperture", []).append(task)
-    unported = sorted(set(by_method) & {"linpsf", "halo"})
-    if unported:
-        raise NotImplementedError(f"method {unported[0]!r} is not ported to "
-                                  "photometry_tpu_torch yet (only 'aperture' and 'psf')")
 
     results = {}
     for method, group in by_method.items():
@@ -175,8 +298,8 @@ def photometry_batch(ctx, tasks: list, output_folder: Optional[str] = None,
         with capture_warnings() as log_messages:
             try:
                 got = _run_method(ctx, [int(t["starid"]) for t in group], method)
-            except (NotImplementedError, KernelError, torch.OutOfMemoryError):
-                raise   # the port or the card cannot do this work: not a target's failure
+            except _PROPAGATE:
+                raise
             except Exception:
                 tb = traceback.format_exc().strip()
                 logger.exception("Method %s failed for batch", method)
@@ -186,27 +309,68 @@ def photometry_batch(ctx, tasks: list, output_folder: Optional[str] = None,
         for task, res in zip(group, got):
             if log_messages:
                 res.details.setdefault("errors", []).extend(log_messages)
-            res.details.setdefault("task", {}).update(
-                {k: task.get(k) for k in ("priority", "datasource")})
+            _decorate(res, task)
             results[int(task["starid"])] = res
+
+    # Automatic halo switch (default-method targets only):
+    default_tasks = [t for t in tasks if not t.get("method")]
+    switch = [t for t in default_tasks
+              if not str(t["datasource"]).startswith("tpf:")
+              and _needs_halo_switch(results[int(t["starid"])], tmag_limit, flux_limit)]
+    if switch and halo_queue is not None and ctx.datasource == "ffi":
+        # Deferred: the candidates of many leases rerun as one halo batch.
+        for t in switch:
+            res = results[int(t["starid"])]
+            halo_queue.add(ctx, t, res, save=save, output_folder=output_folder,
+                           version=version)
+            res.details["halo_switch_deferred"] = True
+    elif switch:
+        tic = _timer()
+        out = _run_halo_switch(ctx, switch, results)
+        if timers is not None:
+            timers["photometry"] += _timer() - tic
+        if out is not None:
+            for t, res in zip(switch, out):
+                results[int(t["starid"])] = res
+
+    # Automatic deblend switch: aperture targets that are blends are rerun
+    # with linear-PSF photometry, which fits the blend jointly instead of
+    # splitting its pixels at a watershed boundary.
+    switched_halo = {int(t["starid"]) for t in switch}
+    deblend = [t for t in default_tasks
+               if int(t["starid"]) not in switched_halo
+               and not str(t["datasource"]).startswith("tpf")
+               and _needs_deblend_switch(results[int(t["starid"])], settings)]
+    if deblend:
+        logger.warning("Auto-switching %d blended target(s) to linPSF photometry", len(deblend))
+        tic = _timer()
+        try:
+            with capture_warnings() as lin_messages:
+                out = _run_method(ctx, [int(t["starid"]) for t in deblend], "linpsf")
+        except _PROPAGATE:
+            raise
+        except Exception:
+            logger.exception("Deblend switch failed; keeping aperture results")
+            out = []
+        for t, res in zip(deblend, out):
+            if res.status not in (STATUS.OK, STATUS.WARNING):
+                continue  # keep the aperture result on linPSF failure
+            prev = results[int(t["starid"])]
+            res.details["completeness"] = prev.details.get("completeness")
+            for key in ("nearest_neighbour_px", "nearest_significant_neighbour_px"):
+                if prev.details.get(key) is not None:
+                    res.details[key] = prev.details[key]
+            res.details.setdefault("errors", []).append(
+                "Automatically switched to linPSF photometry (aperture mask completeness "
+                f"{100 * prev.details.get('completeness', float('nan')):.0f}%)")
+            if lin_messages:
+                res.details["errors"].extend(lin_messages)
+            _decorate(res, t)
+            results[int(t["starid"])] = res
+        if timers is not None:
+            timers["photometry"] += _timer() - tic
+
     out = [results[int(t["starid"])] for t in tasks]
-
-    # The automatic halo and deblend switches (default-method tasks only)
-    # need methods the port does not have yet:
-    tmag_limit = settings.getfloat("haloswitch", "tmag_limit", fallback=6.0)
-    flux_limit = settings.getfloat("haloswitch", "flux_limit", fallback=0.01)
-    for task, res in zip(tasks, out):
-        if task.get("method"):
-            continue
-        if _needs_halo_switch(res, tmag_limit, flux_limit):
-            raise NotImplementedError(
-                f"TIC {res.starid}: the automatic halo switch would fire, and method "
-                "'halo' is not ported to photometry_tpu_torch yet")
-        if _needs_deblend_switch(res, settings):
-            raise NotImplementedError(
-                f"TIC {res.starid}: the automatic deblend switch would fire, and method "
-                "'linpsf' is not ported to photometry_tpu_torch yet")
-
     if save:
         _save_results_parallel(ctx, out, output_folder, version, timers=timers)
     return out
@@ -216,11 +380,12 @@ def _save_results_parallel(ctx, results: list, output_folder, version,
                            timers: Optional[dict] = None):
     """Write light-curve products for OK/WARNING results on a small thread
     pool (zlib releases the GIL).  A failed write demotes that target to
-    STATUS.ERROR with the traceback (BasePhotometry.py:1417-1728)."""
+    STATUS.ERROR with the traceback (BasePhotometry.py:1417-1728).  Deferred
+    halo-switch candidates are written by their queue's flush."""
     tic = _timer()
     jobs = []
     for res in results:
-        if res.status not in (STATUS.OK, STATUS.WARNING):
+        if res.status not in (STATUS.OK, STATUS.WARNING) or res.details.get("halo_switch_deferred"):
             continue
         outdir = output_folder
         if outdir is None:
@@ -248,3 +413,30 @@ def _save_results_parallel(ctx, results: list, output_folder, version,
     if timers is not None:
         timers["save"] += _timer() - tic
         timers["n_products"] = timers.get("n_products", 0) + len(jobs)
+
+
+def photometry_single(starid: int, input_folder: str, method: Optional[str] = None,
+                      datasource: str = "ffi", sector: Optional[int] = None,
+                      camera: Optional[int] = None, ccd: Optional[int] = None,
+                      cadence: Optional[int] = None, output_folder: Optional[str] = None,
+                      version: Optional[int] = None, save: bool = True,
+                      device="cuda") -> TargetResult:
+    """One-star entry point (reference tessphot.py call signature), on ``device``."""
+    device = resolve_device(device)
+    task = {"starid": starid, "datasource": datasource, "sector": sector,
+            "camera": camera, "ccd": ccd, "cadence": cadence, "method": method}
+    try:
+        # Context construction is inside the ERROR contract too (the
+        # reference wraps photometry-object construction, tessphot.py:20-49):
+        ctx = open_context(input_folder, task, device=device)
+    except _PROPAGATE:
+        raise
+    except Exception:
+        return _error_result(task, None, traceback.format_exc().strip())
+    try:
+        task.update({"sector": ctx.sector, "camera": ctx.camera, "ccd": ctx.ccd,
+                     "cadence": ctx.cadence})
+        return photometry_batch(ctx, [task], output_folder=output_folder,
+                                version=version, save=save)[0]
+    finally:
+        ctx.close()

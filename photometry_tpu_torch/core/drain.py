@@ -3,10 +3,11 @@ The production drain loop: lease task batches, run photometry, write
 products, persist diagnostics.
 
 Port of ``photometry_tpu/core/drain.py`` (reference run_tessphot.py:124-166
-and the per-task unit of run_tessphot_mpi.py:148-196) for the aperture
-and PSF paths: batches are leased per (sector, camera, ccd, datasource,
-cadence) so one device context serves hundreds of targets.  The optional ``timers``
-dict decomposes the wall into the pipeline's phases.
+and the per-task unit of run_tessphot_mpi.py:148-196): batches are leased
+per (sector, camera, ccd, datasource, cadence) so one device context serves
+hundreds of targets, and halo-switch candidates accumulate across leases in
+a ``HaloSwitchQueue``.  The optional ``timers`` dict decomposes the wall
+into the pipeline's phases.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from timeit import default_timer
 from typing import Optional
 
 from ..taskmanager import TaskManager
-from .dispatcher import ContextCache, photometry_batch
+from .dispatcher import ContextCache, HaloSwitchQueue, photometry_batch
 
 __all__ = ["run_drain", "task_to_result", "new_timers"]
 
@@ -52,13 +53,11 @@ def run_drain(input_folder: str, version: int,
               timers: Optional[dict] = None, device="cuda") -> int:
     """Drain the TODO queue (or one task) through the batch dispatcher on ``device``.
 
-    Arguments as the reference's ``run_drain``; ``method`` may be None
-    (tasks' own method, aperture by default), ``"aperture"`` or ``"psf"``.
-    Returns the number of tasks processed.
+    Arguments as the reference's ``run_drain``; ``method`` forces one of
+    aperture, psf, linpsf or halo for every task, None keeps the tasks' own
+    (aperture with both automatic switches by default).  Returns the number
+    of tasks processed.
     """
-    if method not in (None, "aperture", "psf"):
-        raise NotImplementedError(f"method {method!r} is not ported to "
-                                  "photometry_tpu_torch yet (only 'aperture' and 'psf')")
     constraints = dict(constraints or {})
     output_folder = output_folder or input_folder
     t = timers if timers is not None else new_timers()
@@ -67,6 +66,27 @@ def run_drain(input_folder: str, version: int,
     with TaskManager(input_folder, cleanup=all_tasks, summary=summary) as tm, \
             ContextCache(device=device) as ctx_cache:
         n_done = 0
+        # Halo-switch candidates accumulate across lease batches and rerun
+        # as one halo batch; single-task modes keep the inline switch:
+        halo_queue = HaloSwitchQueue(timers=t) if all_tasks and not method else None
+
+        def flush_halo(force=False):
+            nonlocal n_done
+            if halo_queue is None or not halo_queue.pending:
+                return
+            tic = default_timer()
+            flushed = halo_queue.flush(force=force)
+            if not flushed:
+                return
+            elap = (default_timer() - tic) / len(flushed)
+            tic = default_timer()
+            tm.save_results([task_to_result(tk, res, elap) for tk, res in flushed])
+            t["sqlite"] += default_timer() - tic
+            for tk, res in flushed:
+                n_done += 1
+                logger.info("Priority %d: TIC %d -> %s (halo flush)", tk["priority"],
+                            tk["starid"], res.status.name)
+
         while True:
             tic = default_timer()
             if random_task and not all_tasks:
@@ -81,6 +101,10 @@ def run_drain(input_folder: str, version: int,
             t["lease"] += default_timer() - tic
             if not batch:
                 break
+            # The queue pins its SectorContext: resolve it before the
+            # ContextCache evicts that context for a different CCD.
+            if halo_queue is not None and not halo_queue.matches(batch[0]):
+                flush_halo(force=True)
             tic = default_timer()
             tm.start_tasks([tk["priority"] for tk in batch])
             t["sqlite"] += default_timer() - tic
@@ -94,21 +118,26 @@ def run_drain(input_folder: str, version: int,
                     for tk in batch:
                         tk["method"] = method
                 results = photometry_batch(ctx, batch, output_folder=products_folder,
-                                           version=version, timers=t)
+                                           version=version, halo_queue=halo_queue, timers=t)
             finally:
                 ctx_cache.release(ctx, cached)
             elaptime = (default_timer() - tic_batch) / max(len(batch), 1)
+            # Deferred halo-switch candidates stay leased until their flush:
+            ready = [(tk, res) for tk, res in zip(batch, results)
+                     if not res.details.get("halo_switch_deferred")]
             tic = default_timer()
-            tm.save_results([task_to_result(tk, res, elaptime)
-                             for tk, res in zip(batch, results)])
+            tm.save_results([task_to_result(tk, res, elaptime) for tk, res in ready])
             t["sqlite"] += default_timer() - tic
             t["n_batches"] += 1
-            for tk, res in zip(batch, results):
+            for tk, res in ready:
                 n_done += 1
                 logger.info("Priority %d: TIC %d -> %s", tk["priority"], tk["starid"],
                             res.status.name)
+            if halo_queue is not None and halo_queue.should_flush():
+                flush_halo()
             if not all_tasks:
                 break
+        flush_halo(force=True)
         logger.info("%d task(s) processed.", n_done)
         t["wall"] += default_timer() - tic_wall
         t["n_done"] += n_done

@@ -360,18 +360,33 @@ class PRF:
 
     def design_matrix(self, rows, cols, shape, cutoff_radius: Optional[float] = 5.0):
         """Unit-flux PRF per star, flattened: (h*w, S) — the linPSF 'A' matrix."""
+        return self.design_matrix_batch(rows, cols, shape, cutoff_radius).T
+
+    def design_matrix_batch(self, rows, cols, shape, cutoff_radius: Optional[float] = 5.0):
+        """Unit-flux PRF per star for many frames at once.
+
+        ``rows``/``cols`` (..., S) star positions -> (..., S, h*w): each
+        frame's design matrix, transposed (star-major), every element equal
+        to :meth:`design_matrix`'s.  The Gaussian route evaluates its erf
+        factors per row and per column and multiplies them by broadcasting,
+        so it holds no (..., S, h, w) offset grids.
+        """
         rows, cols = self._f32(rows), self._f32(cols)
         h, w = shape
-        S = rows.shape[0]
+        lead = rows.shape
         if self._grid_separable:
-            params = torch.stack([rows, cols, torch.ones_like(rows)], dim=1)[:, None]  # (S,1,3)
-            return self._render_separable(params, shape, cutoff_radius).reshape(S, h * w).T
-        drow, dcol = self._pixel_offsets(rows, cols, shape)
+            params = torch.stack([rows, cols, torch.ones_like(rows)], dim=-1)[..., None, :]
+            img = self._render_separable(params, shape, cutoff_radius)
+            return img.reshape(*lead, h * w)
+        drow = torch.arange(h, dtype=torch.float32, device=self.device)[:, None] \
+            - rows[..., None, None]                                        # (..., S, h, 1)
+        dcol = torch.arange(w, dtype=torch.float32, device=self.device)[None, :] \
+            - cols[..., None, None]                                        # (..., S, 1, w)
         frac = self.pixel_fraction(drow, dcol)
         if cutoff_radius is not None:
             frac = torch.where(drow ** 2 + dcol ** 2 < cutoff_radius ** 2, frac,
                                torch.zeros((), device=self.device))
-        return frac.reshape(h * w, S)
+        return frac.expand(*lead, h, w).reshape(*lead, h * w)
 
 
 def prf_from_jax(jax_prf, device) -> PRF:

@@ -5,7 +5,8 @@ agree with their plain versions.
   ``h5py`` and ``photometry_tpu`` (the first dotted component, so
   ``photometry_tpu_torch`` passes), every module of the port imports,
   ``extract_aperture_batch`` and ``extract_psf_batch`` run on a tiny
-  ``SectorContext.from_arrays`` context on the CPU, and the prepare stage
+  ``SectorContext.from_arrays`` context on the CPU, and so do
+  ``extract_linpsf_batch`` and ``extract_halo_batch``; the prepare stage
   (``prepare.prepare_cube``) runs on a tiny simulated sector into
   ``chip_smoke.DictCube``, the in-memory store the card's run uses.
 - No module of ``photometry_tpu_torch``, and not ``chip_smoke.py``, has an
@@ -82,6 +83,11 @@ assert all(np.isfinite(r.lightcurve["flux"]).all() for r in res)
 psf = extract_psf_batch(ctx, [1, 2, 3, 4])
 assert all(r.status in (STATUS.OK, STATUS.WARNING) for r in psf), [r.status for r in psf]
 assert all(np.isfinite(r.lightcurve["flux"]).all() for r in psf)
+from photometry_tpu_torch.models.halo import extract_halo_batch
+from photometry_tpu_torch.models.linpsf import extract_linpsf_batch
+for got in (extract_linpsf_batch(ctx, [1, 2, 3, 4]), extract_halo_batch(ctx, [1, 2])):
+    assert all(r.status in (STATUS.OK, STATUS.WARNING) for r in got), [r.status for r in got]
+    assert all(np.isfinite(r.lightcurve["flux"]).all() for r in got)
 
 from chip_smoke import DictCube
 from photometry_tpu_torch.io.discovery import find_ffi_files
@@ -481,3 +487,72 @@ def test_stamp_flux_kernel_matches_plain_on_card():
     with pytest.raises(KernelError):
         sf.stamp_flux_cuda(args[0], torch.ones(1, 300, 300, dtype=torch.bool, device="cuda"),
                            args[2][:1], args[3][:1])
+
+
+def _switch_field(path, device):
+    """A 64x64, 16-cadence context on ``device``: a Tmag 5.5 star with a 1%
+    sinusoid, a 4 px pair (Tmag 10.0 and 10.3) and two isolated stars."""
+    from photometry_tpu_torch.catalog import make_catalog_from_arrays
+    from photometry_tpu_torch.core.engine import SectorContext
+    from photometry_tpu_torch.io.wcs import TanWCS
+    rng = np.random.default_rng(4)
+    H = W = 64
+    T = 16
+    rows = np.array([32.3, 14.2, 14.2 + 2.8, 50.6, 12.4])
+    cols = np.array([30.7, 40.1, 40.1 + 2.86, 12.3, 12.8])
+    tmag = np.array([5.5, 10.0, 10.3, 9.0, 11.0])
+    yy, xx = np.mgrid[0:H, 0:W]
+    amp = np.ones((T, len(tmag)))
+    amp[:, 0] += 0.01 * np.sin(np.arange(T) / 2.0)
+    images = np.full((T, H, W), 100.0)
+    for k, (r, c, m) in enumerate(zip(rows, cols, tmag)):
+        psf = np.exp(-0.5 * ((yy - r) ** 2 + (xx - c) ** 2) / 1.2 ** 2) / (2 * np.pi * 1.44)
+        images += amp[:, k, None, None] * 10 ** (-0.4 * (m - 20.451)) * psf
+    images = (images + rng.normal(0, 1, images.shape) * np.sqrt(images)).astype(np.float32)
+    wcs = TanWCS(crpix=[32.5, 32.5], crval=[80.0, -30.0],
+                 cd=[[-21 / 3600, 0], [0, 21 / 3600]])
+    ra, dec = wcs.radec_of_rowcol(rows, cols)
+    cat = make_catalog_from_arrays(str(path), 1, 1, 1, starid=np.arange(1, 6), ra_j2000=ra,
+                                   dec_j2000=dec, pm_ra=np.zeros(5), pm_dec=np.zeros(5),
+                                   tmag=tmag, reference_time=2458340.0)
+    return SectorContext.from_arrays(
+        images=images - 100.0, images_err=np.sqrt(images), backgrounds=np.full_like(images, 100.0),
+        pixelflags=np.zeros(images.shape, np.uint8), sumimage=images.mean(0) - 100.0,
+        time=1325.0 + np.arange(T) / 48, timecorr=np.zeros(T, np.float32),
+        cadenceno=np.arange(T), quality=np.zeros(T, np.int32), catalog_path=cat, wcs=wcs,
+        sector=1, camera=1, ccd=1, header={"PSFSIGMA": 1.2}, device=device)
+
+
+@pytest.mark.cuda
+def test_linpsf_and_halo_match_cpu_on_card(tmp_path):
+    """``extract_linpsf_batch`` and ``extract_halo_batch`` on the card equal
+    the port's CPU run: linPSF fluxes, errors and contamination to rtol
+    1e-4 (tests/test_psf_models.py:190), halo light curves and weightmaps to
+    the weights' rtol 5e-4 (tests/test_halo.py:62-66); statuses exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from photometry_tpu_torch.models.halo import extract_halo_batch
+    from photometry_tpu_torch.models.linpsf import extract_linpsf_batch
+    cpu, card = _switch_field(tmp_path, "cpu"), _switch_field(tmp_path, "cuda")
+    for g, w in zip(extract_linpsf_batch(card, [2, 3, 4, 5]),
+                    extract_linpsf_batch(cpu, [2, 3, 4, 5])):
+        assert g.status == w.status and g.details["n_stars_fit"] == w.details["n_stars_fit"]
+        for k in ("flux", "flux_err", "flux_background"):
+            np.testing.assert_allclose(g.lightcurve[k], w.lightcurve[k], rtol=1e-4,
+                                       atol=1e-4 * np.nanmedian(np.abs(w.lightcurve["flux"])),
+                                       err_msg=f"{g.starid} {k}")
+        np.testing.assert_allclose(g.details["contamination"], w.details["contamination"],
+                                   rtol=1e-4, atol=1e-7)
+    for kw in ({}, {"objective": "tv_o2", "sigclip": True, "maxiter": 41}):
+        got, want = extract_halo_batch(card, [1, 4], **kw), extract_halo_batch(cpu, [1, 4], **kw)
+        for g, w in zip(got, want):
+            assert g.status == w.status and g.details.get("errors") == w.details.get("errors")
+            for k in ("flux", "flux_err"):
+                np.testing.assert_allclose(g.lightcurve[k], w.lightcurve[k], rtol=5e-4,
+                                           err_msg=f"{g.starid} {k}")
+            gw, ww = g.details["halo_weightmap"], w.details["halo_weightmap"]
+            np.testing.assert_allclose(gw["weightmap"], ww["weightmap"], rtol=5e-4,
+                                       atol=1e-6 * np.abs(ww["weightmap"]).max())
+            assert gw["sat_pixels"] == ww["sat_pixels"]
+    cpu.close()
+    card.close()
