@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Smoke run of photometry_tpu_torch on one CUDA card.
 
-Drives the port's FFI aperture, PSF and prepare paths, the flux-only stamp
-extraction, ECC registration and the default-method drain (both automatic
-switches: halo and linPSF) through the entry points a user calls, with
-JAX, h5py and the JAX package blocked from import.  Phases run in the order
-0, 1, 2, 2b, 2c, 2d (adversarial), 3, 2d (main shape, on phase 3's cube and
-targets), 4, 6 (on phase 3's cube), 7 (on phase 3's cubes), 5:
+Drives the port's FFI aperture, PSF and prepare paths, bfloat16 cubes, the
+flux-only stamp extraction, ECC registration, the default-method drain (both
+automatic switches: halo and linPSF) and Target Pixel Files through the
+drain, through the entry points a user calls, with JAX, h5py and the JAX
+package blocked from import.  Phases run in the order 0, 1, 2, 2b, 2c, 2d
+(adversarial), 3, 3b (on phase 3's cube), 2d (main shape, on phase 3's cube
+and targets), 4, 6 (on phase 3's cube), 8 (beside phase 3's context), 7 (on
+phase 3's cubes), 3b (the full sector, once phase 3's cubes are freed), 5:
 
 0. imports: ``jax``, ``jaxlib``, ``h5py`` and ``photometry_tpu`` refused.
-1. device: the card's name and power limit; the five kernels are built with
-   nvcc for sm_90a from ``photometry_tpu_torch/ops/csrc/``, one nvcc each,
-   started together (registers and spills of every kernel printed).
+1. device: the card's name and power limit; the five kernel sources are
+   built with nvcc for sm_90a from ``photometry_tpu_torch/ops/csrc/``, one
+   nvcc each, started together (registers and spills of every kernel
+   printed, the band kernel's float32 and bfloat16 instantiations apart).
 2. band kernel vs its plain torch version on the card: adversarial inputs
    (NaN pixels, an all-zero frame, NaN err/background, shenanigans flags,
    stamps straddling 64x128 cells), adversarial stamps (a 1-pixel mask, a
@@ -21,7 +24,16 @@ targets), 4, 6 (on phase 3's cube), 7 (on phase 3's cubes), 5:
    path's shape (2048x2048 CCD, T=512, 1,024 targets of 17x17 and 33x33)
    with median times (through band_extract_flux_batch, through
    band_sums_cuda, and the kernel alone) beside the bytes bound and the
-   bound of the 32-byte sectors the pixels touch.
+   bound of the 32-byte sectors the pixels touch.  In bfloat16: the
+   adversarial inputs with NaN, +-inf, float32 values that round to inf in
+   bfloat16, subnormals and -0 written under the stamps, cast on the card
+   (the kernel's sums against plain on the same cube, against the float32
+   kernel on the widened cube bit for bit, twice bit-equal), the stamp
+   cases, then the main shapes on phase 3's cube cast to bfloat16, timed
+   beside both bounds at 2-byte elements.  At Target Pixel File shapes:
+   whole 11x11, 15x15 and 21x21 frames at T = 19,728 and 11x11 at T =
+   118,080 (planes off 16 bytes, 3,690 blocks on the grid's y axis), in
+   both types.
 2b. PSF kernel vs its plain torch version on the card: the problems of
    tests/test_psf_pallas.py redrawn, then adversarial instances (NaN
    pixels, an all-NaN stamp, dummy stars, blends, a star clipped at the
@@ -65,6 +77,22 @@ targets), 4, 6 (on phase 3's cube), 7 (on phase 3's cubes), 5:
    its times beside both bounds), 1,024 of them re-extracted by the
    plain path, then ``photometry_batch`` on one 256-task lease with
    products read back.
+3b. bfloat16 cubes: a context cast on the card from phase 3's cube
+   (``SectorContext.from_arrays(..., cube_dtype=torch.bfloat16)``);
+   ``extract_aperture_batch`` on the same 10,240 targets (the bfloat16
+   instantiation's launch count must rise and the float32 one's must not;
+   its launch recorded and held to plain, timed beside its bounds),
+   statuses and masks equal to phase 3's, fluxes against phase 3's within
+   tests/test_engine_extras.py's sector-scale bounds (p99 |rel| < 1.5e-3,
+   median < 5e-4, flux_err p99 < 1e-2); then PSF on 128 targets, linPSF on
+   16 and halo on 4, forced by ``method``, the first P7_PARITY of each held
+   to a CPU re-run on a host copy of the same bfloat16 cube (PSF: phase 4's
+   flux bound on 99% of cadences, the card's kernel against the plain
+   fitter; linPSF rtol 1e-4; halo rtol 5e-4).  After phase 7: the full
+   primary-mission sector, T = 1,312 in bfloat16 (38.5 GB with the flags)
+   made in frame blocks on the card, ``extract_aperture_batch`` on the same
+   targets: wall, targets/s, peak memory (below 80 GB) and the band
+   launch's time beside its bounds.
 4. the PSF slice on the same context: a synthetic K=3 table PRF written
    with ``PRF.write_mat`` and read back with ``PRF.from_mat``,
    ``extract_psf_batch`` on the 2,048 brightest targets (the PSF kernel's
@@ -121,6 +149,27 @@ targets), 4, 6 (on phase 3's cube), 7 (on phase 3's cubes), 5:
    first two leases again under ``torch.profiler``: device busy share and
    top device ops.
 
+8. Target Pixel Files through the drain: 128 primary TPFs at 120 s (T =
+   19,728, 27.4 d; an eighth 21x21 and an eighth 15x15, the rest 11x11) on
+   phase 3's field, each star rendered as ``make_field`` renders it, moved
+   by a drifting POS_CORR, a 1% sinusoid on each primary, a SPOC aperture,
+   4 files gzipped, written with ``io.fits.write_fits``; their ``tpf:NNN``
+   secondaries as photometry_tpu/todolist.py finds them; one 20-s TPF (T =
+   118,080); 256 FFI tasks on phase 3's context; ``run_drain(...,
+   method=None)`` in leases of 32, so FFI and TPF leases alternate, with
+   ``dispatcher.open_context`` handing back phase 3's context for FFI tasks
+   only.  Checks: every task gets a final status, TPF primaries end OK,
+   WARNING or SKIPPED, each recorded band launch equals ``band_sums_plain``
+   on its own inputs, the primaries' median flux within 0.8-1.2 of the
+   injected flux and their light curves correlating > 0.5 with the
+   sinusoid, ``pos_corr`` on the written POS_CORR re-zeroed at the
+   reference time (5e-4 px: two float32 ulps at 2,000 px), one APERTURE
+   product with the SPOC bits, the
+   20-s light curve > 95% finite with rms_hour below its scatter.  Prints
+   the drain's timers, TPF tasks/s with products and the band kernel's
+   time at (N=1, T=19,728, 11x11) and (N=1, T=118,080) beside its bytes
+   bound.
+
 Prints the wall of each phase, a JSON line of per-kernel results, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero on any failure, without a result, and when no CUDA card is
@@ -159,6 +208,10 @@ PSF_TEST_SEED = 1
 KERNELS = {
     "band_extract": ("photometry_tpu_torch/ops/csrc/band_extract.cu",
                      "photometry_tpu/ops/bandext.py:258"),
+    # The band kernel's bfloat16 instantiation (bfloat16 cubes, as the TPU
+    # kernel reads them), from the same source:
+    "band_extract_bf16": ("photometry_tpu_torch/ops/csrc/band_extract.cu",
+                          "photometry_tpu/ops/bandext.py:258"),
     "psf_warm_fit": ("photometry_tpu_torch/ops/csrc/psf_warm_fit.cu",
                      "photometry_tpu/models/psf_pallas.py:76"),
     "median15": ("photometry_tpu_torch/ops/csrc/median15.cu",
@@ -177,6 +230,11 @@ PREP = {"T": 96, "sector": 27, "camera": 1, "ccd": 1, "chunk": 64}
 # the bright stars that must outgrow ten stamp resizes run this many rows.
 P7 = {"bright": 40, "pairs": 32, "todo": 2048, "tail": 160}
 P7_PARITY = 4                            # targets of phase 7's linPSF and TV-min re-run on the CPU
+# Phase 3b: a full primary-mission sector (1,312 frames at 1,800 s) in bfloat16.
+T_SECTOR = 1312
+# Phase 8: 128 primary TPFs at 120 s over 27.4 d, one 20-s TPF, 256 FFI
+# tasks, 4 files gzipped; leases of 32 so FFI and TPF leases alternate.
+P8 = {"tpf": 128, "T": 19728, "fast_T": 118080, "ffi": 256, "gzip": 4, "batch": 32}
 RAW_SHAPE = (2078, 2136)                 # raw TESS FFI; science area rows 0:2048, cols 44:2092
 # NVIDIA H100 SXM data sheet: HBM bytes/s, float32 FLOP/s outside the tensor cores,
 # dense TF32 FLOP/s of the tensor cores (3xTF32 spends three products on one).
@@ -263,22 +321,24 @@ def adversarial_inputs(rng, T=16, H=128, W=256, N=14, h=17, w=17):
     return imgs, errs, bkgs, flags, masks, r0s, c0s
 
 
-def band_bytes(masks, T, windows=None):
+def band_bytes(masks, T, windows=None, elem=4):
     """Bytes band_extract_flux_batch must move: image, err and background
-    (f32) under each mask and the flags (u8) under each window (the whole
-    stamp without windows) for every cadence, the mask bytes once, and the
-    five outputs (3 f32, a 2-f32 centroid and a bool) per target and cadence."""
+    (``elem`` bytes each: 4 in float32, 2 in bfloat16) under each mask and
+    the flags (u8) under each window (the whole stamp without windows) for
+    every cadence, the mask bytes once, and the five outputs (3 f32, a 2-f32
+    centroid and a bool) per target and cadence."""
     N, h, w = masks.shape
     n_win = N * h * w if windows is None else int(np.asarray(windows).sum())
-    return T * (12 * int(masks.sum()) + n_win) + N * h * w + N * T * 21
+    return T * (3 * elem * int(masks.sum()) + n_win) + N * h * w + N * T * 21
 
 
-def band_sector_bytes(masks, r0s, c0s, T, width, windows=None):
+def band_sector_bytes(masks, r0s, c0s, T, width, windows=None, elem=4):
     """band_bytes with every pixel read counted as the whole 32-byte sector
     it lies in (the card reads no less): per cadence, the sectors of the
-    three float32 planes under each mask and of the flag plane under each
-    window, each sector once per target.  A frame's bytes are a multiple of
-    32, so a pixel's sector is the same in every cadence."""
+    three value planes (``elem``-byte elements) under each mask and of the
+    flag plane under each window, each sector once per target.  A frame's
+    bytes are a multiple of 32 at the shapes this is used for, so a pixel's
+    sector is the same in every cadence."""
     masks = np.asarray(masks, bool)
     N, h, w = masks.shape
     wins = np.ones_like(masks) if windows is None else np.asarray(windows, bool)
@@ -286,7 +346,7 @@ def band_sector_bytes(masks, r0s, c0s, T, width, windows=None):
     per_cadence = 0
     for n in range(N):
         addr = (int(r0s[n]) + ii) * width + (int(c0s[n]) + jj)
-        per_cadence += 3 * 32 * np.unique(addr[masks[n]] // 8).size
+        per_cadence += 3 * 32 * np.unique(addr[masks[n]] // (32 // elem)).size
         per_cadence += 32 * np.unique(addr[wins[n]] // 32).size
     return T * per_cadence + N * h * w + N * T * 21
 
@@ -339,14 +399,16 @@ def band_sums_err(got, want, what):
     return float((got - want).abs().max()) if got.numel() else 0.0
 
 
-def band_adversarial(dev, rng):
+def band_adversarial(dev, rng, dtype=None):
     """Phase 2's stamp cases for the compacted layout: a 1-pixel mask, a full
     mask, masks on each edge of the stamp and on its border ring, an empty
     mask, windows cut short, 33x33 stamps flush with the frame's edges, and
     T = 37 (not a multiple of the 32-cadence block); the kernel's sums
-    against the plain ones, and the same bits twice."""
+    against the plain ones, and the same bits twice.  With ``dtype``
+    bfloat16, the value planes are cast to it on the card first."""
     import torch
     from photometry_tpu_torch.ops import bandext
+    dtype = dtype or torch.float32
     T_, H_, W_, hw = 37, 96, 160, 33
     imgs = rng.normal(100, 5, (T_, H_, W_)).astype(np.float32)
     imgs[2, 40:50, 40:50] = np.nan
@@ -374,6 +436,7 @@ def band_adversarial(dev, rng):
     c0s = np.array([0, W_ - hw, 7, W_ - hw, 0, 90, 2, 100, 50, 127], np.int32)
     args = [torch.as_tensor(a, device=dev)
             for a in (imgs, errs, bkgs, flags, masks, r0s, c0s)]
+    args[:3] = [x.to(dtype) for x in args[:3]]
     err = 0.0
     for win in (None, torch.as_tensor(windows, device=dev)):
         got = bandext.band_sums_cuda(*args, windows=win)
@@ -383,9 +446,10 @@ def band_adversarial(dev, rng):
               "band adversarial: two runs differ")
         err = max(err, band_sums_err(got, bandext.band_sums_plain(*args, windows=win),
                                      "band adversarial stamps"))
-    print(f"phase 2 adversarial stamps (1-pixel, full, edge and border-ring masks, an empty "
-          f"mask, windows cut short, {hw}x{hw} flush with the frame, T={T_}): kernel sums == "
-          f"plain (counts exact, max |diff| {err:.3g}), two runs bit-equal", flush=True)
+    print(f"phase 2 adversarial stamps, {str(dtype)[6:]} (1-pixel, full, edge and border-ring "
+          f"masks, an empty mask, windows cut short, {hw}x{hw} flush with the frame, T={T_}): "
+          f"kernel sums == plain (counts exact, max |diff| {err:.3g}), two runs bit-equal",
+          flush=True)
     return err
 
 
@@ -393,7 +457,8 @@ def band_launcher(cube, masks, r0s, c0s, windows=None, lib=None):
     """A zero-argument launch of the band kernel (or of ``lib``, a library
     with its entry point) straight to the library, its arguments prepared
     once (no wrapper, no launch count), and the (N, 10, T) output it
-    writes: for timing the kernel alone, on the targets in the order given."""
+    writes: for timing the kernel alone, on the targets in the order given.
+    A bfloat16 cube goes to the bfloat16 instantiation."""
     import torch
     from photometry_tpu_torch.ops import bandext
     from photometry_tpu_torch.ops._kernels import BAND_EXTRACT
@@ -407,43 +472,163 @@ def band_launcher(cube, masks, r0s, c0s, windows=None, lib=None):
     lib = lib or BAND_EXTRACT.lib()
     stream = torch.cuda.current_stream(images.device).cuda_stream
     args = (mw, r0s, c0s, bbox, out)               # alive as long as the launcher
+    entry = getattr(lib, "band_extract_sums_bf16" if images.dtype == torch.bfloat16
+                    else "band_extract_sums")
 
     def launch():
-        check(lib.band_extract_sums(*(x.data_ptr() for x in cube + args), N, T_, H_, W_, h, w,
-                                    stream) == 0, "band_extract_sums launch")
+        check(entry(*(x.data_ptr() for x in cube + args), N, T_, H_, W_, h, w, stream) == 0,
+              "band_extract_sums launch")
     return launch, out
 
 
-def band_main_phase(captured, card):
-    """Phase 3's own band launch again, on the arguments the main path gave
-    it: the kernel's sums against the plain ones, twice bit-equal, and
-    its times (alone and through band_sums_cuda) beside both bounds."""
+def band_main_phase(captured, card, phase="3"):
+    """The main path's own band launch again (phase 3's, or ``phase``'s), on
+    the arguments the path gave it: the kernel's sums against the plain
+    ones, twice bit-equal, and its times (alone and through band_sums_cuda)
+    beside both bounds (at the cube's element size).  Returns (ms alone,
+    bytes bound ms, sector bound ms, max |diff|)."""
     import torch
     from photometry_tpu_torch.ops import bandext
-    check(len(captured) == 1, f"phase 3 recorded {len(captured)} band launches, not 1")
+    check(len(captured) == 1, f"phase {phase} recorded {len(captured)} band launches, not 1")
     (a, kw), = captured
     images, errs, bkgs, flags, masks, r0s, c0s = a[:7]
     windows = a[7] if len(a) > 7 else kw.get("windows")
     cube = (images, errs, bkgs, flags)
     got = bandext.band_sums_cuda(*cube, masks, r0s, c0s, windows)
     check(torch.equal(got.view(torch.int32), bandext.band_sums_cuda(
-        *cube, masks, r0s, c0s, windows).view(torch.int32)), "band main path: two runs differ")
+        *cube, masks, r0s, c0s, windows).view(torch.int32)),
+        f"phase {phase} band main path: two runs differ")
     err = band_sums_err(got, bandext.band_sums_plain(*cube, masks, r0s, c0s, windows),
-                        "band main path")
+                        f"phase {phase} band main path")
     launch, _ = band_launcher(cube, masks, r0s, c0s, windows)
     alone = cuda_ms(launch)
     wrapped = cuda_ms(lambda: bandext.band_sums_cuda(*cube, masks, r0s, c0s, windows))
     m, w_ = masks.cpu().numpy(), None if windows is None else windows.cpu().numpy()
     r, c = r0s.cpu().numpy(), c0s.cpu().numpy()
     T_, _, W_ = images.shape
-    bound = band_bytes(m, T_, w_) / PEAK_BYTES * 1e3
-    sector = band_sector_bytes(m, r, c, T_, W_, w_) / PEAK_BYTES * 1e3
-    print(f"phase 3 band kernel on the main path's launch ({m.shape[0]} targets, stamps "
-          f"{m.shape[1]}x{m.shape[2]}, {int(m.sum())} mask pixels, T={T_}): kernel alone "
-          f"{alone:.3f} ms (targets in catalog order), band_sums_cuda {wrapped:.3f} ms "
-          f"(frame order); bound {bound:.3f} ms by bytes, {sector:.3f} ms by 32-byte "
-          f"sectors; sums == plain (counts exact, max |diff| {err:.3g}), two runs "
+    elem = images.element_size()
+    bound = band_bytes(m, T_, w_, elem) / PEAK_BYTES * 1e3
+    sector = band_sector_bytes(m, r, c, T_, W_, w_, elem) / PEAK_BYTES * 1e3
+    print(f"phase {phase} band kernel on the main path's launch ({str(images.dtype)[6:]} cube, "
+          f"{m.shape[0]} targets, stamps {m.shape[1]}x{m.shape[2]}, {int(m.sum())} mask pixels, "
+          f"T={T_}): kernel alone {alone:.3f} ms (targets in catalog order), band_sums_cuda "
+          f"{wrapped:.3f} ms (frame order); bound {bound:.3f} ms by bytes, {sector:.3f} ms by "
+          f"32-byte sectors; sums == plain (counts exact, max |diff| {err:.3g}), two runs "
           f"bit-equal ({card})", flush=True)
+    return alone, bound, sector, err
+
+
+def bf16_adversarial(dev, rng):
+    """Phase 2 in bfloat16: ``adversarial_inputs`` with the values bfloat16
+    treats apart written under the stamps (NaN, +-inf, float32 values that
+    round to inf in bfloat16, subnormals, -0, and a frame of -0), cast to
+    bfloat16 on the card.  The bfloat16 kernel's sums against the plain ones
+    on the same cube (counts exact), against the float32 kernel on that cube
+    widened (bit for bit: the same pixels summed in the same order), and
+    the same bits twice; then ``band_adversarial``'s stamp cases in
+    bfloat16.  Returns the max |diff| against plain."""
+    import torch
+    from photometry_tpu_torch.ops import bandext
+    imgs, errs, bkgs, flags, masks, r0s, c0s = adversarial_inputs(rng)
+    h, w = masks.shape[1:]
+    special = np.array([np.nan, np.inf, -np.inf, 3.397e38, -3.397e38,
+                        np.finfo(np.float32).max, 1e-39, -1e-40, 1e-45, -0.0], np.float32)
+    for k, plane in enumerate((imgs, errs, bkgs)):   # under each target's central pixel
+        for n, v in enumerate(special):
+            plane[6 + k, r0s[n] + h // 2, c0s[n] + w // 2] = v
+    imgs[9] = -0.0
+    cube = [torch.as_tensor(a, device=dev) for a in (imgs, errs, bkgs)]
+    cube16 = [x.to(torch.bfloat16) for x in cube]
+    wide = [x.to(torch.float32) for x in cube16]
+    rest = [torch.as_tensor(a, device=dev) for a in (flags, masks, r0s, c0s)]
+    win = torch.zeros_like(rest[1])
+    win[:, 1:-1, 2:] = True
+    err = 0.0
+    for windows in (None, win):
+        got = bandext.band_sums_cuda(*cube16, *rest, windows)
+        again = bandext.band_sums_cuda(*cube16, *rest, windows)
+        f32 = bandext.band_sums_cuda(*wide, *rest, windows)
+        torch.cuda.synchronize()
+        check(bit_equal(got, again), "bfloat16 adversarial: two runs differ")
+        check(bit_equal(got, f32), "bfloat16 adversarial: the bfloat16 kernel differs from the "
+              "float32 kernel on the widened cube")
+        err = max(err, band_sums_err(got, bandext.band_sums_plain(*cube16, *rest, windows),
+                                     "bfloat16 adversarial"))
+    print(f"phase 2 bfloat16 adversarial (NaN, +-inf, values past bfloat16's range, subnormals, "
+          f"-0 and a -0 frame, with and without windows): kernel sums == plain on the same "
+          f"bfloat16 cube (counts exact, max |diff| {err:.3g}), == the float32 kernel on the "
+          f"widened cube bit for bit, two runs bit-equal", flush=True)
+    return max(err, band_adversarial(dev, rng, torch.bfloat16))
+
+
+def band_tpf_shapes(dev, gen):
+    """Phase 2 at Target Pixel File shapes: whole 11x11, 15x15 and 21x21
+    frames at T = 19,728 (a 120-s sector) and 11x11 at T = 118,080 (a 20-s
+    one): planes that do not start on 16 bytes (484 bytes a frame in
+    float32, 242 in bfloat16) and 3,690 blocks on the grid's y axis, in
+    float32 and in bfloat16, the kernel's sums against plain, twice
+    bit-equal.  Returns the max |diff|."""
+    import torch
+    from photometry_tpu_torch.ops import bandext
+    err, cases = 0.0, []
+    for side, T_ in ((11, 19728), (15, 19728), (21, 19728), (11, 118080)):
+        imgs = 100.0 + 5.0 * torch.randn(T_, side, side, device=dev, generator=gen)
+        imgs[7, side // 2, side // 2] = float("nan")
+        errs = torch.sqrt(imgs.abs()) + 1.0
+        bkgs = 20.0 + torch.randn(T_, side, side, device=dev, generator=gen)
+        flags = (torch.rand(T_, side, side, device=dev, generator=gen) < 0.01).to(torch.uint8) * 4
+        masks = torch.rand(1, side, side, device=dev, generator=gen) < 0.4
+        masks[0, side // 2 - 1:side // 2 + 2, side // 2 - 1:side // 2 + 2] = True
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            cube = [x.to(dtype) for x in (imgs, errs, bkgs)] + [flags]
+            got = bandext.band_sums_cuda(*cube, masks, zero, zero)
+            check(bit_equal(got, bandext.band_sums_cuda(*cube, masks, zero, zero)),
+                  f"band TPF shape {side}x{side} T={T_}: two runs differ")
+            err = max(err, band_sums_err(got, bandext.band_sums_plain(*cube, masks, zero, zero),
+                                         f"band TPF shape {side}x{side} T={T_} {dtype}"))
+        cases.append(f"{side}x{side} T={T_}")
+    print(f"phase 2 TPF shapes ({', '.join(cases)}; float32 and bfloat16): kernel sums == plain "
+          f"(counts exact, max |diff| {err:.3g}), two runs bit-equal", flush=True)
+    return err
+
+
+def bf16_main(shapes, cube, card, result, adv_err):
+    """Phase 2's main shapes again on phase 3's cube cast to bfloat16 on the
+    card (12.9 GB): the same targets and masks, the bfloat16 kernel's sums
+    against plain on the same cube (counts exact), twice bit-equal, its
+    times (through band_extract_flux_batch, band_sums_cuda and alone, and
+    the plain version's) beside the bytes and 32-byte-sector bounds at
+    2-byte elements."""
+    import torch
+    from photometry_tpu_torch.core.engine import extract_flux_core
+    from photometry_tpu_torch.ops import bandext
+    images, errs, bkgs, flags = cube
+    cube16 = tuple(x.to(torch.bfloat16) for x in (images, errs, bkgs)) + (flags,)
+    torch.cuda.synchronize()
+    err, kern_ms, plain_ms, bound = adv_err, {}, {}, {}
+    for hw, (masks, r0s, c0s, m_args) in shapes.items():
+        sums = bandext.band_sums_cuda(*cube16, *m_args)
+        check(bit_equal(sums, bandext.band_sums_cuda(*cube16, *m_args)),
+              f"bfloat16 main shape {hw}x{hw}: two runs differ")
+        err = max(err, band_sums_err(sums, bandext.band_sums_plain(*cube16, *m_args),
+                                     f"bfloat16 band sums main shape {hw}x{hw}"))
+        launch, _ = band_launcher(cube16, *m_args)
+        alone = cuda_ms(launch)
+        wrapped = cuda_ms(lambda: bandext.band_sums_cuda(*cube16, *m_args))
+        kern_ms[hw] = cuda_ms(lambda: bandext.band_extract_flux_batch(*cube16, *m_args, hw, hw))
+        plain_ms[hw] = cuda_ms(lambda: extract_flux_core(*cube16, *m_args, hw, hw))
+        bound[hw] = band_bytes(masks, T, elem=2) / PEAK_BYTES * 1e3
+        sector = band_sector_bytes(masks, r0s, c0s, T, W, elem=2) / PEAK_BYTES * 1e3
+        print(f"phase 2 bfloat16 main shape ({T}, {H}, {W}), {N_PLAIN} targets {hw}x{hw}: "
+              f"band_extract_flux_batch {kern_ms[hw]:.3f} ms (band_sums_cuda {wrapped:.3f}, the "
+              f"kernel alone {alone:.3f}), plain {plain_ms[hw]:.3f} ms (median of 5), bound "
+              f"{bound[hw]:.3f} ms by bytes, {sector:.3f} ms by 32-byte sectors at 2-byte "
+              f"elements; sums == plain (counts exact), two runs bit-equal ({card})", flush=True)
+    result["band_extract_bf16"].update(max_abs_err=err, ms=kern_ms[17], plain_ms=plain_ms[17],
+                                       bound_ms=bound[17], bound_by="bytes")
+    del cube16
+    torch.cuda.empty_cache()
 
 
 def make_field(rng):
@@ -682,9 +867,9 @@ def ptxas_regs(log, names):
 
 def reset_counts():
     """Every kernel's launch count to 0, just before a main path runs."""
-    from photometry_tpu_torch.ops._kernels import LIBRARIES
-    for lib in LIBRARIES:
-        lib.launches = 0
+    from photometry_tpu_torch.ops._kernels import KERNELS
+    for kernel in KERNELS:
+        kernel.launches = 0
 
 
 def bit_equal(a, b) -> bool:
@@ -1326,10 +1511,14 @@ def inject_phase7(images, errs, lay, gen, exptime=1425.6):
     return mods.cpu().numpy(), np.array(means)
 
 
-def write_todo(folder, sids, tmags, camera=1, ccd=1):
+def write_todo(folder, sids, tmags, camera=1, ccd=1, datasources=None, cadences=None):
     """todo.sqlite in the todolist schema (photometry_tpu/todolist.py:279-291),
-    every task an FFI target with no method, priorities by Tmag."""
+    every task with no method, priorities by Tmag; FFI targets at 1,800 s
+    unless ``datasources`` and ``cadences`` say otherwise, task by task."""
     import sqlite3
+    n = len(sids)
+    datasources = ["ffi"] * n if datasources is None else list(datasources)
+    cadences = [1800] * n if cadences is None else list(cadences)
     order = np.argsort(tmags, kind="stable")
     with sqlite3.connect(os.path.join(folder, "todo.sqlite")) as conn:
         conn.execute("""CREATE TABLE todolist (
@@ -1340,9 +1529,9 @@ def write_todo(folder, sids, tmags, camera=1, ccd=1):
             cbv_area INTEGER NOT NULL);""")
         conn.executemany(
             "INSERT INTO todolist (priority, starid, sector, camera, ccd, cadence, datasource, "
-            "tmag, cbv_area) VALUES (?, ?, 1, ?, ?, 1800, 'ffi', ?, ?);",
-            [(p + 1, int(sids[i]), camera, ccd, float(tmags[i]), camera * 100 + ccd * 10 + 1)
-             for p, i in enumerate(order)])
+            "tmag, cbv_area) VALUES (?, ?, 1, ?, ?, ?, ?, ?, ?);",
+            [(p + 1, int(sids[i]), camera, ccd, int(cadences[i]), datasources[i],
+              float(tmags[i]), camera * 100 + ccd * 10 + 1) for p, i in enumerate(order)])
         conn.execute("CREATE UNIQUE INDEX unique_target_idx ON todolist "
                      "(starid, datasource, sector, camera, ccd, cadence);")
         conn.execute("CREATE INDEX status_idx ON todolist (status);")
@@ -1669,6 +1858,525 @@ def drain_phase(work, dev, gen, rng, cubes, img0, rows, cols, tmag, wcs, card):
     return {"wall": t["wall"], "n": n_done}
 
 
+# --- phase 3b: bfloat16 cubes ---------------------------------------------------
+
+def bf16_slice(ctx_kw, sids, results32, prf, card, result):
+    """Phase 3b (1 and 2): a bfloat16 context cast on the card from phase 3's
+    cube; ``extract_aperture_batch`` on phase 3's targets, its band launch
+    recorded and held to plain, statuses and masks equal to phase 3's and
+    fluxes against phase 3's float32 ones at tests/test_engine_extras.py's
+    sector-scale bounds; then PSF, linPSF and halo forced by ``method``
+    through ``photometry_batch``, each on P7_PARITY targets held to a CPU
+    re-run on a host copy of the same bfloat16 cube."""
+    import torch
+    from photometry_tpu_torch.core.dispatcher import photometry_batch
+    from photometry_tpu_torch.core.engine import SectorContext, extract_aperture_batch
+    from photometry_tpu_torch.core.status import STATUS
+    from photometry_tpu_torch.models.prf import PRF
+    from photometry_tpu_torch.ops import bandext
+    from photometry_tpu_torch.ops._kernels import BAND_EXTRACT, BAND_EXTRACT_BF16
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    ctx = SectorContext.from_arrays(**ctx_kw, cube_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    cast_s = time.perf_counter() - tic
+    cubes = (ctx.images, ctx.images_err, ctx.backgrounds)
+    check(all(x.dtype == torch.bfloat16 and x.device.type == ctx.device.type for x in cubes),
+          "phase 3b: the context's cubes are not bfloat16 on the context's device")
+    gb = sum(x.numel() * x.element_size() for x in cubes) / 1e9
+
+    captured, run_band = [], bandext.band_sums
+
+    def recording_band_sums(*a, **kw):
+        captured.append((a, kw))
+        return run_band(*a, **kw)
+
+    reset_counts()
+    tic = time.perf_counter()
+    with mock.patch.object(bandext, "band_sums", recording_band_sums):
+        res16 = extract_aperture_batch(ctx, sids)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    result["band_extract_bf16"]["launches"] = BAND_EXTRACT_BF16.launches
+    print(f"phase 3b slice: bfloat16 cubes cast on the card from phase 3's ({gb:.1f} GB in "
+          f"{cast_s:.2f} s); {len(sids)} targets in {wall:.2f} s = {len(sids) / wall:.1f} "
+          f"targets/s ({card}); band kernel launches: bfloat16 {BAND_EXTRACT_BF16.launches}, "
+          f"float32 {BAND_EXTRACT.launches}", flush=True)
+    check(BAND_EXTRACT_BF16.launches > 0, "phase 3b did not launch the bfloat16 band kernel")
+    check(BAND_EXTRACT.launches == 0, "phase 3b: a bfloat16 cube reached the float32 kernel")
+    band_main_phase(captured, card, "3b")
+    captured.clear()
+
+    rel, err_rel, n_cmp = [], [], 0
+    for a, b in zip(results32, res16):
+        check(a.status == b.status, f"phase 3b: TIC {a.starid} status {b.status} != {a.status}")
+        check((a.mask is None) == (b.mask is None)
+              and (a.mask is None or np.array_equal(a.mask, b.mask)),
+              f"phase 3b: TIC {a.starid} mask differs from phase 3's")
+        if a.status not in (STATUS.OK, STATUS.WARNING):
+            continue
+        fa, fb = a.lightcurve["flux"], b.lightcurve["flux"]
+        ok = np.isfinite(fa) & np.isfinite(fb)
+        rel.append(np.abs(fb[ok] / fa[ok] - 1))
+        ea, eb = a.lightcurve["flux_err"], b.lightcurve["flux_err"]
+        err_rel.append(np.abs(eb[ok] / ea[ok] - 1))
+        n_cmp += 1
+    rel, err_rel = np.concatenate(rel), np.concatenate(err_rel)
+    p99, med, e99 = (float(np.quantile(rel, 0.99)), float(np.median(rel)),
+                     float(np.quantile(err_rel, 0.99)))
+    print(f"phase 3b against phase 3 (float32): statuses and masks equal for {len(sids)} "
+          f"targets; {n_cmp} OK/WARNING light curves, {rel.size} cadences: flux |rel| p99 "
+          f"{p99:.3g} (bound 1.5e-3), median {med:.3g} (5e-4), max {rel.max():.3g}; flux_err "
+          f"|rel| p99 {e99:.3g} (1e-2)", flush=True)
+    check(p99 < 1.5e-3 and med < 5e-4 and e99 < 1e-2,
+          "phase 3b: bfloat16 fluxes outside tests/test_engine_extras.py's bounds")
+    del res16
+
+    # PSF, linPSF and halo forced by method, on the card and on a CPU copy:
+    ctx._context_prf = prf
+    host = dict(ctx_kw, images=ctx.images.cpu(), images_err=ctx.images_err.cpu(),
+                backgrounds=ctx.backgrounds.cpu(), pixelflags=ctx.pixelflags.cpu(),
+                device="cpu")
+    cpu = SectorContext.from_arrays(**host, cube_dtype=torch.bfloat16)
+    cpu._context_prf = PRF(prf.iprf, prf.oversample, prf.center_x, prf.center_y,
+                           info=dict(prf.info), device="cpu")
+    for method, n in (("psf", N_PSF_PLAIN), ("linpsf", 16), ("halo", 4)):
+        tasks = [{"priority": i + 1, "starid": sid, "sector": 1, "camera": 1, "ccd": 1,
+                  "cadence": 1800, "datasource": "ffi", "method": method}
+                 for i, sid in enumerate(sids[:n])]
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        got = photometry_batch(ctx, tasks, save=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tic
+        want = photometry_batch(cpu, tasks[:P7_PARITY], save=False)
+        good = [r for r in got if r.status in (STATUS.OK, STATUS.WARNING)
+                and np.isfinite(r.lightcurve["flux"]).mean() > 0.99]
+        check(len(good) >= 0.9 * n, f"phase 3b {method}: {len(good)} of {n} OK and finite")
+        worst = 0.0
+        for g, w in zip(got, want):
+            check(g.method == w.method == method and g.status == w.status,
+                  f"phase 3b {method}: TIC {g.starid} {g.method} {g.status} on the card, "
+                  f"{w.method} {w.status} on the CPU")
+            if not w.lightcurve:
+                continue
+            a, b = g.lightcurve["flux"], w.lightcurve["flux"]
+            if method == "psf":     # the card's fused kernel against the CPU's plain fitter
+                ok = (np.abs(a - b) <= 2e-2 * np.abs(b)) | (np.isnan(a) & np.isnan(b))
+                check(ok.mean() >= 0.99, f"phase 3b psf: TIC {g.starid} within phase 4's "
+                      f"bounds at {ok.mean():.3f} of cadences")
+                worst = max(worst, float(1 - ok.mean()))
+                continue
+            rtol, atol = (1e-4, 1e-4 * np.nanmedian(np.abs(b))) if method == "linpsf" \
+                else (5e-4, 0.0)
+            d = np.abs(a - b)
+            check(bool(np.all((d <= atol + rtol * np.abs(b)) | (np.isnan(a) & np.isnan(b)))),
+                  f"phase 3b {method}: TIC {g.starid} differs from the CPU by {np.nanmax(d):.3g}")
+            worst = max(worst, float(np.nanmax(d / (atol + rtol * np.abs(b) + 1e-300))))
+        print(f"phase 3b {method} on the bfloat16 context: {n} targets in {wall:.2f} s, "
+              f"{len(good)} OK/WARNING and finite; the first {P7_PARITY} == a CPU re-run on a "
+              f"host copy of the bfloat16 cube ("
+              + ("share of cadences outside flux rtol 2e-2 " if method == "psf" else
+                 "max |diff| / bound ")
+              + f"{worst:.3g}) ({card})", flush=True)
+    cpu.close()
+    ctx.close()
+    del cpu, host, ctx, cubes, captured
+    torch.cuda.empty_cache()
+
+
+def make_cubes_bf16(img0, gen, dev, T_):
+    """make_cubes at ``T_`` frames with the value planes in bfloat16, each
+    64-frame block made in float32 on the card and cast there."""
+    import torch
+    base = torch.as_tensor(img0, device=dev)
+    sigma = torch.sqrt(torch.clamp(base, min=0.0) + 25.0)
+    images = torch.empty(T_, H, W, device=dev, dtype=torch.bfloat16)
+    errs = torch.empty(T_, H, W, device=dev, dtype=torch.bfloat16)
+    bkgs = torch.empty(T_, H, W, device=dev, dtype=torch.bfloat16)
+    flags = torch.empty(T_, H, W, device=dev, dtype=torch.uint8)
+    for t0 in range(0, T_, 64):
+        n = min(64, T_ - t0)
+        images[t0:t0 + n] = base + sigma * torch.randn(n, H, W, device=dev, generator=gen)
+        errs[t0:t0 + n] = sigma
+        bkgs[t0:t0 + n] = 20.0 + torch.randn(n, H, W, device=dev, generator=gen)
+        flags[t0:t0 + n] = (torch.rand(n, H, W, device=dev, generator=gen) < 1e-4).to(torch.uint8) * 4
+    for cube in (images, errs, bkgs):            # scattered NaN pixels
+        idx = torch.randint(0, T_ * H * W, (2000,), device=dev, generator=gen)
+        cube.view(-1)[idx] = float("nan")
+    return images, errs, bkgs, flags
+
+
+def bf16_sector(work, dev, gen, img0, rows, cols, tmag, wcs, sids, card):
+    """Phase 3b (3): a full primary-mission sector, T = 1,312 in bfloat16
+    (38.5 GB with the flags), made in frame blocks on the card;
+    ``extract_aperture_batch`` on phase 3's targets: wall, targets/s, peak
+    memory and the band launch's kernel time beside its bounds."""
+    import torch
+    from photometry_tpu_torch.catalog import make_catalog_from_arrays
+    from photometry_tpu_torch.core.engine import SectorContext, extract_aperture_batch
+    from photometry_tpu_torch.core.status import STATUS
+    from photometry_tpu_torch.ops import bandext
+    from photometry_tpu_torch.ops._kernels import BAND_EXTRACT, BAND_EXTRACT_BF16
+    T_ = T_SECTOR
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    tic = time.perf_counter()
+    cubes = make_cubes_bf16(img0, gen, dev, T_)
+    torch.cuda.synchronize()
+    made = time.perf_counter() - tic
+    gb = sum(x.numel() * x.element_size() for x in cubes) / 1e9
+    folder = os.path.join(work, "phase3b")
+    os.makedirs(folder)
+    ra, dec = wcs.radec_of_rowcol(rows, cols)
+    cat = make_catalog_from_arrays(folder, 1, 1, 1, starid=np.arange(1, len(rows) + 1),
+                                   ra_j2000=ra, dec_j2000=dec, pm_ra=np.zeros(len(rows)),
+                                   pm_dec=np.zeros(len(rows)), tmag=tmag,
+                                   reference_time=2458340.0)
+    ctx = SectorContext.from_arrays(
+        images=cubes[0], images_err=cubes[1], backgrounds=cubes[2], pixelflags=cubes[3],
+        sumimage=img0, time=1325.3 + np.arange(T_) / 48.0, timecorr=np.zeros(T_, np.float32),
+        cadenceno=np.arange(T_, dtype=np.int32), quality=np.zeros(T_, np.int32),
+        catalog_path=cat, wcs=wcs, sector=1, camera=1, ccd=1, input_folder=folder,
+        cube_dtype=torch.bfloat16, device=dev)
+    check(ctx.images.data_ptr() == cubes[0].data_ptr(), "phase 3b: from_arrays copied the cube")
+    captured, run_band = [], bandext.band_sums
+
+    def recording_band_sums(*a, **kw):
+        captured.append((a, kw))
+        return run_band(*a, **kw)
+
+    reset_counts()
+    tic = time.perf_counter()
+    with mock.patch.object(bandext, "band_sums", recording_band_sums):
+        res = extract_aperture_batch(ctx, sids)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(BAND_EXTRACT_BF16.launches > 0 and BAND_EXTRACT.launches == 0,
+          f"phase 3b sector: band launches bfloat16 {BAND_EXTRACT_BF16.launches}, float32 "
+          f"{BAND_EXTRACT.launches}")
+    good = [r for r in res if r.status in (STATUS.OK, STATUS.WARNING)]
+    fin = min(float(np.isfinite(r.lightcurve["flux"]).mean()) for r in good)
+    print(f"phase 3b sector: ({T_}, {H}, {W}) cubes in bfloat16 on the card, {gb:.1f} GB made "
+          f"in {made:.1f} s; {len(sids)} targets in {wall:.2f} s = {len(sids) / wall:.1f} "
+          f"targets/s; peak memory {peak:.1f} GB ({held:.1f} GB held before the cubes were "
+          f"made) of the card's {torch.cuda.get_device_properties(dev).total_memory / 1e9:.1f}; "
+          f"{len(good)} OK or "
+          f"WARNING, finite flux share min {fin:.4f} ({card})", flush=True)
+    check(len(good) >= 0.9 * len(sids) and fin > 0.99 and peak < 80.0,
+          "phase 3b sector: statuses, finite fluxes or peak memory out of bounds")
+    band_main_phase(captured, card, "3b sector")
+    captured.clear()
+    ctx.close()
+    del ctx, cubes, res, captured
+    torch.cuda.empty_cache()
+
+
+# --- phase 8: Target Pixel Files through the drain ------------------------------
+
+def tpf_layout(rng, rows, cols, tmag):
+    """Phase 8's primaries: isolated field stars of Tmag 8-11 (no star within
+    12 px brighter than 2 mag fainter than they are: a brighter star just
+    off a stamp puts its wings in the mask, as SPOC's crowding metrics
+    would say), 30 px or more inside the CCD and from each other; the last
+    one is the 20-s target.  Returns
+    their indices into the field and their stamp sides (the brightest eighth
+    21x21, the next eighth 15x15, the rest 11x11)."""
+    picked = []
+    for i in rng.permutation(np.where((tmag >= 8.0) & (tmag <= 11.0))[0]):
+        r, c = rows[i], cols[i]
+        if min(r, c, H - 1 - r, W - 1 - c) < 30:
+            continue
+        d = np.hypot(rows - r, cols - c)
+        if np.any((d < 12) & (d > 0) & (tmag < tmag[i] + 2)):
+            continue
+        if any(np.hypot(rows[j] - r, cols[j] - c) < 30 for j in picked):
+            continue
+        picked.append(int(i))
+        if len(picked) == P8["tpf"] + 1:
+            break
+    check(len(picked) == P8["tpf"] + 1, f"phase 8: room for {len(picked)} TPF targets")
+    idx = np.array(picked)
+    main = idx[:-1][np.argsort(tmag[idx[:-1]], kind="stable")]
+    sides = np.full(len(main), 11)
+    q = len(main) // 8
+    sides[:q], sides[q:2 * q] = 21, 15
+    return main, sides, int(idx[-1])
+
+
+def tpf_signal(dev, gen, rows, cols, tmag, i, r0, c0, side, t, pos_corr, amp, period, phase):
+    """A TPF's (T, side, side) flux, flux_err and background on the card:
+    every field star within 8 px of the stamp, at its position plus
+    ``pos_corr`` (col, row) in each cadence, rendered as make_field renders
+    them (a sampled Gaussian, sigma 1.2 px); star ``i`` carries the sinusoid
+    ``1 + amp * sin(2 pi t / period + phase)``; Gaussian noise of
+    sqrt((flux + 20 e-/s) / 96 s + (10 / 96)^2) on a 20 e-/s background
+    (FLUX_BKG), as photometry_tpu/sim's TPFs."""
+    import torch
+    T_ = len(t)
+    near = np.where((rows > r0 - 8) & (rows < r0 + side + 8)
+                    & (cols > c0 - 8) & (cols < c0 + side + 8))[0]
+    yy = torch.arange(r0, r0 + side, device=dev, dtype=torch.float64)[None, :, None]
+    xx = torch.arange(c0, c0 + side, device=dev, dtype=torch.float64)[None, None, :]
+    dc = torch.as_tensor(pos_corr[:, 0], device=dev, dtype=torch.float64)[:, None, None]
+    dr = torch.as_tensor(pos_corr[:, 1], device=dev, dtype=torch.float64)[:, None, None]
+    tt = torch.as_tensor(t, device=dev, dtype=torch.float64)
+    flux = torch.zeros(T_, side, side, device=dev, dtype=torch.float64)
+    for j in near:
+        f = float(10 ** (-0.4 * (tmag[j] - 20.451)))
+        fj = f * (1 + amp * torch.sin(2 * np.pi * tt / period + phase)) if j == i else \
+            torch.full_like(tt, f)
+        g = torch.exp(-0.5 * ((yy - rows[j] - dr) ** 2 + (xx - cols[j] - dc) ** 2) / 1.2 ** 2)
+        flux += fj[:, None, None] * g / (2 * np.pi * 1.2 ** 2)
+    sigma = torch.sqrt((flux + 20.0) / 96.0 + (10.0 / 96.0) ** 2)
+    flux = flux + sigma * torch.randn(flux.shape, device=dev, dtype=torch.float64, generator=gen)
+    return (flux.float().cpu().numpy(), sigma.float().cpu().numpy(),
+            np.full((T_, side, side), 20.0, np.float32))
+
+
+def write_phase8(folder, dev, gen, rng, rows, cols, tmag, wcs):
+    """Phase 8's files: the catalog of phase 3's field, 128 primary TPFs
+    (120 s, T = 19,728) and one 20-s TPF (T = 118,080), with POS_CORR
+    drifting, a 1% sinusoid on each primary, a SPOC aperture (bit 1 on the
+    stamp, 64 for CCD output B, 4 on its border, 2|8 on the 3x3 core), a few
+    gzipped.  Returns the per-TPF truth and the todo's tasks."""
+    from photometry_tpu_torch.catalog import make_catalog_from_arrays
+    from photometry_tpu_torch.io import fits as pf
+    ra, dec = wcs.radec_of_rowcol(rows, cols)
+    make_catalog_from_arrays(folder, 1, 1, 1, starid=np.arange(1, len(rows) + 1),
+                             ra_j2000=ra, dec_j2000=dec, pm_ra=np.zeros(len(rows)),
+                             pm_dec=np.zeros(len(rows)), tmag=tmag, reference_time=2458340.0)
+    main, sides, fast = tpf_layout(rng, rows, cols, tmag)
+    truth, tasks = {}, []
+    gz = set(rng.choice(len(main), P8["gzip"], replace=False).tolist())
+    for k, (i, side, cadence) in enumerate(list(zip(main, sides, [120] * len(main)))
+                                           + [(fast, 11, 20)]):
+        T_ = P8["T"] if cadence == 120 else P8["fast_T"]
+        t = 1325.3 + (np.arange(T_) + 0.5) * cadence / 86400
+        days = t - t[0]
+        pos_corr = np.stack([0.03 * days + 0.05 * np.sin(2 * np.pi * days / 1.1),
+                             -0.02 * days + 0.04 * np.cos(2 * np.pi * days / 0.7)],
+                            axis=1).astype(np.float32)
+        r0 = int(round(rows[i])) - side // 2
+        c0 = int(round(cols[i])) - side // 2
+        period, phase = rng.uniform(1.0, 5.0), rng.uniform(0, 2 * np.pi)
+        flux, err, bkg = tpf_signal(dev, gen, rows, cols, tmag, i, r0, c0, side, t - t[0],
+                                    pos_corr, 0.01, period, phase)
+        quality = np.zeros(T_, np.int32)
+        quality[::2500] = 32                                  # Desat: out of the sum image
+        aperture = np.full((side, side), 1 | 64, np.int32)
+        aperture[[0, -1], :] |= 4
+        aperture[:, [0, -1]] |= 4
+        mid = side // 2
+        aperture[mid - 1:mid + 2, mid - 1:mid + 2] |= 2 | 8
+        ap_hdr = wcs.shifted(drow=r0, dcol=c0).to_header(pf.Header())
+        ap_hdr.set("CRVAL1P", c0 + 1)
+        ap_hdr.set("CRVAL2P", r0 + 1)
+        sid = int(i) + 1
+        name = (f"tess2020186164531-s0001-{sid:016d}-0120-s_"
+                f"{'fast-' if cadence == 20 else ''}tp.fits" + (".gz" if k in gz else ""))
+        write_tpf(os.path.join(folder, name), sid, 1, 1, 1,
+                  {"TIME": t + 0.003, "TIMECORR": np.full(T_, 0.003, np.float32),
+                   "CADENCENO": np.arange(T_, dtype=np.int32), "FLUX": flux, "FLUX_ERR": err,
+                   "FLUX_BKG": bkg, "QUALITY": quality, "POS_CORR1": pos_corr[:, 0],
+                   "POS_CORR2": pos_corr[:, 1]}, aperture, ap_hdr, cadence=cadence)
+        truth[sid] = {"flux": float(10 ** (-0.4 * (tmag[i] - 20.451))), "cadence": cadence,
+                      "mod": 1 + 0.01 * np.sin(2 * np.pi * (t - t[0]) / period + phase),
+                      "pos_corr": pos_corr.astype(np.float64), "aperture": aperture,
+                      "time": t, "gz": k in gz}
+        tasks.append((sid, float(tmag[i]), "tpf", cadence))
+        # Secondary targets, as photometry_tpu/todolist.py:171-197 finds them:
+        # catalog stars whose pixel lies inside the stamp and was collected.
+        y, x = rows - r0, cols - c0
+        inside = (x >= -0.5) & (y >= -0.5) & (x <= side - 0.5) & (y <= side - 0.5)
+        inside[i] = False
+        for j in np.where(inside & (tmag < 15.0))[0]:
+            ry = min(int(np.round(y[j])), side - 1)
+            rx = min(int(np.round(x[j])), side - 1)
+            if aperture[ry, rx] & 1:
+                tasks.append((int(j) + 1, float(tmag[j]), f"tpf:{sid}", cadence))
+    return truth, tasks, set(int(i) + 1 for i in main) | {fast + 1}
+
+
+def tpf_phase(work, dev, gen, rng, ctx_kw, rows, cols, tmag, wcs, card):
+    """Phase 8: Target Pixel Files through ``run_drain`` (see the module docstring)."""
+    import sqlite3
+    import torch
+    from photometry_tpu_torch.core import dispatcher, drain
+    from photometry_tpu_torch.core.engine import SectorContext
+    from photometry_tpu_torch.core.status import STATUS
+    from photometry_tpu_torch.io import fits as pf
+    from photometry_tpu_torch.ops import bandext
+    from photometry_tpu_torch.ops._kernels import BAND_EXTRACT, BAND_EXTRACT_BF16
+    folder = os.path.join(work, "phase8")
+    os.makedirs(folder)
+    tic = time.perf_counter()
+    truth, tasks, primaries = write_phase8(folder, dev, gen, rng, rows, cols, tmag, wcs)
+    # FFI tasks on phase 3's context, in the same magnitude range:
+    pool = [int(j) + 1 for j in np.where((tmag >= 8.0) & (tmag <= 11.0))[0]]
+    for sid in rng.choice(pool, P8["ffi"], replace=False):
+        tasks.append((int(sid), float(tmag[sid - 1]), "ffi", 1800))
+    sids, tmags, ds, cads = (list(x) for x in zip(*tasks))
+    write_todo(folder, sids, np.array(tmags), datasources=ds, cadences=cads)
+    n_sec = sum(d.startswith("tpf:") for d in ds)
+    n_bytes = sum(os.path.getsize(os.path.join(folder, f)) for f in os.listdir(folder)
+                  if "_tp" in f)
+    print(f"phase 8 inputs: {len(truth) - 1} primary TPFs of {P8['T']} cadences at 120 s "
+          f"(11x11, 15x15 and 21x21), one 20-s TPF of {P8['fast_T']} cadences, {P8['gzip']} "
+          f"gzipped, {n_bytes / 1e9:.2f} GB of files; todo.sqlite of {len(tasks)} tasks "
+          f"({len(truth)} TPF primaries, {n_sec} secondaries, {P8['ffi']} FFI) "
+          f"({time.perf_counter() - tic:.1f} s)", flush=True)
+
+    ffi_ctx = SectorContext.from_arrays(**ctx_kw)
+    real_open, run_batch, run_band = (dispatcher.open_context, drain.photometry_batch,
+                                      bandext.band_sums)
+    aperture, band_calls, walls = {}, [], {"tpf": 0.0, "ffi": 0.0}
+    run_aperture = dispatcher.extract_aperture_batch
+
+    def open_ctx(folder_, task, device="cuda"):
+        """Phase 3's context for FFI tasks; the drain's own TpfContext, timed, for TPF ones."""
+        if task["datasource"] == "ffi":
+            return ffi_ctx
+        tic_ = time.perf_counter()
+        out = real_open(folder_, task, device=device)
+        walls["tpf"] += time.perf_counter() - tic_
+        return out
+
+    def timed_batch(ctx_, batch, **kw):
+        tic_ = time.perf_counter()
+        out = run_batch(ctx_, batch, **kw)
+        walls["ffi" if ctx_.datasource == "ffi" else "tpf"] += time.perf_counter() - tic_
+        return out
+
+    def seen_aperture(ctx_, starids, **kw):
+        out = run_aperture(ctx_, starids, **kw)
+        for r in out:
+            primary = getattr(getattr(ctx_, "tpf", None), "starid", None)
+            key = ("ffi" if ctx_.datasource == "ffi" else
+                   "tpf" if r.starid == primary else f"tpf:{primary}")
+            aperture[(key, r.starid)] = r
+        return out
+
+    def seen_band(*a, **kw):
+        out = run_band(*a, **kw)
+        band_calls.append((a, kw, out))
+        return out
+
+    timers = drain.new_timers()
+    reset_counts()
+    with mock.patch.object(dispatcher, "open_context", open_ctx), \
+            mock.patch.object(drain, "photometry_batch", timed_batch), \
+            mock.patch.object(dispatcher, "extract_aperture_batch", seen_aperture), \
+            mock.patch.object(bandext, "band_sums", seen_band):
+        n_done = drain.run_drain(folder, 1, method=None, batch_size=P8["batch"], timers=timers,
+                                 device=dev)
+    torch.cuda.synchronize()
+    launches = BAND_EXTRACT.launches
+    check(BAND_EXTRACT_BF16.launches == 0, "phase 8: a float32 cube went to the bfloat16 kernel")
+    with sqlite3.connect(os.path.join(folder, "todo.sqlite")) as conn:
+        rows_db = conn.execute(
+            "SELECT t.starid, t.datasource, t.cadence, t.status, d.method_used, d.lightcurve "
+            "FROM todolist t LEFT JOIN diagnostics d ON t.priority = d.priority").fetchall()
+    final = {STATUS.OK.value, STATUS.WARNING.value, STATUS.ERROR.value, STATUS.SKIPPED.value}
+    counts = {}
+    for _, d, _, st, _, _ in rows_db:
+        key = (d.split(":")[0], None if st is None else STATUS(st).name)
+        counts[key] = counts.get(key, 0) + 1
+    n_tpf = sum(d != "ffi" for d in ds)
+    t = timers
+    print(f"phase 8 drain: {n_done} tasks in {t['wall']:.2f} s = {n_done / t['wall']:.1f} "
+          f"tasks/s with products ({card}); lease {t['lease']:.2f} s, context "
+          f"{t['context']:.2f} s, photometry {t['photometry']:.2f} s, save {t['save']:.2f} s "
+          f"({t.get('n_products', 0)} products), sqlite {t['sqlite']:.2f} s; {t['n_batches']} "
+          f"leases; TPF tasks {n_tpf} in {walls['tpf']:.2f} s of their contexts and leases = "
+          f"{n_tpf / walls['tpf']:.1f} TPF tasks/s with products, FFI leases "
+          f"{walls['ffi']:.2f} s; band kernel launches {launches}; statuses "
+          + ", ".join(f"{k[0]} {k[1]} {v}" for k, v in sorted(counts.items(), key=str)),
+          flush=True)
+    check(all(st in final for _, _, _, st, _, _ in rows_db),
+          f"phase 8: statuses left unfinished: {counts}")
+    prim_status = {sid: st for sid, d, _, st, _, _ in rows_db if d == "tpf"}
+    ok_like = (STATUS.OK.value, STATUS.WARNING.value, STATUS.SKIPPED.value)
+    check(all(prim_status[s] in ok_like for s in primaries),
+          f"phase 8: a TPF primary ended outside OK, WARNING, SKIPPED: {counts}")
+    check(len(band_calls) == launches and launches > 0,
+          f"phase 8: {len(band_calls)} band calls recorded, {launches} launches counted")
+
+    # Every recorded band launch against plain on its own inputs:
+    band_err, shapes = 0.0, set()
+    for a, kw, got in band_calls:
+        windows = a[7] if len(a) > 7 else kw.get("windows")
+        band_err = max(band_err, band_sums_err(got, bandext.band_sums_plain(*a[:7], windows),
+                                               "phase 8 band launch"))
+        shapes.add(tuple(a[0].shape))
+    print(f"phase 8 band kernel: {launches} launches on {len(shapes)} cube shapes (T x h x w "
+          f"from {min(shapes)} to {max(shapes)}); each launch's sums == plain on its own inputs "
+          f"(counts exact, max |diff| {band_err:.3g})", flush=True)
+
+    # The primaries' light curves: flux, sinusoid, pos_corr; one APERTURE product:
+    ratio, corr, dpos, ap_read = [], [], 0.0, 0
+    fast = (0.0, np.inf, 0.0, np.nan)           # the 20-s TPF: finite share, rms_hour, std, ratio
+    paths = {sid: lc for sid, d, _, st, _, lc in rows_db if d == "tpf" and lc}
+    for sid in sorted(primaries):
+        r = aperture.get(("tpf", sid))
+        if r is None or r.status not in (STATUS.OK, STATUS.WARNING):
+            continue
+        tr = truth[sid]
+        fl = r.lightcurve["flux"]
+        ok = np.isfinite(fl)
+        if tr["cadence"] == 20:
+            fast = (float(ok.mean()), float(r.details["rms_hour"]), float(np.nanstd(fl)),
+                    float(np.nanmedian(fl) / tr["flux"]))
+            continue
+        ratio.append(float(np.median(fl[ok]) / tr["flux"]))
+        corr.append(float(np.corrcoef(fl[ok] / np.median(fl[ok]), tr["mod"][ok])[0, 1]))
+        pc = tr["pos_corr"]
+        tnc = tr["time"]                      # TIME - TIMECORR: the written grid
+        ref = int(np.argmin(np.abs(tnc - 1340.0)))
+        dpos = max(dpos, float(np.abs(r.lightcurve["pos_corr"] - (pc - pc[ref])).max()))
+        if ap_read == 0 and sid in paths:
+            hdus = pf.read_fits(os.path.join(folder, paths[sid]))
+            ap = np.asarray(hdus[[h.name for h in hdus].index("APERTURE")].data)
+            check(np.array_equal(ap & ~10, tr["aperture"] & ~10)
+                  and np.array_equal(ap & 10 == 10, r.mask),
+                  f"phase 8: TIC {sid}'s APERTURE product lost the SPOC bits")
+            ap_read += 1
+    print(f"phase 8 TPF primaries: {len(ratio)} OK/WARNING at 120 s: median flux / injected "
+          f"{min(ratio):.3f}-{max(ratio):.3f}, light curve vs the 1% sinusoid r min "
+          f"{min(corr):.3f} (median {np.median(corr):.3f}); pos_corr vs the written POS_CORR "
+          f"(re-zeroed at the reference time) max |diff| {dpos:.2g} px; {ap_read} APERTURE "
+          f"product read back with the SPOC bits; 20-s TPF: finite {fast[0]:.4f}, rms_hour "
+          f"{fast[1]:.4g} < nanstd {fast[2]:.4g}, median / injected {fast[3]:.3f}", flush=True)
+    check(len(ratio) >= 0.9 * P8["tpf"], f"phase 8: {len(ratio)} TPF primaries OK/WARNING")
+    check(0.8 < min(ratio) and max(ratio) < 1.2, "phase 8: a TPF flux is off its injected one")
+    check(min(corr) > 0.5, "phase 8: a TPF light curve does not follow its sinusoid")
+    # The motion model shifts float32 CCD positions (~2,000 px): two ulps there.
+    check(dpos < 5e-4, "phase 8: pos_corr does not follow the written POS_CORR")
+    check(ap_read == 1, "phase 8: no APERTURE product read back")
+    check(fast[0] > 0.95 and fast[1] < fast[2], "phase 8: the 20-s TPF's light curve")
+
+    # The kernel alone at the TPF shapes, beside its bytes bound:
+    for T_want, side in ((P8["T"], 11), (P8["fast_T"], 11)):
+        a, kw, _ = next(c for c in band_calls if tuple(c[0][0].shape) == (T_want, side, side))
+        windows = a[7] if len(a) > 7 else kw.get("windows")
+        launch, _ = band_launcher(tuple(a[:4]), *a[4:7], windows)
+        alone = cuda_ms(launch, reps=20)
+        wrapped = cuda_ms(lambda: bandext.band_sums_cuda(*a[:7], windows), reps=20)
+        short, _ = band_launcher(tuple(x[:32] for x in a[:4]), *a[4:7], windows)
+        floor = cuda_ms(short, reps=20)
+        m = a[4].cpu().numpy()
+        bound = band_bytes(m, T_want, None if windows is None else windows.cpu().numpy()) \
+            / PEAK_BYTES * 1e3
+        print(f"phase 8 band kernel at N={m.shape[0]}, T={T_want}, {side}x{side} "
+              f"({int(m.sum())} mask pixels): alone {alone:.4f} ms, band_sums_cuda "
+              f"{wrapped:.4f} ms, the same launch at T=32 {floor:.4f} ms; bound {bound:.4f} ms "
+              f"by bytes ({card})", flush=True)
+    del band_calls, aperture, ffi_ctx
+    torch.cuda.empty_cache()
+
+
 # --- phase 5: the prepare slice -------------------------------------------------
 
 class DictCube:
@@ -1762,6 +2470,24 @@ class DictCube:
         self.scratch = None
 
 
+def write_tpf(path, ticid, sector, camera, ccd, columns, aperture, ap_header, cadence=120):
+    """A Target Pixel File in the SPOC layout (gzipped if ``path`` ends in
+    .gz): a primary header (TICID, SECTOR, CAMERA, CCD, DATA_REL), the
+    PIXELS table of ``columns`` (TIME, TIMECORR, CADENCENO, FLUX, FLUX_ERR,
+    QUALITY, optionally FLUX_BKG and POS_CORR1/2) with TIMEDEL, and the
+    APERTURE image with ``ap_header`` (the stamp's WCS, CRVAL1P/CRVAL2P)."""
+    from photometry_tpu_torch.io import fits as pf
+    prim, pix = pf.Header(), pf.Header()
+    for key, v in (("TELESCOP", "TESS"), ("TICID", int(ticid)), ("SECTOR", sector),
+                   ("CAMERA", camera), ("CCD", ccd), ("DATA_REL", 38)):
+        prim.set(key, v)
+    pix.set("TIMEDEL", cadence / 86400)
+    pf.write_fits(path, [pf.PrimaryHDU(None, header=prim),
+                         pf.BinTableHDU(columns, header=pix, name="PIXELS"),
+                         pf.ImageHDU(aperture, header=ap_header, name="APERTURE")],
+                  checksum=False)
+
+
 def prepare_inputs(folder, img0, rows, cols, tmag, wcs, dev, gen, T, raw=True):
     """T sector-27 FFIs of camera 1 CCD 1 (raw TESS geometry unless ``raw``
     is False), a catalog and one TPF in ``folder``.  Frames are made on the
@@ -1825,22 +2551,16 @@ def prepare_inputs(folder, img0, rows, cols, tmag, wcs, dev, gen, T, raw=True):
     desat = sorted({10 % T, 50 % T})
     for f in desat:
         quality[5 * f + 2] = 32
-    prim, pix, ap = pf.Header(), pf.Header(), pf.Header()
-    for key, v in (("TELESCOP", "TESS"), ("TICID", 1), ("SECTOR", sector), ("CAMERA", camera),
-                   ("CCD", ccd), ("DATA_REL", 38)):
-        prim.set(key, v)
-    pix.set("TIMEDEL", 120 / 86400)
+    ap = pf.Header()
     ap.set("CRVAL1P", 101)
     ap.set("CRVAL2P", 101)
     flux = np.full((nt, 11, 11), 100.0, np.float32)
-    pf.write_fits(os.path.join(folder, f"tess2020186164531-s{sector:04d}-{1:016d}-0120-s_tp.fits"),
-                  [pf.PrimaryHDU(None, header=prim),
-                   pf.BinTableHDU({"TIME": u + bc, "TIMECORR": np.full(nt, bc, np.float32),
-                                   "CADENCENO": np.arange(nt, dtype=np.int32), "FLUX": flux,
-                                   "FLUX_ERR": np.ones_like(flux), "QUALITY": quality},
-                                  header=pix, name="PIXELS"),
-                   pf.ImageHDU(np.ones((11, 11), np.int32), header=ap, name="APERTURE")],
-                  checksum=False)
+    write_tpf(os.path.join(folder, f"tess2020186164531-s{sector:04d}-{1:016d}-0120-s_tp.fits"),
+              1, sector, camera, ccd,
+              {"TIME": u + bc, "TIMECORR": np.full(nt, bc, np.float32),
+               "CADENCENO": np.arange(nt, dtype=np.int32), "FLUX": flux,
+               "FLUX_ERR": np.ones_like(flux), "QUALITY": quality},
+              np.ones((11, 11), np.int32), ap)
     sky = (glow[None] * drift[:, None, None]).astype(np.float32)
     return files, sky, patch, desat, s0 + np.arange(T) * dt + bc
 
@@ -2134,8 +2854,9 @@ def main() -> int:
     print("phase 1 registers/spill stores: "
           + ptxas_regs(BAND_EXTRACT.build_log + MEDIAN15.build_log + SEGMENT_HIST.build_log
                        + STAMP_FLUX.build_log,
-                       ("band_extract_kernel", "median15_kernel", "segment_hist_kernel",
-                        "to_float_kernel", "stamp_flux_kernel")), flush=True)
+                       ("band_extract_kernelIf", "band_extract_kernelI13__nv_bfloat16",
+                        "median15_kernel", "segment_hist_kernel", "to_float_kernel",
+                        "stamp_flux_kernel")), flush=True)
     lap("1")
     result = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "library_ms": None} for name, (src, rep) in KERNELS.items()}
@@ -2153,9 +2874,18 @@ def main() -> int:
         err = max_err(got, want, "adversarial")
     print(f"phase 2 adversarial: kernel == plain (max |diff| {err:.3g})", flush=True)
     err = max(err, band_adversarial(dev, np.random.default_rng([args.seed, 6])))
+    err16 = bf16_adversarial(dev, np.random.default_rng([args.seed, 8]))
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
+    # The phases this script gained later draw from generators of their own,
+    # so that the earlier phases' data stay as they were:
+    gens = {}
+    for k, name in enumerate(("2 TPF shapes", "8", "3b sector"), start=1):
+        gens[name] = torch.Generator(device=dev)
+        gens[name].manual_seed(args.seed + 1000 * k)
+    tpf_err = band_tpf_shapes(dev, gens["2 TPF shapes"])
+    err, err16 = max(err, tpf_err), max(err16, tpf_err)
     rows, cols, tmag, img0 = make_field(rng)
     tic = time.perf_counter()
     images, errs, bkgs, flags = make_cubes(img0, gen, dev)
@@ -2164,7 +2894,7 @@ def main() -> int:
     print(f"phase 3 cubes: ({T}, {H}, {W}) x4 on the card, {gb:.1f} GB, made in "
           f"{time.perf_counter() - tic:.1f} s", flush=True)
 
-    kern_ms, plain_ms, main_err, band_bound = {}, {}, 0.0, {}
+    kern_ms, plain_ms, main_err, band_bound, shapes = {}, {}, 0.0, {}, {}
     for hw in (17, 33):
         r0s = rng.integers(0, H - hw, N_PLAIN).astype(np.int32)
         c0s = rng.integers(0, W - hw, N_PLAIN).astype(np.int32)
@@ -2172,6 +2902,7 @@ def main() -> int:
         c0s[:64] = (np.arange(64) * 128 + 120) % (W - hw)
         masks = rng.uniform(size=(N_PLAIN, hw, hw)) < 0.3
         m_args = [torch.as_tensor(a, device=dev) for a in (masks, r0s, c0s)]
+        shapes[hw] = (masks, r0s, c0s, m_args)
         cube = (images, errs, bkgs, flags)
 
         def kern():
@@ -2201,6 +2932,7 @@ def main() -> int:
     result["band_extract"].update(max_abs_err=max(err, main_err), ms=kern_ms[17],
                                   plain_ms=plain_ms[17], bound_ms=band_bound[17],
                                   bound_by="bytes")
+    bf16_main(shapes, (images, errs, bkgs, flags), card, result, err16)
     lap("2")
 
     # --- phase 2b: PSF kernel vs plain -------------------------------------
@@ -2324,6 +3056,7 @@ def main() -> int:
     print(f"phase 3 slice: {N_TARGETS} targets in {wall:.2f} s = {N_TARGETS / wall:.1f} "
           f"targets/s ({card}); band kernel launches {BAND_EXTRACT.launches}", flush=True)
     band_main_phase(captured, card)
+    captured.clear()                      # the launch's arguments hold phase 3's cubes
 
     good = [r for r in results if r.status in (STATUS.OK, STATUS.WARNING)]
     n_ok = sum(r.status == STATUS.OK for r in results)
@@ -2378,6 +3111,10 @@ def main() -> int:
 
     lease("aperture", N_LEASE, "products")
     lap("3")
+
+    # --- phase 3b: the aperture slice and the models on bfloat16 cubes --------------
+    bf16_slice(ctx_kw, sids, results, prfs[3], card, result)
+    lap("3b")
 
     # --- phase 2d, main shape: the phase-3 cube and targets ------------------------
     stamp_main(dev, (images, errs, bkgs, flags), results, rows, cols, card, result,
@@ -2440,17 +3177,26 @@ def main() -> int:
     ecc_phase(dev, img0, gen, rng, ctx_kw, sids, card)
     lap("6")
 
+    # --- phase 8: Target Pixel Files through the drain, beside phase 3's context -----
+    tpf_phase(work, dev, gens["8"], np.random.default_rng([args.seed, 9]), ctx_kw, rows, cols,
+              tmag, wcs, card)
+    lap("8")
+
     # --- phase 7: the default-method drain, on phase 3's cubes ----------------------
     drain_phase(work, dev, gen, np.random.default_rng([args.seed, 7]),
                 (images, errs, bkgs, flags), img0, rows, cols, tmag, wcs, card)
     lap("7")
-    del ctx, ctx_kw, cube, images, errs, bkgs, flags, res_psf, refit, results
+    del ctx, ctx_kw, cube, launch, images, errs, bkgs, flags, res_psf, refit, results
     torch.cuda.empty_cache()
+
+    # --- phase 3b, full sector: T = 1,312 in bfloat16, phase 3's cubes freed ---------
+    bf16_sector(work, dev, gens["3b sector"], img0, rows, cols, tmag, wcs, sids, card)
+    lap("3b sector")
 
     # --- phase 5: the prepare slice --------------------------------------------
     prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result)
     lap("5")
-    print(f"phases 1-7 took {time.perf_counter() - t_start:.1f} s: "
+    print(f"phases 1-8 took {time.perf_counter() - t_start:.1f} s: "
           + ", ".join(f"{name} {b - a:.1f} s" for (_, a), (name, b) in zip(laps, laps[1:])),
           flush=True)
 

@@ -31,7 +31,7 @@ def main(argv=None) -> int:
     parser.add_argument("-r", "--random", action="store_true")
     parser.add_argument("--all", action="store_true", help="Process all pending tasks.")
     parser.add_argument("--batch-size", type=int, default=256)
-    parser.add_argument("--datasource", default=None, choices=("ffi",))
+    parser.add_argument("--datasource", default=None, choices=("ffi", "tpf"))
     parser.add_argument("--camera", type=int, default=None)
     parser.add_argument("--ccd", type=int, default=None)
     parser.add_argument("--version", type=int, required=True,

@@ -13,7 +13,7 @@ fails keeps the aperture results — except what says the port or the card
 cannot do the work: ``NotImplementedError``, a CUDA kernel's ``KernelError``
 and ``torch.OutOfMemoryError`` propagate, from a method group, from either
 switch's rerun and from a queue's flush alike.  Diagnostics plots
-(``plot_folder``) and TPF contexts are not ported.
+(``plot_folder``) are not ported.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from ..io.settings import load_settings
 from ..ops._kernels import KernelError
 from ..utils.logutils import capture_warnings
 from ..utils.mathutils import mag2flux
-from .engine import SectorContext, TargetResult, extract_aperture_batch
+from .engine import SectorContext, TargetResult, TpfContext, extract_aperture_batch
 from .status import STATUS
 
 logger = logging.getLogger(__name__)
@@ -62,7 +62,12 @@ def default_time_corrector():
 
 
 class ContextCache:
-    """Reuse device-resident FFI contexts across task batches of one CCD."""
+    """Reuse device-resident FFI contexts across task batches of one CCD.
+
+    TPF contexts are per target: never cached, and a TPF batch does not
+    evict the FFI context held (``get`` returns ``cached=False`` for them,
+    so the caller's ``release`` closes them).
+    """
 
     def __init__(self, capacity: int = 1, device="cuda"):
         self.capacity = max(capacity, 1)
@@ -70,6 +75,8 @@ class ContextCache:
         self._items: "dict[tuple, SectorContext]" = {}
 
     def get(self, input_folder: str, task: dict):
+        if task["datasource"] != "ffi":
+            return open_context(input_folder, task, device=self.device), False
         key = (input_folder, int(task["sector"]), int(task["camera"]), int(task["ccd"]))
         ctx = self._items.pop(key, None)
         if ctx is None:
@@ -97,15 +104,18 @@ class ContextCache:
         self.close()
 
 
-def open_context(input_folder: str, task: dict, device="cuda") -> SectorContext:
-    """The SectorContext of an FFI task, on ``device``."""
-    if task["datasource"] != "ffi":
-        raise NotImplementedError(
-            f"datasource {task['datasource']!r}: TPF contexts are not ported to "
-            "photometry_tpu_torch yet")
-    return SectorContext(input_folder, int(task["sector"]), int(task["camera"]),
-                         int(task["ccd"]), time_corrector=default_time_corrector(),
-                         device=device)
+def open_context(input_folder: str, task: dict, device="cuda"):
+    """The context of a task, on ``device``: a SectorContext for ``ffi``, a
+    TpfContext for ``tpf`` (the task's own star) and for ``tpf:NNN`` (a
+    secondary target in star NNN's TPF)."""
+    ds = task["datasource"]
+    if ds == "ffi":
+        return SectorContext(input_folder, int(task["sector"]), int(task["camera"]),
+                             int(task["ccd"]), time_corrector=default_time_corrector(),
+                             device=device)
+    starid = int(ds[4:]) if ds.startswith("tpf:") else int(task["starid"])
+    return TpfContext(input_folder, starid, sector=int(task["sector"]),
+                      cadence=int(task["cadence"]), device=device)
 
 
 def _error_result(task, ctx, tb: str) -> TargetResult:

@@ -1,22 +1,27 @@
 """
-The batched photometry engine (FFI aperture path), on torch tensors.
+The batched photometry engine, on torch tensors.
 
 Port of ``photometry_tpu/core/engine.py``:
 
 - :class:`SectorContext` holds one sector-CCD's image cubes as tensors on
-  an explicit device, plus the catalog, WCS and motion model.  Both its
-  file constructor and :func:`context_from_jax` go through
+  an explicit device, in float32 or (``cube_dtype=torch.bfloat16``) in
+  bfloat16, plus the catalog, WCS and motion model.  Both its file
+  constructor and :func:`context_from_jax` go through
   :meth:`SectorContext.from_arrays`.
+- :class:`TpfContext` presents a Target Pixel File with the same
+  interface: the postage stamp is the "CCD", its WCS stamp-relative.
 - :func:`extract_aperture_batch` runs K2P2 aperture photometry for a batch
-  of targets, with the reference's stamp-resize retry loop, stamp and
-  catalog bucket ladders, contamination, crowding and statuses, line for
-  line in behaviour.  Final extraction goes through
-  ``ops.bandext.band_extract_flux_batch`` — the CUDA kernel on the card,
-  the plain gather formulation on the CPU.
+  of targets, with the reference's stamp-resize retry loop (one round on a
+  TPF, whose stamp is the whole postage stamp), stamp and catalog bucket
+  ladders, contamination, crowding and statuses, line for line in
+  behaviour.  Final extraction goes through
+  ``ops.bandext.band_extract_flux_batch`` — the CUDA kernel on the card
+  (its float32 or bfloat16 instantiation), the plain gather formulation on
+  the CPU.
 - :func:`extract_flux_core` is that plain formulation on any device.
 
-Not ported yet (they raise ``NotImplementedError``): multi-chip ``mesh=``,
-the streamed host cube (``cache="host"``), bfloat16 cubes and TpfContext.
+Not ported yet (they raise ``NotImplementedError``): multi-chip ``mesh=``
+and the streamed host cube (``cache="host"``).
 """
 
 from __future__ import annotations
@@ -29,19 +34,22 @@ import torch
 
 from ..catalog import StarCatalog
 from ..device import resolve_device
+from ..fixes import time_offset
 from ..io import discovery
 from ..io.cube import ImageCube
 from ..io.settings import load_settings
+from ..io.tess import read_tpf
 from ..io.wcs import TanWCS
 from ..models.k2p2 import K2P2Params, build_masks_batch
 from ..ops.bandext import _extract, band_extract_flux_batch, band_sums_plain
+from ..quality import TESSQualityFlags
 from ..utils.mathutils import mag2flux
 from .metrics import compute_metrics_batch, crowding_metrics_batch
 from .motion import MotionModel
 from .status import STATUS
 
-__all__ = ["SectorContext", "TargetResult", "extract_aperture_batch", "extract_flux_core",
-           "default_stamp_size", "aperture_image", "context_from_jax",
+__all__ = ["SectorContext", "TpfContext", "TargetResult", "extract_aperture_batch",
+           "extract_flux_core", "default_stamp_size", "aperture_image", "context_from_jax",
            "DEFAULT_K2P2_PARAMS"]
 
 #: Production K2P2 parameters (reference photometry/AperturePhotometry defaults).
@@ -79,18 +87,80 @@ def default_stamp_size(tmag) -> tuple:
 # Context
 # ---------------------------------------------------------------------------
 
-def _on_device(x, dtype, dev) -> torch.Tensor:
-    """numpy or tensor -> contiguous tensor of ``dtype`` on ``dev`` (no copy if already so)."""
+#: Frames cast to another dtype at a time (on the target device).
+_CAST_FRAMES = 16
+
+
+def _cube_dtype(cube_dtype) -> torch.dtype:
+    """The cubes' torch dtype for ``cube_dtype``: None or float32 (a torch,
+    numpy or string spelling), or bfloat16 (``torch.bfloat16``,
+    ``"bfloat16"`` or a dtype named so); anything else raises ValueError."""
+    if cube_dtype is None:
+        return torch.float32
+    if isinstance(cube_dtype, torch.dtype):
+        name = str(cube_dtype).removeprefix("torch.")
+    elif isinstance(cube_dtype, str):
+        name = cube_dtype
+    else:
+        try:
+            name = np.dtype(cube_dtype).name
+        except TypeError:
+            name = repr(cube_dtype)
+    if name not in ("float32", "bfloat16"):
+        raise ValueError(f"cube_dtype={cube_dtype!r}: need None, float32 or bfloat16")
+    return getattr(torch, name)
+
+
+def _as_tensor(x) -> torch.Tensor:
+    """numpy or tensor -> tensor, sharing memory where it can; a numpy
+    bfloat16 array (``ml_dtypes``, as from a JAX array) keeps its bits."""
     if isinstance(x, torch.Tensor):
-        return x.to(device=dev, dtype=dtype).contiguous()
-    a = np.ascontiguousarray(x, dtype=np.dtype(str(dtype).removeprefix("torch.")))
+        return x
+    a = np.ascontiguousarray(x)
+    bf16 = a.dtype.name == "bfloat16"       # numpy has no bfloat16 of its own
+    if bf16:
+        a = a.view(np.uint16)
     if not a.flags.writeable:       # e.g. a JAX array's host view: torch needs its own copy
         a = a.copy()
-    return torch.from_numpy(a).to(dev)
+    t = torch.from_numpy(a)
+    return t.view(torch.bfloat16) if bf16 else t
+
+
+def _to_bfloat16(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> bfloat16 bits as XLA and ml_dtypes make them: rounded to
+    nearest even (past bfloat16's range to inf, subnormals kept), a NaN to
+    the quiet NaN of its sign.  torch's own cast gives a NaN other bits
+    (0xffff on the CPU), so the JAX package's cubes would differ from ours."""
+    u = x.to(torch.float32).contiguous().view(torch.int32)
+    r = (u + (0x7FFF + ((u >> 16) & 1))) >> 16
+    r = torch.where(torch.isnan(x), torch.where(u < 0, 0xFFC0, 0x7FC0), r)
+    return r.to(torch.int16).view(torch.bfloat16)
+
+
+def _on_device(x, dtype, dev) -> torch.Tensor:
+    """numpy or tensor -> contiguous tensor of ``dtype`` on ``dev`` (no copy
+    if already so).  Another dtype is cast on ``dev``, ``_CAST_FRAMES``
+    frames at a time, so no second full-size copy is made on the way."""
+    t = _as_tensor(x)
+    if t.dtype == dtype:
+        return t.to(dev).contiguous()
+    cast = _to_bfloat16 if dtype == torch.bfloat16 else (lambda b: b)
+    out = torch.empty(t.shape, dtype=dtype, device=dev)
+    for a in range(0, t.shape[0], _CAST_FRAMES):
+        out[a:a + _CAST_FRAMES].copy_(cast(t[a:a + _CAST_FRAMES].to(dev)))
+    return out
 
 
 class SectorContext:
-    """One sector-CCD: cubes as tensors on ``device`` + catalog + WCS + motion model."""
+    """One sector-CCD: cubes as tensors on ``device`` + catalog + WCS + motion model.
+
+    ``cube_dtype`` (None or float32, or ``torch.bfloat16``) is the dtype of
+    the images, errors and backgrounds on the device; pixel flags stay
+    uint8 and the sum image float32.  bfloat16 halves the cubes' bytes and
+    their reads (the band kernel widens each element and sums in float32):
+    the JAX package's preview mode, ~0.1% relative flux error at the 99th
+    percentile against float32 (tests/test_engine_extras.py).
+    """
 
     datasource = "ffi"
 
@@ -102,9 +172,7 @@ class SectorContext:
         if cache != "device":
             raise NotImplementedError(f"cache={cache!r} (streamed host cubes) is not ported "
                                       "to photometry_tpu_torch yet")
-        if cube_dtype is not None and np.dtype(cube_dtype) != np.float32:
-            raise NotImplementedError(f"cube_dtype={cube_dtype} is not ported to "
-                                      "photometry_tpu_torch yet (float32 cubes only)")
+        cube_dtype = _cube_dtype(cube_dtype)
         cubes = discovery.find_cube_files(input_folder, sector=sector, camera=camera, ccd=ccd)
         if len(cubes) != 1:
             raise FileNotFoundError(
@@ -136,21 +204,24 @@ class SectorContext:
                 cadenceno=cube.cadenceno, quality=cube.quality, catalog_path=cats[0],
                 wcs=wcs, sector=sector, camera=camera, ccd=ccd, header=cube.header,
                 bkg_pixels_used=np.asarray(cube.h5["bkg_pixels_used"]), motion=motion,
-                input_folder=input_folder, time_corrector=time_corrector, device=device)
+                input_folder=input_folder, time_corrector=time_corrector,
+                cube_dtype=cube_dtype, device=device)
 
     @classmethod
     def from_arrays(cls, *, images, images_err, backgrounds, pixelflags, sumimage,
                     time, timecorr, cadenceno, quality, catalog_path: str, wcs,
                     sector: int, camera: int, ccd: int, header: Optional[dict] = None,
                     bkg_pixels_used=None, motion: Optional[MotionModel] = None,
-                    input_folder: str = ".", time_corrector=None,
+                    input_folder: str = ".", time_corrector=None, cube_dtype=None,
                     device="cuda") -> "SectorContext":
         """A context from in-memory state.
 
-        Cubes (T, H, W) may be numpy arrays or tensors; tensors already on
-        ``device`` in float32 (uint8 for ``pixelflags``) are used as they
-        are, without a copy.  ``header`` carries the cube attributes
-        (DATA_REL, CADENCE, NUM_FRM, ...; defaults as the reference's).
+        Cubes (T, H, W) may be numpy arrays (a JAX bfloat16 array's host
+        copy included) or tensors; tensors already on ``device`` in the
+        cube dtype (uint8 for ``pixelflags``) are used as they are, without
+        a copy, and others are cast on ``device`` a block of frames at a
+        time.  ``header`` carries the cube attributes (DATA_REL, CADENCE,
+        NUM_FRM, ...; defaults as the reference's).
         """
         ctx = cls.__new__(cls)
         ctx._setup(images=images, images_err=images_err, backgrounds=backgrounds,
@@ -158,13 +229,16 @@ class SectorContext:
                    cadenceno=cadenceno, quality=quality, catalog_path=catalog_path, wcs=wcs,
                    sector=sector, camera=camera, ccd=ccd, header=header,
                    bkg_pixels_used=bkg_pixels_used, motion=motion,
-                   input_folder=input_folder, time_corrector=time_corrector, device=device)
+                   input_folder=input_folder, time_corrector=time_corrector,
+                   cube_dtype=_cube_dtype(cube_dtype), device=device)
         return ctx
 
     def _setup(self, *, images, images_err, backgrounds, pixelflags, sumimage, time,
                timecorr, cadenceno, quality, catalog_path, wcs, sector, camera, ccd,
-               header, bkg_pixels_used, motion, input_folder, time_corrector, device):
+               header, bkg_pixels_used, motion, input_folder, time_corrector, cube_dtype,
+               device):
         self.device = resolve_device(device)
+        self.cube_dtype = cube_dtype
         #: Optional core.timecorr.TimeCorrector for per-target barycentric
         #: corrections (None keeps the cube's frame-level values).
         self.time_corrector = time_corrector
@@ -195,9 +269,9 @@ class SectorContext:
                                 else np.asarray(bkg_pixels_used).astype(bool))
 
         dev = self.device
-        self.images = _on_device(images, torch.float32, dev)
-        self.images_err = _on_device(images_err, torch.float32, dev)
-        self.backgrounds = _on_device(backgrounds, torch.float32, dev)
+        self.images = _on_device(images, cube_dtype, dev)
+        self.images_err = _on_device(images_err, cube_dtype, dev)
+        self.backgrounds = _on_device(backgrounds, cube_dtype, dev)
         self.pixelflags = _on_device(pixelflags, torch.uint8, dev)
         for name in ("images", "images_err", "backgrounds", "pixelflags"):
             if tuple(getattr(self, name).shape) != (self.n_times,) + self.shape:
@@ -234,8 +308,9 @@ class SectorContext:
 
 def context_from_jax(jax_ctx, device) -> SectorContext:
     """The port's SectorContext holding the same state as a JAX package
-    ``SectorContext`` (cubes via ``np.asarray``; catalog file, WCS, motion
-    series and header fields carried over)."""
+    ``SectorContext`` (cubes via ``np.asarray``, bfloat16 ones bit for bit;
+    the cube dtype, catalog file, WCS, motion series and header fields
+    carried over)."""
     jm = jax_ctx.motion
     wcs_ref = None if getattr(jm, "wcs_ref", None) is None else TanWCS.from_any(jm.wcs_ref)
     motion = MotionModel(warpmode=jm.warpmode, wcs_ref=wcs_ref)
@@ -252,7 +327,100 @@ def context_from_jax(jax_ctx, device) -> SectorContext:
         camera=jax_ctx.camera, ccd=jax_ctx.ccd, header=jax_ctx.header,
         bkg_pixels_used=jax_ctx.bkg_pixels_used, motion=motion,
         input_folder=jax_ctx.input_folder, time_corrector=jax_ctx.time_corrector,
-        device=device)
+        cube_dtype=getattr(jax_ctx, "cube_dtype", None), device=device)
+
+
+class TpfContext:
+    """A Target Pixel File with the SectorContext interface, its cubes as
+    tensors on ``device``.
+
+    Counterpart of the TPF branch of BasePhotometry.__init__
+    (BasePhotometry.py:307-384), as the JAX package's ``TpfContext``.  The
+    "CCD image" is the TPF stamp itself; CCD coordinates are offset by the
+    stamp corner.  Cubes are float32; NaN and inf pixels pass through (the
+    extraction's finiteness tests own them), pixel flags are zero.
+    """
+
+    datasource = "tpf"
+    time_corrector = None
+
+    def __init__(self, input_folder: str, starid: int, sector: Optional[int] = None,
+                 cadence: Optional[int] = None, device="cuda"):
+        self.device = resolve_device(device)
+        files = discovery.find_tpf_files(input_folder, starid=starid, sector=sector,
+                                         cadence=cadence)
+        if len(files) == 0:
+            raise FileNotFoundError("Target Pixel File not found")
+        if len(files) > 1:
+            raise FileNotFoundError("Multiple Target Pixel Files found matching pattern")
+        tpf = read_tpf(files[0])
+        self.tpf = tpf
+        self.input_folder = input_folder
+        self.sector, self.camera, self.ccd = tpf.sector, tpf.camera, tpf.ccd
+        self.data_rel = tpf.data_rel
+        self.cadence = tpf.cadence
+        self.num_frm = tpf.num_frm
+        self.n_readout = tpf.n_readout
+        self.readnoise = tpf.readnoise
+        self.gain = tpf.gain
+        self.pixel_offset_row = tpf.corner_row
+        self.pixel_offset_col = tpf.corner_col
+
+        cats = discovery.find_catalog_files(input_folder, sector=self.sector,
+                                            camera=self.camera, ccd=self.ccd)
+        if len(cats) != 1:
+            raise FileNotFoundError(
+                f"Catalog file not found: SECTOR={self.sector:d}, "
+                f"CAMERA={self.camera:d}, CCD={self.ccd:d}")
+        self.catalog = StarCatalog(cats[0])
+
+        self.time = time_offset(tpf.time, tpf.header, datatype="tpf")
+        self.timecorr = tpf.timecorr
+        self.cadenceno = tpf.cadenceno
+        self.quality = tpf.quality
+        self.n_times = len(self.time)
+        self.shape = tuple(tpf.shape)
+        self.wcs = tpf.wcs                  # stamp-relative
+
+        dev = self.device
+        self.images = _on_device(tpf.flux, torch.float32, dev)
+        self.images_err = _on_device(tpf.flux_err, torch.float32, dev)
+        bkg = tpf.flux_bkg if tpf.flux_bkg is not None else np.zeros_like(tpf.flux)
+        self.backgrounds = _on_device(bkg, torch.float32, dev)
+        self.pixelflags = torch.zeros(tpf.flux.shape, dtype=torch.uint8, device=dev)
+        self.sumimage = np.nanmean(
+            np.where(TESSQualityFlags.filter(tpf.quality)[:, None, None], tpf.flux, np.nan),
+            axis=0).astype(np.float32)
+        self.collected = ((tpf.aperture & 1 != 0) if tpf.aperture is not None
+                          else np.isfinite(self.sumimage))
+        #: SPOC aperture bits, the basis of the APERTURE image (BasePhotometry.py:1063-1072):
+        self.tpf_aperture = tpf.aperture
+        self.bkg_pixels_used = np.zeros(self.shape, bool)
+        self._dev_cache = {}
+
+        # Motion: translation kernels from POS_CORR, re-zeroed at the frame
+        # nearest the catalog reference time (BasePhotometry.py:1199-1216);
+        # with no finite (time, POS_CORR) pair, a static pointing model:
+        t_nocorr = self.time - self.timecorr
+        k = tpf.pos_corr.astype(np.float64) if tpf.pos_corr is not None else np.zeros((0, 2))
+        good = (np.isfinite(t_nocorr[:len(k)]) & np.all(np.isfinite(k), axis=1)
+                if len(k) else np.zeros(0, bool))
+        if np.any(good):
+            tt, kk = t_nocorr[:len(k)][good], k[good]
+            ref_time = self.catalog.settings.reference_time - 2457000.0
+            kk = kk - kk[int(np.argmin(np.abs(tt - ref_time)))]
+            self.motion = MotionModel(warpmode="translation")
+            self.motion.load_series(tt, kk)
+        else:
+            self.motion = MotionModel(warpmode="unchanged")
+
+    close = SectorContext.close
+    device_array = SectorContext.device_array
+    target_position = SectorContext.target_position     # stamp coordinates: the WCS is the stamp's
+
+    def corrected_time(self, ra: float, dec: float) -> tuple:
+        """TPFs keep the per-cadence SPOC barycentric corrections."""
+        return self.time, self.timecorr
 
 
 # ---------------------------------------------------------------------------
@@ -299,20 +467,26 @@ class TargetResult:
 # ---------------------------------------------------------------------------
 
 def aperture_image(ctx, stamp, mask_stamp) -> np.ndarray:
-    """TESS-product APERTURE bits for one FFI stamp (BasePhotometry.py:1031-1074
-    + the final-mask bits of :1644-1649): bit 1 collected, bit 4 background
-    pixel, bits 32/64/128/256 CCD output A-D by raw 1-based column, 2|8 on
-    the photometric mask.  ``stamp`` = (r0, r1, c0, c1), 0-based."""
+    """TESS-product APERTURE bits for one stamp (BasePhotometry.py:1031-1074
+    + the final-mask bits of :1644-1649).  FFI: bit 1 collected, bit 4
+    background pixel, bits 32/64/128/256 CCD output A-D by raw 1-based
+    column.  TPF: the SPOC aperture with its mask bits (2|8) cleared.  Both
+    get 2|8 on the photometric mask.  ``stamp`` = (r0, r1, c0, c1), 0-based."""
     r0, r1, c0, c1 = stamp
-    ap = ctx.collected[r0:r1, c0:c1].astype(np.int32)
-    ap |= 4 * ctx.bkg_pixels_used[r0:r1, c0:c1].astype(np.int32)
-    rawcol = np.arange(c0, c1) + ctx.pixel_offset_col + 1  # 1-based raw
-    bits = np.zeros_like(rawcol, np.int32)
-    bits[(45 <= rawcol) & (rawcol <= 556)] = 32     # CCD output A
-    bits[(557 <= rawcol) & (rawcol <= 1068)] = 64   # CCD output B
-    bits[(1069 <= rawcol) & (rawcol <= 1580)] = 128  # CCD output C
-    bits[(1581 <= rawcol) & (rawcol <= 2092)] = 256  # CCD output D
-    ap |= bits[None, :]
+    tpf_ap = getattr(ctx, "tpf_aperture", None)
+    if ctx.datasource == "ffi" or tpf_ap is None:
+        ap = ctx.collected[r0:r1, c0:c1].astype(np.int32)
+        ap |= 4 * ctx.bkg_pixels_used[r0:r1, c0:c1].astype(np.int32)
+        if ctx.datasource == "ffi":
+            rawcol = np.arange(c0, c1) + ctx.pixel_offset_col + 1  # 1-based raw
+            bits = np.zeros_like(rawcol, np.int32)
+            bits[(45 <= rawcol) & (rawcol <= 556)] = 32     # CCD output A
+            bits[(557 <= rawcol) & (rawcol <= 1068)] = 64   # CCD output B
+            bits[(1069 <= rawcol) & (rawcol <= 1580)] = 128  # CCD output C
+            bits[(1581 <= rawcol) & (rawcol <= 2092)] = 256  # CCD output D
+            ap |= bits[None, :]
+    else:
+        ap = np.asarray(tpf_ap[r0:r1, c0:c1], np.int32) & ~np.int32(2 | 8)
     if mask_stamp is not None:
         ap |= np.where(mask_stamp, np.int32(2 | 8), np.int32(0))
     return ap
@@ -386,7 +560,9 @@ def _stamp_catalog(cat_all: dict, idx: np.ndarray, r0, c0, pad_to: int) -> dict:
 
 
 def _full_catalog_positions(ctx) -> dict:
-    """All catalog stars with 0-based CCD positions through the context WCS."""
+    """All catalog stars with 0-based positions through the context WCS: CCD
+    coordinates, or stamp coordinates on a TPF (its WCS and ``ctx.shape``
+    are the stamp's)."""
     cat = ctx.catalog.all_stars()
     if len(cat["starid"]) == 0:
         return {"starid": np.array([], np.int64), "row": np.array([]),
@@ -414,8 +590,6 @@ def extract_aperture_batch(ctx, starids, retries: Optional[int] = None,
     package's included).  See the reference's docstring for the retry loop
     (AperturePhotometry/photometry.py:71-165).
     """
-    if ctx.datasource != "ffi":
-        raise NotImplementedError("only FFI SectorContexts are ported to photometry_tpu_torch")
     settings = load_settings()
     halos_tmag = settings.getfloat("haloswitch", "tmag_limit", fallback=6.0)
     halos_flux = settings.getfloat("haloswitch", "flux_limit", fallback=0.01)
@@ -437,10 +611,14 @@ def extract_aperture_batch(ctx, starids, retries: Optional[int] = None,
     for sid in starids:
         tgt = ctx.catalog.target(sid)
         row, col = ctx.target_position(tgt["ra"], tgt["decl"])
-        nr, nc = default_stamp_size(tgt["tmag"])
-        stamp = [int(round(row)) - nr // 2, int(round(row)) + nr // 2 + 1,
-                 int(round(col)) - nc // 2, int(round(col)) + nc // 2 + 1]
-        max_retries = (10 if tgt["tmag"] < 6 else 5) if retries is None else retries
+        if ctx.datasource.startswith("tpf"):
+            stamp = [0, H, 0, W]      # TPF: the whole postage stamp, one round
+            max_retries = 1
+        else:
+            nr, nc = default_stamp_size(tgt["tmag"])
+            stamp = [int(round(row)) - nr // 2, int(round(row)) + nr // 2 + 1,
+                     int(round(col)) - nc // 2, int(round(col)) + nc // 2 + 1]
+            max_retries = (10 if tgt["tmag"] < 6 else 5) if retries is None else retries
         targets.append({
             "starid": sid, "target": tgt, "row": row, "col": col,
             "stamp": stamp, "resizes": 0, "max_retries": max_retries,
@@ -527,8 +705,10 @@ def extract_aperture_batch(ctx, starids, retries: Optional[int] = None,
             t["cat"] = cats[i]
             t["in_mask"] = np.asarray(in_mask[i]) & cats[i]["valid"]
 
+            # A TPF's stamp is the postage stamp: it never grows.
             resize = {k: 10 for k, hit in (("down", bot), ("up", top), ("left", left),
-                                           ("right", right)) if hit}
+                                           ("right", right))
+                      if hit and ctx.datasource == "ffi"}
             if not resize:
                 t["done"] = True
                 continue
@@ -619,6 +799,8 @@ def extract_aperture_batch(ctx, starids, retries: Optional[int] = None,
         # pos_corr for every target over time:
         rows = np.array([t["row"] for t in ok_targets])
         cols = np.array([t["col"] for t in ok_targets])
+        if ctx.datasource.startswith("tpf"):   # the motion model is in CCD coordinates
+            rows, cols = rows + ctx.pixel_offset_row, cols + ctx.pixel_offset_col
         jit_all = ctx.motion.jitter_batch(ctx.time - ctx.timecorr, cols, rows)  # (T, N, 2)
 
         # Float32 device inputs, as the reference's jnp.asarray (x64 off):
@@ -652,7 +834,7 @@ def extract_aperture_batch(ctx, starids, retries: Optional[int] = None,
             cm_trow[i] = t["row"] - r0s[i]
             cm_tcol[i] = t["col"] - c0s[i]
             cm_tflux[i] = float(mag2flux(t["target"].get("tmag", np.nan)))
-        psf_sigma = float(ctx.header.get("PSFSIGMA", 1.25) or 1.25)
+        psf_sigma = float(getattr(ctx, "header", {}).get("PSFSIGMA", 1.25) or 1.25)
         crowding = crowding_metrics_batch(
             *(torch.as_tensor(a, device=dev) for a in (masks_f, cm_row, cm_col, cm_flux, cm_valid,
                                                        cm_istgt, cm_trow, cm_tcol, cm_tflux)),
@@ -758,7 +940,8 @@ def extract_aperture_batch(ctx, starids, retries: Optional[int] = None,
         stamp_wcs = None
         if ctx.wcs is not None:
             stamp_wcs = ctx.wcs.copy()
-            stamp_wcs.crpix = stamp_wcs.crpix - np.array([s[2], s[0]])
+            if ctx.datasource == "ffi":      # a TPF's WCS is the stamp's already
+                stamp_wcs.crpix = stamp_wcs.crpix - np.array([s[2], s[0]])
 
         if np.all(np.isnan(flux[i])):
             status = STATUS.ERROR

@@ -247,10 +247,13 @@ def extract_halo_batch(ctx, starids, maxiter: int = MAXITER, objective: str = "t
         return [results[int(s)] for s in starids]
 
     # ---- one batched stamp fetch, normalised on the host in float64 -----------
-    imgs_all = _host(torch.stack([ctx.images[:, r0:r0 + h, c0:c0 + w]
-                                  for (_, _, _, _, r0, c0, _) in work])).astype(np.float64)
-    errs_all = _host(torch.stack([ctx.images_err[:, r0:r0 + h, c0:c0 + w]
-                                  for (_, _, _, _, r0, c0, _) in work])).astype(np.float64)
+    def fetch(cube):
+        """(N, T, h, w) float64 stamps; widened on the device (numpy has no bfloat16)."""
+        return _host(torch.stack([cube[:, r0:r0 + h, c0:c0 + w]
+                                  for (_, _, _, _, r0, c0, _) in work]).to(torch.float32)
+                     ).astype(np.float64)
+
+    imgs_all, errs_all = fetch(ctx.images), fetch(ctx.images_err)
 
     good_t = np.isfinite(ctx.time)
     quality_ok = TESSQualityFlags.filter(ctx.quality)
@@ -407,7 +410,8 @@ def extract_halo_batch(ctx, starids, maxiter: int = MAXITER, objective: str = "t
         stamp_wcs = None
         if ctx.wcs is not None:
             stamp_wcs = ctx.wcs.copy()
-            stamp_wcs.crpix = stamp_wcs.crpix - np.array([c0, r0])
+            if ctx.datasource == "ffi":      # a TPF's WCS is the stamp's already
+                stamp_wcs.crpix = stamp_wcs.crpix - np.array([c0, r0])
 
         results[sid] = TargetResult(
             starid=int(sid), method="halo", status=STATUS.OK,

@@ -85,11 +85,14 @@ def setup_psf_target(ctx, starid: int, cat_all) -> PsfTargetSetup:
     tgt = ctx.catalog.target(starid)
     row, col = ctx.target_position(tgt["ra"], tgt["decl"])
     H, W = ctx.shape
-    nr, nc = default_stamp_size(tgt["tmag"])
-    stamp = (max(int(round(row)) - nr // 2, 0),
-             min(int(round(row)) + nr // 2 + 1, H),
-             max(int(round(col)) - nc // 2, 0),
-             min(int(round(col)) + nc // 2 + 1, W))
+    if ctx.datasource.startswith("tpf"):
+        stamp = (0, H, 0, W)          # the whole postage stamp
+    else:
+        nr, nc = default_stamp_size(tgt["tmag"])
+        stamp = (max(int(round(row)) - nr // 2, 0),
+                 min(int(round(row)) + nr // 2 + 1, H),
+                 max(int(round(col)) - nc // 2, 0),
+                 min(int(round(col)) + nc // 2 + 1, W))
 
     dist = np.hypot(cat_all["row"] - row, cat_all["col"] - col)
     sel = (dist < FIT_RADIUS) & ((tgt["tmag"] - cat_all["tmag"]) > DMAG_LIMIT)
@@ -147,7 +150,9 @@ def bucket_psf_groups(ctx, setups) -> dict:
 
 
 def gather_stamp_stack(cube: torch.Tensor, r0s, c0s, bh: int, bw: int) -> torch.Tensor:
-    """(T, H, W) cube -> (N, T, bh, bw) float32 stamps by advanced indexing."""
+    """(T, H, W) cube -> (N, T, bh, bw) float32 stamps by advanced indexing:
+    gathered at the cube's dtype and widened after, so a bfloat16 cube is
+    read at two bytes a pixel (as the JAX package's gather)."""
     dev = cube.device
     rows = torch.as_tensor(np.asarray(r0s, np.int64), device=dev)[:, None] + torch.arange(bh, device=dev)
     cols = torch.as_tensor(np.asarray(c0s, np.int64), device=dev)[:, None] + torch.arange(bw, device=dev)

@@ -421,7 +421,8 @@ def extract_psf_batch(ctx, starids, lhood_stat: str = "Gaussian_d", prf=None,
                 stamp_wcs = None
                 if ctx.wcs is not None:
                     stamp_wcs = ctx.wcs.copy()
-                    stamp_wcs.crpix = stamp_wcs.crpix - np.array([s[2], s[0]])
+                    if ctx.datasource == "ffi":      # a TPF's WCS is the stamp's already
+                        stamp_wcs.crpix = stamp_wcs.crpix - np.array([s[2], s[0]])
 
                 results[setup.starid] = TargetResult(
                     starid=setup.starid, method="psf", status=status,

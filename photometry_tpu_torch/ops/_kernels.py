@@ -24,8 +24,9 @@ import tempfile
 import threading
 from time import perf_counter
 
-__all__ = ["KernelError", "CudaLibrary", "BAND_EXTRACT", "PSF_WARM_FIT", "MEDIAN15",
-           "SEGMENT_HIST", "STAMP_FLUX", "LIBRARIES", "build_all"]
+__all__ = ["KernelError", "CudaLibrary", "Instantiation", "BAND_EXTRACT", "BAND_EXTRACT_BF16",
+           "PSF_WARM_FIT", "MEDIAN15", "SEGMENT_HIST", "STAMP_FLUX", "LIBRARIES", "KERNELS",
+           "build_all"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
@@ -95,6 +96,20 @@ class CudaLibrary:
         return lib
 
 
+class Instantiation:
+    """A second kernel built from another library's source (a template
+    instantiated on another element type): its own launch count, the
+    library's build."""
+
+    def __init__(self, name: str, library: CudaLibrary):
+        self.name = name
+        self.library = library
+        self.launches = 0
+
+    def lib(self) -> ctypes.CDLL:
+        return self.library.lib()
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 _L, _F = ctypes.c_int64, ctypes.c_float
@@ -102,7 +117,11 @@ _L, _F = ctypes.c_int64, ctypes.c_float
 #: ops/csrc/band_extract.cu — see ops.bandext.band_sums_cuda.
 BAND_EXTRACT = CudaLibrary("band_extract", {
     "band_extract_sums": (_I, [_P] * 9 + [_I] * 6 + [_P]),
+    "band_extract_sums_bf16": (_I, [_P] * 9 + [_I] * 6 + [_P]),
 })
+
+#: The band kernel on bfloat16 value planes (``band_extract_sums_bf16``).
+BAND_EXTRACT_BF16 = Instantiation("band_extract_bf16", BAND_EXTRACT)
 
 #: ops/csrc/psf_warm_fit.cu — see models.psf_fused.fused_warm_fit_cuda.
 PSF_WARM_FIT = CudaLibrary("psf_warm_fit", {
@@ -129,6 +148,9 @@ STAMP_FLUX = CudaLibrary("stamp_flux", {
 })
 
 LIBRARIES = (BAND_EXTRACT, PSF_WARM_FIT, MEDIAN15, SEGMENT_HIST, STAMP_FLUX)
+
+#: Every kernel with a launch count: the libraries' and the second instantiations.
+KERNELS = LIBRARIES + (BAND_EXTRACT_BF16,)
 
 
 def build_all() -> None:

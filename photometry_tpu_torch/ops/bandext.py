@@ -16,6 +16,11 @@ BasePhotometry.py:1323-1414).
   engine.py:451-495).  It is also what ``chip_smoke.py`` holds the kernel
   against on the card.
 
+The value planes (images, errors, backgrounds) are float32 or bfloat16,
+all three of one dtype; sums are float32 either way.  A bfloat16 cube goes
+to the kernel's bfloat16 instantiation as it is (no float32 copy), and the
+plain version widens only the gathered stamps.
+
 A CUDA tensor always goes to the kernel or raises; nothing falls back.
 """
 
@@ -24,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..quality import PixelQualityFlags
-from ._kernels import BAND_EXTRACT, KernelError
+from ._kernels import BAND_EXTRACT, BAND_EXTRACT_BF16, KernelError
 
 __all__ = ["NQ", "band_extract_flux_batch", "band_sums", "band_sums_plain",
            "band_sums_cuda"]
@@ -97,16 +102,26 @@ def _frame_order(r0s, c0s, W: int):
     return torch.argsort(r0s.long() * W + c0s.long())
 
 
+#: The kernel's instantiation and entry point for each dtype of the value planes.
+_ENTRY = {torch.float32: (BAND_EXTRACT, "band_extract_sums"),
+          torch.bfloat16: (BAND_EXTRACT_BF16, "band_extract_sums_bf16")}
+
+
 def band_sums_cuda(images, images_err, backgrounds, pixelflags, masks, r0s, c0s,
                    windows=None) -> torch.Tensor:
-    """The 10 sums (N, NQ, T) from the CUDA kernel, on the images' card."""
+    """The 10 sums (N, NQ, T) from the CUDA kernel, on the images' card:
+    its float32 or its bfloat16 instantiation, by the dtype of ``images``."""
     dev = images.device
     if dev.type != "cuda":
         raise ValueError(f"band_sums_cuda needs CUDA tensors, got {dev}")
+    if images.dtype not in _ENTRY:
+        raise ValueError(f"images: need float32 or bfloat16, got {images.dtype}")
+    kernel, entry = _ENTRY[images.dtype]
     T, H, W = images.shape
     N, h, w = masks.shape
-    for name, x, dt in (("images", images, torch.float32), ("images_err", images_err, torch.float32),
-                        ("backgrounds", backgrounds, torch.float32),
+    for name, x, dt in (("images", images, images.dtype),
+                        ("images_err", images_err, images.dtype),
+                        ("backgrounds", backgrounds, images.dtype),
                         ("pixelflags", pixelflags, torch.uint8)):
         if x.device != dev or x.dtype != dt or tuple(x.shape) != (T, H, W) \
                 or not x.is_contiguous():
@@ -128,16 +143,15 @@ def band_sums_cuda(images, images_err, backgrounds, pixelflags, masks, r0s, c0s,
     mw, r0s, c0s = mw[order].contiguous(), r0s[order].contiguous(), c0s[order].contiguous()
     bbox = _window_bbox(mw)
     out = torch.empty(N, NQ, T, dtype=torch.float32, device=dev)
-    lib = BAND_EXTRACT.lib()
+    launch = getattr(kernel.lib(), entry)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.band_extract_sums(images.data_ptr(), images_err.data_ptr(),
-                                   backgrounds.data_ptr(), pixelflags.data_ptr(),
-                                   mw.data_ptr(), r0s.data_ptr(), c0s.data_ptr(),
-                                   bbox.data_ptr(), out.data_ptr(), N, T, H, W, h, w, stream)
+        rc = launch(images.data_ptr(), images_err.data_ptr(), backgrounds.data_ptr(),
+                    pixelflags.data_ptr(), mw.data_ptr(), r0s.data_ptr(), c0s.data_ptr(),
+                    bbox.data_ptr(), out.data_ptr(), N, T, H, W, h, w, stream)
     if rc != 0:
-        raise KernelError(f"band_extract_sums launch failed: CUDA error {rc}")
-    BAND_EXTRACT.launches += 1
+        raise KernelError(f"{entry} launch failed: CUDA error {rc}")
+    kernel.launches += 1
     if N and bool(outside):
         raise ValueError("stamp corners put a stamp outside the (H, W) frame")
     return torch.empty_like(out).index_copy_(0, order, out)
@@ -177,8 +191,8 @@ def band_extract_flux_batch(images, images_err, backgrounds, pixelflags, masks, 
     """Aperture sums of N targets over all T cadences; same outputs as the
     reference's ``band_extract_flux_batch`` / ``extract_flux_core``.
 
-    images/images_err/backgrounds (T, H, W) float32, pixelflags (T, H, W)
-    uint8; masks (N, h, w) bool; r0s/c0s (N,) int32 stamp corners;
+    images/images_err/backgrounds (T, H, W) float32 or bfloat16 (all three
+    of one dtype), pixelflags (T, H, W) uint8; masks (N, h, w) bool; r0s/c0s (N,) int32 stamp corners;
     ``windows`` (N, h, w) bool limits the shenanigans flag to each target's
     logical stamp.  Returns flux, flux_err, flux_bkg (N, T), centroid
     (N, T, 2) and shenanigans_any (N, T), on the images' device.

@@ -18,6 +18,15 @@
 //   q9 shenanigans   count               window & (flag & 4)
 // written to out[n, q, t] (float32; counts are exact up to 2^24).
 //
+// Element types.  The three value planes are float32 or bfloat16, all
+// three of one type (the kernel is a template on it; the flag plane is
+// uint8 in both).  A bfloat16 element is widened to float32 as it is
+// loaded (__bfloat162float: exact, NaN, inf, subnormals and -0 kept), and
+// every sum runs in float32, as the TPU kernel upcasts each block before
+// it reduces (photometry_tpu/ops/bandext.py:286-294).  The pixels and the
+// order of the sums are those of the float32 kernel, so a bfloat16 cube
+// gives the float32 kernel's bits on the cube widened to float32.
+//
 // Why not the TPU's layout.  The TPU kernel streams whole 64x128 cells
 // and contracts them against dense (M, 8192) piece patches on the MXU,
 // because there a scattered 17-px read moves whole 4 KB (8, 128) tiles.
@@ -29,8 +38,8 @@
 // target is never split into pieces, and nothing is contracted.
 //
 // What bounds it.  Device-memory bytes: per target and cadence, 12 bytes
-// (f32 image, err, background) at each mask pixel and the flag byte at
-// each window pixel; the card reads whole 32-byte sectors, so the least it
+// (f32 image, err, background; 6 in bfloat16) at each mask pixel and the
+// flag byte at each window pixel; the card reads whole 32-byte sectors, so the least it
 // can move is the sectors those pixels touch.  Arithmetic is a few flops
 // per byte, far below the card's ridge point.
 //
@@ -51,6 +60,7 @@
 // (60 registers, 4 blocks an SM).  The order of every sum is fixed by the
 // lists and the chunks: the same inputs give the same bits on every run.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,9 +85,14 @@ __device__ __forceinline__ int warp_inclusive_scan(int v, int lane)
   return v;
 }
 
+// One element of a value plane, widened to float32.
+__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+
+template <typename V>
 __global__ void __launch_bounds__(kThreads)
-band_extract_kernel(const float* __restrict__ img, const float* __restrict__ err,
-                    const float* __restrict__ bkg, const uint8_t* __restrict__ flags,
+band_extract_kernel(const V* __restrict__ img, const V* __restrict__ err,
+                    const V* __restrict__ bkg, const uint8_t* __restrict__ flags,
                     const uint8_t* __restrict__ mw,      // (N, h, w): bit0 mask, bit1 window
                     const int32_t* __restrict__ r0s, const int32_t* __restrict__ c0s,
                     const int32_t* __restrict__ bbox,    // (N, 4): i_lo, i_hi, j_lo, j_hi (excl.)
@@ -148,7 +163,7 @@ band_extract_kernel(const float* __restrict__ img, const float* __restrict__ err
         const uint32_t en = mlist[e];
         const int i = (en >> 16) & 0x7fff, j = en & 0xffff;
         const size_t p = base + (size_t)i * W + j;
-        const float x = __ldg(img + p), er = __ldg(err + p), b = __ldg(bkg + p);
+        const float x = load(img + p), er = load(err + p), b = load(bkg + p);
         const uint8_t f = (en & kWinBit) ? __ldg(flags + p) : (uint8_t)0;
         if (isfinite(x)) {
           s[0] += x;
@@ -194,23 +209,40 @@ band_extract_kernel(const float* __restrict__ img, const float* __restrict__ err
   }
 }
 
+template <typename V>
+int launch(const V* img, const V* err, const V* bkg, const uint8_t* flags, const uint8_t* mw,
+           const int32_t* r0s, const int32_t* c0s, const int32_t* bbox, float* out, int N,
+           int T, int H, int W, int h, int w, void* stream) {
+  if (N == 0 || T == 0) return (int)cudaSuccess;
+  if (h > 0x7fff || w > 0xffff) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)N, (unsigned)((T + kTimeBlock - 1) / kTimeBlock));
+  if (grid.y > 65535u) return (int)cudaErrorInvalidValue;     // T > 2,097,120
+  band_extract_kernel<V><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      img, err, bkg, flags, mw, r0s, c0s, bbox, out, T, H, W, h, w);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched), or
 // cudaErrorInvalidValue for stamps taller than 32,767 or wider than 65,535
-// pixels (the packed entries).
+// pixels (the packed entries) or more than 2,097,120 cadences (the grid's
+// y extent).  The value planes are float32 here, bfloat16 in the _bf16
+// entry point; the arguments are otherwise the same.
 int band_extract_sums(const float* img, const float* err, const float* bkg,
                       const uint8_t* flags, const uint8_t* mw, const int32_t* r0s,
                       const int32_t* c0s, const int32_t* bbox, float* out, int N, int T,
                       int H, int W, int h, int w, void* stream) {
-  if (N == 0 || T == 0) return (int)cudaSuccess;
-  if (h > 0x7fff || w > 0xffff) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)N, (unsigned)((T + kTimeBlock - 1) / kTimeBlock));
-  band_extract_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      img, err, bkg, flags, mw, r0s, c0s, bbox, out, T, H, W, h, w);
-  return (int)cudaGetLastError();
+  return launch(img, err, bkg, flags, mw, r0s, c0s, bbox, out, N, T, H, W, h, w, stream);
+}
+
+int band_extract_sums_bf16(const __nv_bfloat16* img, const __nv_bfloat16* err,
+                           const __nv_bfloat16* bkg, const uint8_t* flags, const uint8_t* mw,
+                           const int32_t* r0s, const int32_t* c0s, const int32_t* bbox,
+                           float* out, int N, int T, int H, int W, int h, int w, void* stream) {
+  return launch(img, err, bkg, flags, mw, r0s, c0s, bbox, out, N, T, H, W, h, w, stream);
 }
 
 }  // extern "C"

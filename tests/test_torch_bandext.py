@@ -1,8 +1,9 @@
 """Port parity: ops/bandext (JAX banded kernel in interpret mode and the JAX
-gather extraction vs the port's plain version, on CPU).
+gather extraction vs the port's plain version, on CPU), on float32 and on
+bfloat16 cubes.
 
 Tolerance: rtol 1e-4, atol 1e-3 on floats (float32 sums in another order,
-as tests/test_bandext.py:41), booleans equal.
+as tests/test_bandext.py:41), booleans and counts equal.
 """
 
 import numpy as np
@@ -174,3 +175,33 @@ def test_cuda_path_refuses_cpu_tensors():
     imgs, errs, bkgs, pflags, masks, r0s, c0s = _inputs(T=5, N=2)
     with pytest.raises(ValueError, match="CUDA"):
         bandext.band_sums_cuda(*[t(a) for a in (imgs, errs, bkgs, pflags, masks, r0s, c0s)])
+
+
+def bf16(x):
+    """A JAX bfloat16 array -> CPU bfloat16 tensor, bit for bit."""
+    return torch.from_numpy(np.array(x).view(np.uint16)).view(torch.bfloat16)
+
+
+def test_bf16_cubes_match_jax_band_kernel():
+    """bfloat16 cubes (tests/test_bandext.py:106's inputs, cast by JAX): the
+    port's plain path against the JAX band kernel in interpret mode on the
+    same bits (rtol 1e-4, atol 1e-3, booleans equal).  The plain sums widen
+    after the gather, so they equal the float32 sums of the widened cube bit
+    for bit, and their counts equal numpy's on that cube."""
+    imgs, errs, bkgs, pflags, masks, r0s, c0s = _inputs()
+    h, w = masks.shape[1:]
+    j16 = [jnp.asarray(a, jnp.bfloat16) for a in (imgs, errs, bkgs)]
+    t16 = [bf16(a) for a in j16]
+    rest = [t(a) for a in (pflags, masks, r0s, c0s)]
+    got = bandext.band_extract_flux_batch(*t16, *rest, h, w)
+    want = jax_band(*j16, pflags, masks, r0s, c0s, h, w, t_block=8, interpret=True)
+    assert_extraction_parity(got, want)
+    sums = bandext.band_sums_plain(*t16, *rest)
+    assert torch.equal(sums, bandext.band_sums_plain(*[x.float() for x in t16], *rest))
+    wide = [n(x.float()) for x in t16]
+    rr = r0s[:, None, None] + np.arange(h)[None, :, None]
+    cc = c0s[:, None, None] + np.arange(w)[None, None, :]
+    stamp = wide[0][:, rr, cc]                                 # (T, N, h, w)
+    for q, count in ((1, np.isfinite(stamp)), (2, stamp == 0),
+                     (8, np.isfinite(wide[2][:, rr, cc]))):
+        np.testing.assert_array_equal(n(sums[:, q]), (count & masks).sum(axis=(2, 3)).T)

@@ -6,7 +6,9 @@ agree with their plain versions.
   ``photometry_tpu_torch`` passes), every module of the port imports,
   ``extract_aperture_batch`` and ``extract_psf_batch`` run on a tiny
   ``SectorContext.from_arrays`` context on the CPU, and so do
-  ``extract_linpsf_batch`` and ``extract_halo_batch``; the prepare stage
+  ``extract_linpsf_batch`` and ``extract_halo_batch``; ``extract_aperture_batch``
+  also runs on a bfloat16 copy of that context and on a ``TpfContext``
+  (a simulated TPF); the prepare stage
   (``prepare.prepare_cube``) runs on a tiny simulated sector into
   ``chip_smoke.DictCube``, the in-memory store the card's run uses.
 - No module of ``photometry_tpu_torch``, and not ``chip_smoke.py``, has an
@@ -89,6 +91,21 @@ for got in (extract_linpsf_batch(ctx, [1, 2, 3, 4]), extract_halo_batch(ctx, [1,
     assert all(r.status in (STATUS.OK, STATUS.WARNING) for r in got), [r.status for r in got]
     assert all(np.isfinite(r.lightcurve["flux"]).all() for r in got)
 
+ctx16 = SectorContext.from_arrays(
+    images=images, images_err=np.ones_like(images), backgrounds=np.zeros_like(images),
+    pixelflags=np.zeros(images.shape, np.uint8), sumimage=images.mean(0),
+    time=1325.0 + np.arange(T) / 48, timecorr=np.zeros(T, np.float32),
+    cadenceno=np.arange(T), quality=np.zeros(T, np.int32), catalog_path=path, wcs=wcs,
+    sector=1, camera=1, ccd=1, cube_dtype=torch.bfloat16, device="cpu")
+assert ctx16.images.dtype == torch.bfloat16
+res16 = extract_aperture_batch(ctx16, [1, 2, 3, 4])
+assert [r.status for r in res16] == [r.status for r in res]
+from photometry_tpu_torch.core.engine import TpfContext
+tpf = TpfContext(SIM_DIR, TPF_STARID, device="cpu")
+got = extract_aperture_batch(tpf, [TPF_STARID])[0]
+assert got.status in (STATUS.OK, STATUS.WARNING) and got.stamp == (0, tpf.shape[0], 0, tpf.shape[1])
+assert np.isfinite(got.lightcurve["flux"]).all() and got.lightcurve["flux"].shape == (60,)
+
 from chip_smoke import DictCube
 from photometry_tpu_torch.io.discovery import find_ffi_files
 from photometry_tpu_torch.prepare import STAGES, prepare_cube
@@ -130,7 +147,8 @@ def test_slice_runs_with_jax_blocked(tmp_path):
     modules = _modules()
     assert "photometry_tpu_torch.models.psf_fused" in modules
     assert "photometry_tpu_torch.prepare" in modules
-    script = f"MODULES = {modules!r}\nSIM_DIR = {str(tmp_path)!r}\n" + _SCRIPT
+    script = (f"MODULES = {modules!r}\nSIM_DIR = {str(tmp_path)!r}\n"
+              f"TPF_STARID = {int(sim.starid[0])}\n" + _SCRIPT)
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
@@ -556,3 +574,105 @@ def test_linpsf_and_halo_match_cpu_on_card(tmp_path):
             assert gw["sat_pixels"] == ww["sat_pixels"]
     cpu.close()
     card.close()
+
+
+@pytest.mark.cuda
+def test_band_kernel_bf16_matches_plain_on_card():
+    """A bfloat16 cube goes to the kernel's bfloat16 instantiation (its
+    launch count rises, the float32 one's does not); its sums equal the plain
+    ones on the same cube (counts exact, rtol 1e-4, atol 1e-3) and the
+    float32 kernel's on the cube widened, bit for bit.  Also at a TPF's
+    shape: whole 11x11 frames (planes of 242 bytes, off 16-byte bounds) at
+    T = 19,728 (617 blocks on the grid's y axis)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from photometry_tpu_torch.ops import bandext
+    from photometry_tpu_torch.ops._kernels import BAND_EXTRACT, BAND_EXTRACT_BF16
+    rng = np.random.default_rng(1)
+    for T, H, W, N, h in ((37, 256, 384, 200, 33), (19728, 11, 11, 1, 11)):
+        imgs = rng.normal(100, 5, (T, H, W)).astype(np.float32)
+        imgs[1, :8, :8] = np.nan
+        imgs[2, :3, :3] = [[np.inf, -np.inf, 3.397e38], [-3.397e38, 1e-39, -0.0], [0, 1e-45, 5]]
+        errs = (np.sqrt(np.abs(imgs)) + 1.0).astype(np.float32)
+        bkgs = rng.normal(20, 1, (T, H, W)).astype(np.float32)
+        flags = (rng.uniform(size=(T, H, W)) < 0.01).astype(np.uint8) * 4
+        r0s = rng.integers(0, H - h + 1, N).astype(np.int32)
+        c0s = rng.integers(0, W - h + 1, N).astype(np.int32)
+        r0s[0] = c0s[0] = 0
+        masks = rng.uniform(size=(N, h, h)) < 0.4
+        masks[0, :3, :3] = True
+        cube = [torch.as_tensor(a, device="cuda").to(torch.bfloat16) for a in (imgs, errs, bkgs)]
+        rest = [torch.as_tensor(a, device="cuda") for a in (flags, masks, r0s, c0s)]
+        before, before32 = BAND_EXTRACT_BF16.launches, BAND_EXTRACT.launches
+        got = bandext.band_sums_cuda(*cube, *rest)
+        torch.cuda.synchronize()
+        assert BAND_EXTRACT_BF16.launches == before + 1 and BAND_EXTRACT.launches == before32
+        want = bandext.band_sums_plain(*cube, *rest).cpu().numpy()
+        g = got.cpu().numpy()
+        np.testing.assert_array_equal(g[:, [1, 2, 8, 9]], want[:, [1, 2, 8, 9]])
+        np.testing.assert_allclose(g, want, rtol=1e-4, atol=1e-3)
+        wide = bandext.band_sums_cuda(*[x.float() for x in cube], *rest)
+        assert torch.equal(got.view(torch.int32), wide.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_tpf_extraction_on_card(tmp_path):
+    """A TpfContext on the card (a TPF written by chip_smoke.write_tpf):
+    ``extract_aperture_batch`` launches the band kernel and equals the
+    port's CPU run: statuses, masks and APERTURE bits exact, fluxes to
+    rtol 1e-4, atol 1e-3, pos_corr within 2e-5 px."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from chip_smoke import write_tpf
+    from photometry_tpu_torch.catalog import make_catalog_from_arrays
+    from photometry_tpu_torch.core.engine import TpfContext, extract_aperture_batch
+    from photometry_tpu_torch.io import fits as pf
+    from photometry_tpu_torch.io.wcs import TanWCS
+    from photometry_tpu_torch.ops._kernels import BAND_EXTRACT
+    rng = np.random.default_rng(2)
+    wcs = TanWCS(crpix=[1024.5, 1024.5], crval=[95.0, -60.0],
+                 cd=[[-21.0 / 3600, 0.0], [0.0, 21.0 / 3600]])
+    rows, cols = np.array([505.2, 507.9, 498.0]), np.array([300.4, 296.8, 303.1])
+    tmag = np.array([9.0, 10.5, 12.0])
+    ra, dec = wcs.radec_of_rowcol(rows, cols)
+    make_catalog_from_arrays(str(tmp_path), 1, 1, 1, starid=np.arange(1, 4), ra_j2000=ra,
+                             dec_j2000=dec, pm_ra=np.zeros(3), pm_dec=np.zeros(3), tmag=tmag,
+                             reference_time=2458340.0)
+    T, side, r0, c0 = 3000, 15, 498, 293
+    t = 1325.3 + (np.arange(T) + 0.5) * 120 / 86400
+    pos = np.stack([0.3 * (t - t[0]) / 4, -0.2 * (t - t[0]) / 4], 1).astype(np.float32)
+    yy, xx = np.mgrid[r0:r0 + side, c0:c0 + side]
+    flux = np.zeros((T, side, side))
+    for r, c, m in zip(rows, cols, tmag):
+        g = np.exp(-0.5 * ((yy - r - pos[:, 1, None, None]) ** 2
+                           + (xx - c - pos[:, 0, None, None]) ** 2) / 1.2 ** 2)
+        flux += 10 ** (-0.4 * (m - 20.451)) * g / (2 * np.pi * 1.44)
+    flux = (flux + rng.normal(0, 3, flux.shape)).astype(np.float32)
+    flux[5, 0, 0] = np.nan
+    aperture = np.full((side, side), 1 | 64, np.int32)
+    aperture[6:9, 6:9] |= 2 | 8
+    hdr = wcs.shifted(drow=r0, dcol=c0).to_header(pf.Header())
+    hdr.set("CRVAL1P", c0 + 1)
+    hdr.set("CRVAL2P", r0 + 1)
+    write_tpf(str(tmp_path / "tess2020186164531-s0001-0000000000000001-0120-s_tp.fits"), 1, 1, 1,
+              1, {"TIME": t, "TIMECORR": np.zeros(T, np.float32),
+                  "CADENCENO": np.arange(T, dtype=np.int32), "FLUX": flux,
+                  "FLUX_ERR": np.full_like(flux, 3.0), "FLUX_BKG": np.full_like(flux, 20.0),
+                  "QUALITY": np.zeros(T, np.int32), "POS_CORR1": pos[:, 0],
+                  "POS_CORR2": pos[:, 1]}, aperture, hdr)
+    card = TpfContext(str(tmp_path), 1, device="cuda")
+    cpu = TpfContext(str(tmp_path), 1, device="cpu")
+    assert card.images.is_cuda and card.images.dtype == torch.float32
+    before = BAND_EXTRACT.launches
+    got = extract_aperture_batch(card, [1, 2])
+    assert BAND_EXTRACT.launches == before + 1
+    for g, w in zip(got, extract_aperture_batch(cpu, [1, 2])):
+        assert g.status == w.status and g.stamp == w.stamp == (0, side, 0, side)
+        np.testing.assert_array_equal(g.mask, w.mask)
+        np.testing.assert_array_equal(g.aperture_image, w.aperture_image)
+        for k in ("flux", "flux_err", "flux_background", "pos_centroid"):
+            np.testing.assert_allclose(g.lightcurve[k], w.lightcurve[k], rtol=1e-4, atol=1e-3,
+                                       equal_nan=True, err_msg=k)
+        np.testing.assert_allclose(g.lightcurve["pos_corr"], w.lightcurve["pos_corr"], atol=2e-5)
+    card.close()
+    cpu.close()
