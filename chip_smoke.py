@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of photometry_tpu_torch on one CUDA card.
 
-Drives the port's FFI aperture, PSF and prepare paths, bfloat16 cubes, the
-flux-only stamp extraction, ECC registration, the default-method drain (both
-automatic switches: halo and linPSF) and Target Pixel Files through the
-drain, through the entry points a user calls, with JAX, h5py and the JAX
-package blocked from import.  Phases run in the order 0, 1, 2, 2b, 2c, 2d
-(adversarial), 3, 3b (on phase 3's cube), 2d (main shape, on phase 3's cube
-and targets), 4, 6 (on phase 3's cube), 8 (beside phase 3's context), 7 (on
-phase 3's cubes), 3b (the full sector, once phase 3's cubes are freed), 5:
+Drives the port's FFI aperture, PSF and prepare paths, bfloat16 cubes,
+host-resident cubes streamed through the card, the flux-only stamp
+extraction, ECC registration, the default-method drain (both automatic
+switches: halo and linPSF) and Target Pixel Files through the drain, through
+the entry points a user calls, with JAX, h5py and the JAX package blocked
+from import.  Phases run in the order 0, 1, 2, 2b, 2c, 2d (adversarial), 3,
+3b (on phase 3's cube), 3c (phase 3's cube on the host), 2d (main shape, on
+phase 3's cube and targets), 4, 6 (on phase 3's cube), 8 (beside phase 3's
+context), 7 (on phase 3's cubes), 3b (the full sector, once phase 3's cubes
+are freed), 3c (the full sector in float32 on the host), 5:
 
 0. imports: ``jax``, ``jaxlib``, ``h5py`` and ``photometry_tpu`` refused.
 1. device: the card's name and power limit; the five kernel sources are
@@ -93,6 +95,26 @@ phase 3's cubes), 3b (the full sector, once phase 3's cubes are freed), 5:
    made in frame blocks on the card, ``extract_aperture_batch`` on the same
    targets: wall, targets/s, peak memory (below 80 GB) and the band
    launch's time beside its bounds.
+3c. host-resident cubes (``cache="host"``): phase 3's float32 cube copied
+   to the host, ``SectorContext.from_arrays(..., cache="host")``,
+   ``extract_aperture_batch`` on the same 10,240 targets streamed through
+   the card 128 frames a chunk (the band kernel launched ceil(T/128)
+   times; statuses, masks, APERTURE images and every light-curve array
+   bit-equal to phase 3's), then PSF on 128 targets, linPSF on 16 and halo
+   on 4 forced by ``method``, bit-equal to the same calls on phase 3's
+   device context.  After phase 3b's full sector: the same sector, T =
+   1,312, in float32 (71.5 GB with the flags; T is cut, and the cut
+   printed, where the host's MemAvailable cannot hold it), made on the card
+   from the generator state phase 3b's was made from and copied to
+   pageable host memory; the 10,240 targets streamed: targets/s, the
+   streamed extraction's wall and host-to-device GB/s beside a plain
+   pinned copy's (the bound), under ``torch.profiler`` the copies' busy
+   share and the share of the kernel's time they overlap, peak device
+   memory (far below the cube), MemTotal/MemAvailable; the same extraction
+   with the cube pinned in place (cudaHostRegister), bit-equal; fluxes
+   against phase 3b's bfloat16 sector within 3b's bounds, statuses and
+   masks equal.  An extended-mission sector at 600 s (T = 3,900, 212.6 GB)
+   is not run: it does not fit the card's host.
 4. the PSF slice on the same context: a synthetic K=3 table PRF written
    with ``PRF.write_mat`` and read back with ``PRF.from_mat``,
    ``extract_psf_batch`` on the 2,048 brightest targets (the PSF kernel's
@@ -116,7 +138,9 @@ phase 3's cubes), 3b (the full sector, once phase 3's cubes are freed), 5:
    re-run with the plain versions and must be equal; stage walls, frames
    per second, the device busy share of stages 1-5, the median and
    histogram kernels' device time per launch and stage 6's peak memory
-   (around its call) are printed.
+   (around its call) are printed, with the native host runtime's state
+   (the phase fails if it did not load: FITS reads gunzip and byteswap
+   through it).
 6. ECC registration at full size: 32 copies of phase 3's star field shifted
    on the card by a known drift plus jitter (up to 1.5 px, FFT phase ramps)
    with fresh noise, registered by ``MotionModel.calc_kernels_batch``
@@ -147,7 +171,10 @@ phase 3's cubes), 3b (the full sector, once phase 3's cubes are freed), 5:
    Prints the drain's wall and its timers, the halo
    flushes, the linPSF reruns' wall and peak memory, then the drain's
    first two leases again under ``torch.profiler``: device busy share and
-   top device ops.
+   top device ops.  Phases 7 and 8 print the native host runtime's state
+   (failing if it did not load) and hold one written product to MTIME 0
+   in its gzip header and to the same bytes when its HDUs are written
+   twice a second apart.
 
 8. Target Pixel Files through the drain: 128 primary TPFs at 120 s (T =
    19,728, 27.4 d; an eighth 21x21 and an eighth 15x15, the rest 11x11) on
@@ -264,6 +291,37 @@ def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def native_state(phase) -> str:
+    """The native host runtime's state; the phase fails if it did not load."""
+    from photometry_tpu_torch import native_ops
+    check(native_ops.native_available(), f"phase {phase}: the native host runtime did not load")
+    return ("native host runtime loaded, libdeflate "
+            + ("linked" if native_ops.libdeflate_linked()
+               else "not linked (.gz by the stdlib, MTIME 0)"))
+
+
+def product_twice(phase, path, folder) -> str:
+    """One written ``.fits.gz`` product: MTIME 0 in its gzip header, and
+    its HDUs written twice a second apart byte-equal."""
+    from photometry_tpu_torch.io import fits as pf
+    with open(path, "rb") as fh:
+        head = fh.read(8)
+    check(head[:2] == b"\x1f\x8b" and head[4:8] == bytes(4),
+          f"phase {phase}: {path}: gzip MTIME is not 0")
+    hdus = pf.read_fits(path)
+    blobs = []
+    for k in range(2):
+        if k:
+            time.sleep(1.1)
+        out = os.path.join(folder, f"twice{k}.fits.gz")
+        pf.write_fits(out, hdus, gzip_level=2)
+        with open(out, "rb") as fh:
+            blobs.append(fh.read())
+    check(blobs[0] == blobs[1], f"phase {phase}: a product written twice differs")
+    return (f"{os.path.basename(path)}: MTIME 0; its HDUs written twice a second apart "
+            f"byte-equal ({len(blobs[0])} bytes)")
 
 
 def cuda_ms(fn, reps=5, warm=True):
@@ -1811,6 +1869,9 @@ def drain_phase(work, dev, gen, rng, cubes, img0, rows, cols, tmag, wcs, card):
               f"TIC {sid}: WEIGHTMAP differs from the result's weightmap")
         read += 1
     check(read == 3, "phase 7: fewer than 3 halo products read back")
+    path = next(r.details["filepath_lightcurve"] for r in halo_res.values()
+                if r.details.get("filepath_lightcurve"))
+    print(f"phase 7 products: {native_state('7')}; {product_twice('7', path, work)}", flush=True)
 
     # Pairs: linPSF, recovering the injected flux.
     lin, good = 0, 0
@@ -1985,16 +2046,19 @@ def bf16_slice(ctx_kw, sids, results32, prf, card, result):
     torch.cuda.empty_cache()
 
 
-def make_cubes_bf16(img0, gen, dev, T_):
-    """make_cubes at ``T_`` frames with the value planes in bfloat16, each
-    64-frame block made in float32 on the card and cast there."""
+def make_sector(img0, gen, dev, T_, dtype, where):
+    """make_cubes at ``T_`` frames, each 64-frame block made in float32 on
+    the card and stored on ``where`` with the value planes in ``dtype``:
+    bfloat16 on the card (cast there) for phase 3b's sector, float32 on the
+    host for phase 3c's.  The same generator state gives the same draws, so
+    the two are one cube in two dtypes."""
     import torch
     base = torch.as_tensor(img0, device=dev)
     sigma = torch.sqrt(torch.clamp(base, min=0.0) + 25.0)
-    images = torch.empty(T_, H, W, device=dev, dtype=torch.bfloat16)
-    errs = torch.empty(T_, H, W, device=dev, dtype=torch.bfloat16)
-    bkgs = torch.empty(T_, H, W, device=dev, dtype=torch.bfloat16)
-    flags = torch.empty(T_, H, W, device=dev, dtype=torch.uint8)
+    images = torch.empty(T_, H, W, device=where, dtype=dtype)
+    errs = torch.empty(T_, H, W, device=where, dtype=dtype)
+    bkgs = torch.empty(T_, H, W, device=where, dtype=dtype)
+    flags = torch.empty(T_, H, W, device=where, dtype=torch.uint8)
     for t0 in range(0, T_, 64):
         n = min(64, T_ - t0)
         images[t0:t0 + n] = base + sigma * torch.randn(n, H, W, device=dev, generator=gen)
@@ -2003,7 +2067,7 @@ def make_cubes_bf16(img0, gen, dev, T_):
         flags[t0:t0 + n] = (torch.rand(n, H, W, device=dev, generator=gen) < 1e-4).to(torch.uint8) * 4
     for cube in (images, errs, bkgs):            # scattered NaN pixels
         idx = torch.randint(0, T_ * H * W, (2000,), device=dev, generator=gen)
-        cube.view(-1)[idx] = float("nan")
+        cube.view(-1)[idx.to(cube.device)] = float("nan")
     return images, errs, bkgs, flags
 
 
@@ -2011,7 +2075,9 @@ def bf16_sector(work, dev, gen, img0, rows, cols, tmag, wcs, sids, card):
     """Phase 3b (3): a full primary-mission sector, T = 1,312 in bfloat16
     (38.5 GB with the flags), made in frame blocks on the card;
     ``extract_aperture_batch`` on phase 3's targets: wall, targets/s, peak
-    memory and the band launch's kernel time beside its bounds."""
+    memory and the band launch's kernel time beside its bounds.  Returns
+    the catalog's path and each target's (status, mask, flux, flux_err),
+    which phase 3c holds its float32 sector to."""
     import torch
     from photometry_tpu_torch.catalog import make_catalog_from_arrays
     from photometry_tpu_torch.core.engine import SectorContext, extract_aperture_batch
@@ -2023,7 +2089,7 @@ def bf16_sector(work, dev, gen, img0, rows, cols, tmag, wcs, sids, card):
     held = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     tic = time.perf_counter()
-    cubes = make_cubes_bf16(img0, gen, dev, T_)
+    cubes = make_sector(img0, gen, dev, T_, torch.bfloat16, dev)
     torch.cuda.synchronize()
     made = time.perf_counter() - tic
     gb = sum(x.numel() * x.element_size() for x in cubes) / 1e9
@@ -2070,7 +2136,336 @@ def bf16_sector(work, dev, gen, img0, rows, cols, tmag, wcs, sids, card):
     band_main_phase(captured, card, "3b sector")
     captured.clear()
     ctx.close()
+    keep = {r.starid: (r.status, r.mask, r.lightcurve.get("flux"), r.lightcurve.get("flux_err"))
+            for r in res}
     del ctx, cubes, res, captured
+    torch.cuda.empty_cache()
+    return cat, keep
+
+
+# --- phase 3c: host-resident cubes streamed through the card --------------------
+
+STREAM_CHUNK = 128                       # _extract_flux_streamed's frames a chunk (as JAX's)
+
+
+def meminfo() -> dict:
+    """/proc/meminfo's MemTotal and MemAvailable, in bytes."""
+    out = {}
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            key, val = line.split(":")
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(val.split()[0]) * 1024
+    return out
+
+
+def lc_bits_equal(a, b) -> bool:
+    """Two light-curve arrays equal bit for bit (NaN payloads and signed zeros too)."""
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(
+        np.ascontiguousarray(a).view(np.uint8), np.ascontiguousarray(b).view(np.uint8))
+
+
+def host_slice(ctx_kw, dev_ctx, sids, results32, prf, card):
+    """Phase 3c (a): phase 3's float32 cube copied to the host, a host
+    context over it (``SectorContext.from_arrays(..., cache="host")``) and
+    ``extract_aperture_batch`` on phase 3's targets, streamed through the
+    card: the band kernel launched ceil(T/128) times, statuses, masks and
+    every light-curve array bit-equal to phase 3's; then PSF on 128 targets,
+    linPSF on 16 and halo on 4, forced by ``method``, equal to the same calls
+    on phase 3's device context."""
+    import torch
+    from photometry_tpu_torch.core.dispatcher import photometry_batch
+    from photometry_tpu_torch.core.engine import SectorContext, extract_aperture_batch
+    from photometry_tpu_torch.core.status import STATUS
+    from photometry_tpu_torch.ops._kernels import BAND_EXTRACT, PSF_WARM_FIT
+    names = ("images", "images_err", "backgrounds", "pixelflags")
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    host_kw = dict(ctx_kw, cache="host", **{k: ctx_kw[k].cpu() for k in names})
+    ctx = SectorContext.from_arrays(**host_kw)
+    copy_s = time.perf_counter() - tic
+    check(ctx.cache == "host" and all(getattr(ctx, k).device.type == "cpu" for k in names)
+          and ctx.images.data_ptr() == host_kw["images"].data_ptr(),
+          "phase 3c: the host context's cubes are not the host copies")
+    gb = sum(getattr(ctx, k).numel() * getattr(ctx, k).element_size() for k in names) / 1e9
+    reset_counts()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    res = extract_aperture_batch(ctx, sids)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    want = -(-T // STREAM_CHUNK)
+    print(f"phase 3c slice: phase 3's cubes copied to the host ({gb:.1f} GB in {copy_s:.2f} s), "
+          f"a cache=\"host\" context; {len(sids)} targets streamed in {wall:.2f} s = "
+          f"{len(sids) / wall:.1f} targets/s ({card}); band kernel launches "
+          f"{BAND_EXTRACT.launches} (ceil({T}/{STREAM_CHUNK}) = {want})", flush=True)
+    check(BAND_EXTRACT.launches == want, f"phase 3c: {BAND_EXTRACT.launches} band launches, "
+          f"not {want}")
+    keys = ("flux", "flux_err", "flux_background", "pos_centroid", "pos_corr",
+            "shenanigans_any", "time")
+    n_lc = 0
+    for a, b in zip(results32, res):
+        check(a.status == b.status, f"phase 3c: TIC {a.starid} status {b.status} != {a.status}")
+        check((a.mask is None) == (b.mask is None)
+              and (a.mask is None or np.array_equal(a.mask, b.mask)),
+              f"phase 3c: TIC {a.starid} mask differs from phase 3's")
+        check(a.mask is None or lc_bits_equal(a.aperture_image, b.aperture_image),
+              f"phase 3c: TIC {a.starid} APERTURE image differs")
+        check(a.lightcurve.keys() == b.lightcurve.keys(), f"phase 3c: TIC {a.starid} keys")
+        for k in keys:
+            if k in a.lightcurve:
+                check(lc_bits_equal(a.lightcurve[k], b.lightcurve[k]),
+                      f"phase 3c: TIC {a.starid} {k} differs from phase 3's")
+        n_lc += bool(a.lightcurve)
+    print(f"phase 3c against phase 3 (the device path): statuses, masks and APERTURE images "
+          f"equal for {len(sids)} targets; {n_lc} light curves bit-equal in "
+          + ", ".join(keys), flush=True)
+    del res
+
+    ctx._context_prf = dev_ctx._context_prf = prf
+    for method, n in (("psf", N_PSF_PLAIN), ("linpsf", 16), ("halo", 4)):
+        tasks = [{"priority": i + 1, "starid": sid, "sector": 1, "camera": 1, "ccd": 1,
+                  "cadence": 1800, "datasource": "ffi", "method": method}
+                 for i, sid in enumerate(sids[:n])]
+        reset_counts()
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        got = photometry_batch(ctx, tasks, save=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tic
+        fits = PSF_WARM_FIT.launches
+        want = photometry_batch(dev_ctx, tasks, save=False)
+        check(method != "psf" or fits > 0, "phase 3c psf: the host context's fit did not "
+              "launch the PSF kernel")
+        good = 0
+        for g, w in zip(got, want):
+            check(g.method == w.method == method and g.status == w.status,
+                  f"phase 3c {method}: TIC {g.starid} {g.method} {g.status} on the host "
+                  f"context, {w.method} {w.status} on the device context")
+            for k in ("flux", "flux_err", "flux_background", "pos_centroid"):
+                if k in w.lightcurve:
+                    check(lc_bits_equal(g.lightcurve[k], w.lightcurve[k]),
+                          f"phase 3c {method}: TIC {g.starid} {k} differs from the device "
+                          f"context's")
+            good += g.status in (STATUS.OK, STATUS.WARNING) and bool(g.lightcurve)
+        print(f"phase 3c {method} on the host context: {n} targets in {wall:.2f} s, {good} "
+              f"OK/WARNING; statuses and light curves bit-equal to the device context's"
+              + (f"; PSF kernel launches {fits}" if method == "psf" else "") + f" ({card})",
+              flush=True)
+    ctx.close()
+    del ctx, host_kw
+    torch.cuda.empty_cache()
+
+
+def merged(spans):
+    """(start, duration) spans -> their union as sorted (start, end) intervals."""
+    out = []
+    for a, d in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], a + d)
+        else:
+            out.append([a, a + d])
+    return out
+
+
+def overlap_share(kernels, copies) -> float:
+    """The share of the kernels' device time during which a copy ran."""
+    union = merged(copies)
+    total = sum(d for _, d in kernels)
+    inter = sum(max(0.0, min(a + d, hi) - max(a, lo)) for a, d in kernels for lo, hi in union)
+    return inter / total if total else 0.0
+
+
+def copy_profile(prof, gb, launches, what) -> str:
+    """A profiled streamed extraction: the host-to-device copies' busy time
+    and rate, the band kernels' time, the share of it that copies overlap,
+    and the copies' busy share of the device activity's span."""
+    copies = kernel_spans(prof, "Memcpy HtoD")
+    kerns = kernel_spans(prof, "band_extract_kernel")
+    check(len(kerns) == launches, f"{what} profile: {len(kerns)} band kernels, not {launches}")
+    copy_busy = sum(hi - lo for lo, hi in merged(copies)) / 1e3
+    kern_ms = sum(d for _, d in kerns) / 1e3
+    span_ms = (max(x + d for x, d in copies + kerns) - min(x for x, _ in copies + kerns)) / 1e3
+    return (f"{len(copies)} host-to-device copies busy {copy_busy:.1f} ms "
+            f"({gb / (copy_busy / 1e3):.1f} GB/s while busy), {len(kerns)} band kernels "
+            f"{kern_ms:.2f} ms ({kern_ms / len(kerns):.3f} ms a chunk), "
+            f"{100 * overlap_share(kerns, copies):.1f}% of the kernels' time overlapped by "
+            f"copies; device activity spans {span_ms:.1f} ms, copies busy "
+            f"{100 * copy_busy / span_ms:.1f}% of it")
+
+
+def host_sector(work, dev, seed, img0, catalog, wcs, sids, sector16, card):
+    """Phase 3c (b): the full primary-mission sector, T = 1,312 in float32
+    (71.5 GB with the flags), made on the card 64 frames at a time from the
+    generator state phase 3b's bfloat16 sector was made from, and copied to
+    pageable host memory; a host context, ``extract_aperture_batch`` on the
+    10,240 targets streamed through the card.  Prints targets/s, the
+    streamed extraction's wall and the host-to-device GB/s it reached beside
+    a plain pinned copy's (measured here: the bound), the share of the band
+    kernel's time that copies overlap and the copies' busy share
+    (``torch.profiler``), peak device memory, MemTotal/MemAvailable; then
+    the same extraction with the cubes pinned in place (cudaHostRegister),
+    bit-equal.  Fluxes are held to phase 3b's bfloat16 sector within its
+    bounds, statuses and masks equal."""
+    import torch
+    from photometry_tpu_torch.core import engine
+    from photometry_tpu_torch.core.engine import SectorContext, extract_aperture_batch
+    from photometry_tpu_torch.core.status import STATUS
+    from photometry_tpu_torch.ops._kernels import BAND_EXTRACT
+    frame = H * W * (3 * 4 + 1)
+    mem = meminfo()
+    # What the process holds beside the cube: staging buffers, the bound's
+    # pinned frames, light curves, the interpreter and CUDA's host state.
+    reserve = 12e9
+    T_ = min(T_SECTOR, int((mem["MemAvailable"] - reserve) // frame))
+    print(f"phase 3c sector host memory: MemTotal {mem['MemTotal'] / 1e9:.1f} GB, MemAvailable "
+          f"{mem['MemAvailable'] / 1e9:.1f} GB; T = {T_}"
+          + ("" if T_ == T_SECTOR else f" (cut from {T_SECTOR}: the cube must fit the host)")
+          + f"; an extended-mission sector at 600 s (T = 3,900, {3900 * frame / 1e9:.1f} GB "
+          f"against MemTotal {mem['MemTotal'] / 1e9:.1f} GB) is left out by the script",
+          flush=True)
+    check(T_ >= 4 * STREAM_CHUNK, "phase 3c sector: too little host memory for 512 frames")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    tic = time.perf_counter()
+    cubes = make_sector(img0, gen, dev, T_, torch.float32, "cpu")
+    torch.cuda.synchronize()
+    made = time.perf_counter() - tic
+    gb = sum(x.numel() * x.element_size() for x in cubes) / 1e9
+    ctx = SectorContext.from_arrays(
+        images=cubes[0], images_err=cubes[1], backgrounds=cubes[2], pixelflags=cubes[3],
+        sumimage=img0, time=1325.3 + np.arange(T_) / 48.0, timecorr=np.zeros(T_, np.float32),
+        cadenceno=np.arange(T_, dtype=np.int32), quality=np.zeros(T_, np.int32),
+        catalog_path=catalog, wcs=wcs, sector=1, camera=1, ccd=1, input_folder=work,
+        cache="host", device=dev)
+    check(ctx.images.data_ptr() == cubes[0].data_ptr() and not ctx.images.is_pinned(),
+          "phase 3c sector: from_arrays copied the host cube")
+
+    # The bound: a plain pinned copy of 32 frames of each plane to the card.
+    src = [torch.empty((32, H, W), dtype=c.dtype, pin_memory=True) for c in cubes]
+    dst = [torch.empty((32, H, W), dtype=c.dtype, device=dev) for c in cubes]
+    for s_, c in zip(src, cubes):
+        s_.copy_(c[:32])
+    pinned_ms = cuda_ms(lambda: [d.copy_(s_, non_blocking=True) for d, s_ in zip(dst, src)])
+    pinned_gbs = sum(x.numel() * x.element_size() for x in src) / 1e9 / (pinned_ms / 1e3)
+    del src, dst
+
+    real, stream_args, stream_walls = engine._extract_flux_streamed, [], []
+
+    def timed_stream(*a, **kw):
+        torch.cuda.synchronize()
+        tic_ = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        stream_walls.append(time.perf_counter() - tic_)
+        stream_args.append((a, kw))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    tic = time.perf_counter()
+    with mock.patch.object(engine, "_extract_flux_streamed", timed_stream):
+        res = extract_aperture_batch(ctx, sids)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = BAND_EXTRACT.launches
+    want = -(-T_ // STREAM_CHUNK)
+    check(launches == want and len(stream_walls) == 1,
+          f"phase 3c sector: {launches} band launches in {len(stream_walls)} streamed calls, "
+          f"not {want} in 1")
+    stream_s = stream_walls[0]
+    chunk_gb = 2 * STREAM_CHUNK * frame / 1e9
+    out_gb = len(sids) * 10 * T_ * 4 * 2 / 1e9
+    print(f"phase 3c sector: ({T_}, {H}, {W}) float32 cubes on the host, {gb:.1f} GB made on the "
+          f"card and copied to pageable host memory in {made:.1f} s; {len(sids)} targets in "
+          f"{wall:.2f} s = {len(sids) / wall:.1f} targets/s; the streamed extraction "
+          f"{stream_s:.2f} s = {gb / stream_s:.1f} GB/s host-to-device, beside a plain pinned "
+          f"copy's {pinned_gbs:.1f} GB/s ({pinned_ms:.1f} ms for 32 frames of each plane): bound "
+          f"{gb / pinned_gbs:.2f} s; band launches {launches} (ceil({T_}/{STREAM_CHUNK})); "
+          f"peak device memory {peak:.1f} GB ({held:.1f} GB held before; two chunk buffers "
+          f"{chunk_gb:.1f} GB, sums and their parts {out_gb:.2f} GB) ({card})", flush=True)
+    check(peak - held < 0.4 * gb, "phase 3c sector: peak device memory is not far below the cube")
+
+    # The streamed extraction again under torch.profiler: copies against kernels.
+    a, kw = stream_args[0]
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        prof_out = real(*a, **kw)
+        torch.cuda.synchronize()
+    prof_s = time.perf_counter() - tic
+    print(f"phase 3c sector profile, pageable cube (the streamed extraction, {prof_s:.2f} s "
+          f"profiled): {copy_profile(prof, gb, want, 'phase 3c sector')} ({card})", flush=True)
+    first_out = [x.clone() for x in prof_out]
+    del prof, prof_out
+
+    # The other design: the cube pinned in place when the context is made.
+    cudart = torch.cuda.cudart()
+    tic = time.perf_counter()
+    for c in cubes:
+        rc = cudart.cudaHostRegister(c.data_ptr(), c.numel() * c.element_size(), 0)
+        check(int(rc) == 0, f"phase 3c sector: cudaHostRegister failed: {rc}")
+    reg_s = time.perf_counter() - tic
+    check(all(c.is_pinned() for c in cubes), "phase 3c sector: registered cubes not pinned")
+    reps = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        pin_out = real(*a, **kw)
+        torch.cuda.synchronize()
+        reps.append(time.perf_counter() - tic)
+    check(all(bit_equal(x, y) for x, y in zip(pin_out[:4], first_out[:4]))
+          and torch.equal(pin_out[4], first_out[4]),
+          "phase 3c sector: the pinned cube's sums differ from the pageable one's")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        real(*a, **kw)
+        torch.cuda.synchronize()
+    pinned_profile = copy_profile(prof, gb, want, "phase 3c sector, pinned")
+    del prof
+    tic = time.perf_counter()
+    for c in cubes:
+        cudart.cudaHostUnregister(c.data_ptr())
+    unreg_s = time.perf_counter() - tic
+    print(f"phase 3c sector, the cube pinned in place instead: cudaHostRegister of {gb:.1f} GB "
+          f"{reg_s:.2f} s; the streamed extraction {reps[0]:.2f} and {reps[1]:.2f} s = "
+          f"{gb / min(reps):.1f} GB/s (pageable through the staging buffers: {stream_s:.2f} s); "
+          f"sums bit-equal; unregister {unreg_s:.2f} s; profiled: {pinned_profile} ({card})",
+          flush=True)
+    del pin_out, first_out
+
+    rel, err_rel, n_cmp = [], [], 0
+    for r in res:
+        status, mask, flux16, ferr16 = sector16[r.starid]
+        check(r.status == status, f"phase 3c sector: TIC {r.starid} status {r.status} != "
+              f"phase 3b's {status}")
+        check((mask is None) == (r.mask is None) and (mask is None
+                                                      or np.array_equal(mask, r.mask)),
+              f"phase 3c sector: TIC {r.starid} mask differs from phase 3b's")
+        if r.status not in (STATUS.OK, STATUS.WARNING):
+            continue
+        fa, fb = r.lightcurve["flux"], flux16[:T_]
+        ok = np.isfinite(fa) & np.isfinite(fb)
+        rel.append(np.abs(fb[ok] / fa[ok] - 1))
+        err_rel.append(np.abs(ferr16[:T_][ok] / r.lightcurve["flux_err"][ok] - 1))
+        n_cmp += 1
+    rel, err_rel = np.concatenate(rel), np.concatenate(err_rel)
+    p99, med, e99 = (float(np.quantile(rel, 0.99)), float(np.median(rel)),
+                     float(np.quantile(err_rel, 0.99)))
+    print(f"phase 3c sector against phase 3b's bfloat16 sector: statuses and masks equal for "
+          f"{len(res)} targets; {n_cmp} OK/WARNING light curves, {rel.size} cadences: bfloat16 "
+          f"flux |rel| p99 {p99:.3g} (bound 1.5e-3), median {med:.3g} (5e-4); flux_err |rel| "
+          f"p99 {e99:.3g} (1e-2)", flush=True)
+    check(p99 < 1.5e-3 and med < 5e-4 and e99 < 1e-2,
+          "phase 3c sector: fluxes outside phase 3b's bounds against the bfloat16 sector")
+    ctx.close()
+    del ctx, cubes, res, stream_args, a, kw
     torch.cuda.empty_cache()
 
 
@@ -2343,6 +2738,8 @@ def tpf_phase(work, dev, gen, rng, ctx_kw, rows, cols, tmag, wcs, card):
                   and np.array_equal(ap & 10 == 10, r.mask),
                   f"phase 8: TIC {sid}'s APERTURE product lost the SPOC bits")
             ap_read += 1
+            print(f"phase 8 products: {native_state('8')}; "
+                  f"{product_twice('8', os.path.join(folder, paths[sid]), work)}", flush=True)
     print(f"phase 8 TPF primaries: {len(ratio)} OK/WARNING at 120 s: median flux / injected "
           f"{min(ratio):.3f}-{max(ratio):.3f}, light curve vs the 1% sinusoid r min "
           f"{min(corr):.3f} (median {np.median(corr):.3f}); pos_corr vs the written POS_CORR "
@@ -2691,8 +3088,8 @@ def prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result,
           "stage walls " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
           + f"; stage 1 {fps1:.2f} frames/s, stage 3 {fps3:.2f} frames/s; device busy "
           f"{busy:.1f} ms = {100 * busy / (wall * 1e3):.1f}% of the wall (torch.profiler on); "
-          f"launches median15 {MEDIAN15.launches}, segment_hist {SEGMENT_HIST.launches}",
-          flush=True)
+          f"launches median15 {MEDIAN15.launches}, segment_hist {SEGMENT_HIST.launches}; "
+          f"{native_state('5')}", flush=True)
     print(f"phase 5 device time by kernel: {top_device_ops(prof)}", flush=True)
     med = [d / 1e3 for _, d in kernel_spans(prof, "median15_kernel")]
     if med:
@@ -2880,10 +3277,12 @@ def main() -> int:
     gen.manual_seed(args.seed)
     # The phases this script gained later draw from generators of their own,
     # so that the earlier phases' data stay as they were:
+    seeds = {name: args.seed + 1000 * k
+             for k, name in enumerate(("2 TPF shapes", "8", "3b sector"), start=1)}
     gens = {}
-    for k, name in enumerate(("2 TPF shapes", "8", "3b sector"), start=1):
+    for name, seed in seeds.items():
         gens[name] = torch.Generator(device=dev)
-        gens[name].manual_seed(args.seed + 1000 * k)
+        gens[name].manual_seed(seed)
     tpf_err = band_tpf_shapes(dev, gens["2 TPF shapes"])
     err, err16 = max(err, tpf_err), max(err16, tpf_err)
     rows, cols, tmag, img0 = make_field(rng)
@@ -3116,6 +3515,10 @@ def main() -> int:
     bf16_slice(ctx_kw, sids, results, prfs[3], card, result)
     lap("3b")
 
+    # --- phase 3c: phase 3's cube on the host, streamed through the card ----------
+    host_slice(ctx_kw, ctx, sids, results, prfs[3], card)
+    lap("3c")
+
     # --- phase 2d, main shape: the phase-3 cube and targets ------------------------
     stamp_main(dev, (images, errs, bkgs, flags), results, rows, cols, card, result,
                stamp_adv_err)
@@ -3190,8 +3593,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- phase 3b, full sector: T = 1,312 in bfloat16, phase 3's cubes freed ---------
-    bf16_sector(work, dev, gens["3b sector"], img0, rows, cols, tmag, wcs, sids, card)
+    catalog16, sector16 = bf16_sector(work, dev, gens["3b sector"], img0, rows, cols, tmag,
+                                      wcs, sids, card)
     lap("3b sector")
+
+    # --- phase 3c, full sector: T = 1,312 in float32 on the host, streamed -----------
+    # (made from the generator state phase 3b's sector was made from)
+    host_sector(work, dev, seeds["3b sector"], img0, catalog16, wcs, sids, sector16, card)
+    del sector16
+    lap("3c sector")
 
     # --- phase 5: the prepare slice --------------------------------------------
     prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result)

@@ -104,15 +104,16 @@ class ContextCache:
         self.close()
 
 
-def open_context(input_folder: str, task: dict, device="cuda"):
-    """The context of a task, on ``device``: a SectorContext for ``ffi``, a
+def open_context(input_folder: str, task: dict, cache: str = "device", device="cuda"):
+    """The context of a task, on ``device``: a SectorContext for ``ffi``
+    (its cubes on the device, or on the host with ``cache="host"``), a
     TpfContext for ``tpf`` (the task's own star) and for ``tpf:NNN`` (a
-    secondary target in star NNN's TPF)."""
+    secondary target in star NNN's TPF), which ignores ``cache``."""
     ds = task["datasource"]
     if ds == "ffi":
         return SectorContext(input_folder, int(task["sector"]), int(task["camera"]),
-                             int(task["ccd"]), time_corrector=default_time_corrector(),
-                             device=device)
+                             int(task["ccd"]), cache=cache,
+                             time_corrector=default_time_corrector(), device=device)
     starid = int(ds[4:]) if ds.startswith("tpf:") else int(task["starid"])
     return TpfContext(input_folder, starid, sector=int(task["sector"]),
                       cadence=int(task["cadence"]), device=device)

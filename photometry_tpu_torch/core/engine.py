@@ -5,9 +5,9 @@ Port of ``photometry_tpu/core/engine.py``:
 
 - :class:`SectorContext` holds one sector-CCD's image cubes as tensors on
   an explicit device, in float32 or (``cube_dtype=torch.bfloat16``) in
-  bfloat16, plus the catalog, WCS and motion model.  Both its file
-  constructor and :func:`context_from_jax` go through
-  :meth:`SectorContext.from_arrays`.
+  bfloat16, or (``cache="host"``) on the host as stored, plus the catalog,
+  WCS and motion model.  Both its file constructor and
+  :func:`context_from_jax` go through :meth:`SectorContext.from_arrays`.
 - :class:`TpfContext` presents a Target Pixel File with the same
   interface: the postage stamp is the "CCD", its WCS stamp-relative.
 - :func:`extract_aperture_batch` runs K2P2 aperture photometry for a batch
@@ -17,15 +17,16 @@ Port of ``photometry_tpu/core/engine.py``:
   behaviour.  Final extraction goes through
   ``ops.bandext.band_extract_flux_batch`` — the CUDA kernel on the card
   (its float32 or bfloat16 instantiation), the plain gather formulation on
-  the CPU.
+  the CPU — or, for a host cube, through :func:`_extract_flux_streamed`,
+  which streams it through the device in chunks of frames.
 - :func:`extract_flux_core` is that plain formulation on any device.
 
-Not ported yet (they raise ``NotImplementedError``): multi-chip ``mesh=``
-and the streamed host cube (``cache="host"``).
+Not ported yet (it raises ``NotImplementedError``): multi-chip ``mesh=``.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -41,7 +42,7 @@ from ..io.settings import load_settings
 from ..io.tess import read_tpf
 from ..io.wcs import TanWCS
 from ..models.k2p2 import K2P2Params, build_masks_batch
-from ..ops.bandext import _extract, band_extract_flux_batch, band_sums_plain
+from ..ops.bandext import _extract, band_extract_flux_batch, band_sums_plain, band_sums_streamed
 from ..quality import TESSQualityFlags
 from ..utils.mathutils import mag2flux
 from .metrics import compute_metrics_batch, crowding_metrics_batch
@@ -151,6 +152,13 @@ def _on_device(x, dtype, dev) -> torch.Tensor:
     return out
 
 
+def _on_host(x, dtype=None) -> torch.Tensor:
+    """numpy or tensor -> contiguous CPU tensor, sharing a numpy array's
+    memory where it can; cast only to ``dtype`` if given."""
+    t = _as_tensor(x).cpu()
+    return (t if dtype is None else t.to(dtype)).contiguous()
+
+
 class SectorContext:
     """One sector-CCD: cubes as tensors on ``device`` + catalog + WCS + motion model.
 
@@ -160,6 +168,15 @@ class SectorContext:
     their reads (the band kernel widens each element and sums in float32):
     the JAX package's preview mode, ~0.1% relative flux error at the 99th
     percentile against float32 (tests/test_engine_extras.py).
+
+    ``cache="host"`` keeps the four cubes on the host as CPU tensors in the
+    dtype they are stored in (a cube file's float32: as the JAX package,
+    ``cube_dtype`` is kept as an attribute and not applied), for sectors
+    larger than the card; the sum image, the collected map and everything
+    the extraction builds still go to ``device``, and the final extraction
+    streams the cubes through it in chunks of frames
+    (:func:`_extract_flux_streamed`).  PSF, linPSF and halo gather their
+    stamps on the host and move only those.
     """
 
     datasource = "ffi"
@@ -169,9 +186,6 @@ class SectorContext:
                  time_corrector=None, cube_dtype=None, mesh=None, device="cuda"):
         if mesh is not None:
             raise NotImplementedError("multi-chip mesh= is not ported to photometry_tpu_torch yet")
-        if cache != "device":
-            raise NotImplementedError(f"cache={cache!r} (streamed host cubes) is not ported "
-                                      "to photometry_tpu_torch yet")
         cube_dtype = _cube_dtype(cube_dtype)
         cubes = discovery.find_cube_files(input_folder, sector=sector, camera=camera, ccd=ccd)
         if len(cubes) != 1:
@@ -205,7 +219,7 @@ class SectorContext:
                 wcs=wcs, sector=sector, camera=camera, ccd=ccd, header=cube.header,
                 bkg_pixels_used=np.asarray(cube.h5["bkg_pixels_used"]), motion=motion,
                 input_folder=input_folder, time_corrector=time_corrector,
-                cube_dtype=cube_dtype, device=device)
+                cube_dtype=cube_dtype, cache=cache, device=device)
 
     @classmethod
     def from_arrays(cls, *, images, images_err, backgrounds, pixelflags, sumimage,
@@ -213,15 +227,18 @@ class SectorContext:
                     sector: int, camera: int, ccd: int, header: Optional[dict] = None,
                     bkg_pixels_used=None, motion: Optional[MotionModel] = None,
                     input_folder: str = ".", time_corrector=None, cube_dtype=None,
-                    device="cuda") -> "SectorContext":
+                    cache: str = "device", device="cuda") -> "SectorContext":
         """A context from in-memory state.
 
         Cubes (T, H, W) may be numpy arrays (a JAX bfloat16 array's host
         copy included) or tensors; tensors already on ``device`` in the
         cube dtype (uint8 for ``pixelflags``) are used as they are, without
         a copy, and others are cast on ``device`` a block of frames at a
-        time.  ``header`` carries the cube attributes (DATA_REL, CADENCE,
-        NUM_FRM, ...; defaults as the reference's).
+        time.  With ``cache="host"`` the cubes stay on the host in their
+        own dtype (a contiguous CPU tensor, pinned or not, is used as it
+        is; a numpy array's memory is shared).  ``header`` carries the cube
+        attributes (DATA_REL, CADENCE, NUM_FRM, ...; defaults as the
+        reference's).
         """
         ctx = cls.__new__(cls)
         ctx._setup(images=images, images_err=images_err, backgrounds=backgrounds,
@@ -230,15 +247,18 @@ class SectorContext:
                    sector=sector, camera=camera, ccd=ccd, header=header,
                    bkg_pixels_used=bkg_pixels_used, motion=motion,
                    input_folder=input_folder, time_corrector=time_corrector,
-                   cube_dtype=_cube_dtype(cube_dtype), device=device)
+                   cube_dtype=_cube_dtype(cube_dtype), cache=cache, device=device)
         return ctx
 
     def _setup(self, *, images, images_err, backgrounds, pixelflags, sumimage, time,
                timecorr, cadenceno, quality, catalog_path, wcs, sector, camera, ccd,
                header, bkg_pixels_used, motion, input_folder, time_corrector, cube_dtype,
-               device):
+               cache, device):
+        if cache not in ("device", "host"):
+            raise ValueError(f"cache={cache!r}: need 'device' or 'host'")
         self.device = resolve_device(device)
         self.cube_dtype = cube_dtype
+        self.cache = cache
         #: Optional core.timecorr.TimeCorrector for per-target barycentric
         #: corrections (None keeps the cube's frame-level values).
         self.time_corrector = time_corrector
@@ -269,10 +289,15 @@ class SectorContext:
                                 else np.asarray(bkg_pixels_used).astype(bool))
 
         dev = self.device
-        self.images = _on_device(images, cube_dtype, dev)
-        self.images_err = _on_device(images_err, cube_dtype, dev)
-        self.backgrounds = _on_device(backgrounds, cube_dtype, dev)
-        self.pixelflags = _on_device(pixelflags, torch.uint8, dev)
+        if cache == "host":
+            self.images, self.images_err, self.backgrounds = (
+                _on_host(x) for x in (images, images_err, backgrounds))
+            self.pixelflags = _on_host(pixelflags, torch.uint8)
+        else:
+            self.images = _on_device(images, cube_dtype, dev)
+            self.images_err = _on_device(images_err, cube_dtype, dev)
+            self.backgrounds = _on_device(backgrounds, cube_dtype, dev)
+            self.pixelflags = _on_device(pixelflags, torch.uint8, dev)
         for name in ("images", "images_err", "backgrounds", "pixelflags"):
             if tuple(getattr(self, name).shape) != (self.n_times,) + self.shape:
                 raise ValueError(f"{name} has shape {tuple(getattr(self, name).shape)}, "
@@ -309,8 +334,9 @@ class SectorContext:
 def context_from_jax(jax_ctx, device) -> SectorContext:
     """The port's SectorContext holding the same state as a JAX package
     ``SectorContext`` (cubes via ``np.asarray``, bfloat16 ones bit for bit;
-    the cube dtype, catalog file, WCS, motion series and header fields
-    carried over)."""
+    the cube dtype, the cache (a JAX host context's numpy cubes make a host
+    context), catalog file, WCS, motion series and header fields carried
+    over)."""
     jm = jax_ctx.motion
     wcs_ref = None if getattr(jm, "wcs_ref", None) is None else TanWCS.from_any(jm.wcs_ref)
     motion = MotionModel(warpmode=jm.warpmode, wcs_ref=wcs_ref)
@@ -327,7 +353,8 @@ def context_from_jax(jax_ctx, device) -> SectorContext:
         camera=jax_ctx.camera, ccd=jax_ctx.ccd, header=jax_ctx.header,
         bkg_pixels_used=jax_ctx.bkg_pixels_used, motion=motion,
         input_folder=jax_ctx.input_folder, time_corrector=jax_ctx.time_corrector,
-        cube_dtype=getattr(jax_ctx, "cube_dtype", None), device=device)
+        cube_dtype=getattr(jax_ctx, "cube_dtype", None),
+        cache="host" if isinstance(jax_ctx.images, np.ndarray) else "device", device=device)
 
 
 class TpfContext:
@@ -342,6 +369,7 @@ class TpfContext:
     """
 
     datasource = "tpf"
+    cache = "device"
     time_corrector = None
 
     def __init__(self, input_folder: str, starid: int, sector: Optional[int] = None,
@@ -510,6 +538,25 @@ def extract_flux_core(images, images_err, backgrounds, pixelflags, masks, r0s, c
     """
     return _extract(band_sums_plain, images, images_err, backgrounds, pixelflags, masks, r0s,
                     c0s, h, w, windows)
+
+
+def _extract_flux_streamed(ctx, masks, r0s, c0s, h: int, w: int, chunk: int = 128,
+                           windows=None):
+    """Aperture sums of a host-resident cube (``cache="host"``), ``chunk``
+    frames at a time through ``ctx.device``.
+
+    A full float32 sector (1,312 frames of 2048x2048, ~71.5 GB with the
+    flags) exceeds one card; this path streams it as the reference's
+    ``_extract_flux_streamed`` does (photometry_tpu/core/engine.py:502-529).
+    The masks, corners and windows live on ``ctx.device``; the outputs are
+    those of ``band_extract_flux_batch``, on ``ctx.device``.  On a card
+    each chunk's sums come from the band kernel on the device-resident
+    chunk (``ops.bandext.band_sums_streamed``), so they equal the device
+    path's; on the CPU, from the plain version per chunk.
+    """
+    sums = functools.partial(band_sums_streamed, device=ctx.device, chunk=chunk)
+    return _extract(sums, ctx.images, ctx.images_err, ctx.backgrounds, ctx.pixelflags, masks,
+                    r0s, c0s, h, w, windows)
 
 
 def _stamp_catalog_select(cat_all: dict, r0, r1, c0, c1, buffer_px: float = 5.0) -> np.ndarray:
@@ -789,11 +836,15 @@ def extract_aperture_batch(ctx, starids, retries: Optional[int] = None,
             windows_f[i, s[0] - r0:s[1] - r0, s[2] - c0:s[3] - c0] = True
             r0s[i] = r0
             c0s[i] = c0
-        out = band_extract_flux_batch(
-            ctx.images, ctx.images_err, ctx.backgrounds, ctx.pixelflags,
-            torch.as_tensor(masks_f, device=dev), torch.as_tensor(r0s, device=dev),
-            torch.as_tensor(c0s, device=dev), bh, bw,
-            windows=torch.as_tensor(windows_f, device=dev))
+        stamps_d = (torch.as_tensor(masks_f, device=dev), torch.as_tensor(r0s, device=dev),
+                    torch.as_tensor(c0s, device=dev), bh, bw)
+        windows_d = torch.as_tensor(windows_f, device=dev)
+        if ctx.cache == "host":
+            # Host-resident cube: stream chunks of frames through the device.
+            out = _extract_flux_streamed(ctx, *stamps_d, windows=windows_d)
+        else:
+            out = band_extract_flux_batch(ctx.images, ctx.images_err, ctx.backgrounds,
+                                          ctx.pixelflags, *stamps_d, windows=windows_d)
         flux_d, ferr_d, fbkg_d, cent_d, shen_d = out
 
         # pos_corr for every target over time:

@@ -3,7 +3,9 @@ Minimal, dependency-free FITS reader/writer.
 
 The port's own copy of ``photometry_tpu/io/fits.py`` (the parts the light
 curve products and the cube's WCS need): the same bytes on disk, with the
-gzip and byte-swap steps done by the standard library and numpy.
+gunzip of reads, the byteswap of float32 images of 1 MB and more and the
+gzip of writes done by the native host runtime (``native_ops``, which falls
+back to the standard library and numpy where it did not build).
 
 The reference pipeline leans on astropy.io.fits for every product (TESS FFIs,
 TPFs, light curves — e.g. photometry/io.py:25-93, BasePhotometry.py:1417-1728).
@@ -26,6 +28,8 @@ from __future__ import annotations
 import gzip
 import io as _io
 import numpy as np
+
+from ..native_ops import bswap_f32, gunzip, gzip_compress
 
 BLOCK = 2880
 
@@ -325,8 +329,11 @@ def BinTableHDU(columns: dict, header=None, name=None):
 def _open_maybe_gzip(path, mode="rb", compresslevel=6):
     if str(path).endswith(".gz"):
         if "r" in mode:
+            # Whole-file native inflate (GIL-free zlib) instead of Python's
+            # incremental gzip stream: the loader's threads overlap these calls.
             with open(path, "rb") as fh:
-                return _io.BytesIO(gzip.decompress(fh.read()))
+                data = fh.read()
+            return _io.BytesIO(gunzip(data))
         return gzip.open(path, mode, compresslevel=compresslevel)
     return open(path, mode)
 
@@ -450,6 +457,15 @@ def _read_data(fh, hdr: Header):
         return cols, "bintable"
 
     dtype = np.dtype(_BITPIX_DTYPE[int(hdr["BITPIX"])])
+    if int(hdr["BITPIX"]) == -32 and len(raw) >= (1 << 20):
+        # Hot ingestion path: threaded native byteswap for large images.
+        arr = bswap_f32(raw).reshape(shape)
+        bscale = hdr.get("BSCALE", 1)
+        bzero = hdr.get("BZERO", 0)
+        if bscale != 1 or bzero != 0:
+            arr = arr * bscale + bzero
+            _strip_scaling(hdr)
+        return arr, "image"
     arr = np.frombuffer(raw, dtype=dtype).reshape(shape)
     bscale = hdr.get("BSCALE", 1)
     bzero = hdr.get("BZERO", 0)
@@ -636,8 +652,10 @@ def write_fits(path, hdus: list, overwrite: bool = True, checksum: bool = True,
             out.write(hdr.to_bytes() + raw)
     payload = out.getvalue()
     if str(path).endswith(".gz"):
-        # zlib releases the GIL: the product writer threads overlap here.
-        blob = gzip.compress(payload, compresslevel=gzip_level)
+        # One-shot gzip with MTIME 0 (libdeflate where linked, GIL-free):
+        # the product writer threads overlap here, and a product's bytes
+        # depend on its content only.
+        blob = gzip_compress(payload, level=gzip_level)
         with open(path, "wb") as fh:
             fh.write(blob)
     else:

@@ -248,7 +248,9 @@ def extract_halo_batch(ctx, starids, maxiter: int = MAXITER, objective: str = "t
 
     # ---- one batched stamp fetch, normalised on the host in float64 -----------
     def fetch(cube):
-        """(N, T, h, w) float64 stamps; widened on the device (numpy has no bfloat16)."""
+        """(N, T, h, w) float64 stamps, sliced where the cube lies (a host
+        cube's slabs on the host, as photometry_tpu/models/halo.py:258-262)
+        and widened there (numpy has no bfloat16)."""
         return _host(torch.stack([cube[:, r0:r0 + h, c0:c0 + w]
                                   for (_, _, _, _, r0, c0, _) in work]).to(torch.float32)
                      ).astype(np.float64)

@@ -149,15 +149,19 @@ def bucket_psf_groups(ctx, setups) -> dict:
     return groups
 
 
-def gather_stamp_stack(cube: torch.Tensor, r0s, c0s, bh: int, bw: int) -> torch.Tensor:
-    """(T, H, W) cube -> (N, T, bh, bw) float32 stamps by advanced indexing:
-    gathered at the cube's dtype and widened after, so a bfloat16 cube is
-    read at two bytes a pixel (as the JAX package's gather)."""
+def gather_stamp_stack(cube: torch.Tensor, r0s, c0s, bh: int, bw: int,
+                       device=None) -> torch.Tensor:
+    """(T, H, W) cube -> (N, T, bh, bw) float32 stamps on ``device`` (the
+    cube's if None) by advanced indexing where the cube lies: gathered at
+    the cube's dtype and widened after, so a bfloat16 cube is read at two
+    bytes a pixel (as the JAX package's gather), and a host cube
+    (``cache="host"``) is gathered on the host and only its stamps move
+    (photometry_tpu/models/psf_common.py:173-175)."""
     dev = cube.device
     rows = torch.as_tensor(np.asarray(r0s, np.int64), device=dev)[:, None] + torch.arange(bh, device=dev)
     cols = torch.as_tensor(np.asarray(c0s, np.int64), device=dev)[:, None] + torch.arange(bw, device=dev)
     out = cube[:, rows[:, :, None], cols[:, None, :]]                  # (T, N, bh, bw)
-    return out.transpose(0, 1).to(torch.float32)
+    return out.transpose(0, 1).to(dev if device is None else device, torch.float32)
 
 
 def logical_stamp_mask(stamp, r0: int, c0: int, bh: int, bw: int) -> np.ndarray:

@@ -322,8 +322,8 @@ def extract_psf_batch(ctx, starids, lhood_stat: str = "Gaussian_d", prf=None,
             S = len(group[0][0].valid)
             r0s = np.array([g[1] for g in group], np.int32)
             c0s = np.array([g[2] for g in group], np.int32)
-            imgs = gather_stamp_stack(ctx.images, r0s, c0s, bh, bw)
-            bkgs = gather_stamp_stack(ctx.backgrounds, r0s, c0s, bh, bw)
+            imgs = gather_stamp_stack(ctx.images, r0s, c0s, bh, bw, dev)
+            bkgs = gather_stamp_stack(ctx.backgrounds, r0s, c0s, bh, bw, dev)
             logical = np.stack([logical_stamp_mask(st.stamp, r0, c0, bh, bw)
                                 for st, r0, c0 in group])
             imgs = torch.where(torch.as_tensor(logical, device=dev)[:, None], imgs, torch.nan)

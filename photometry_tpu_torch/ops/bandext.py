@@ -32,7 +32,7 @@ from ..quality import PixelQualityFlags
 from ._kernels import BAND_EXTRACT, BAND_EXTRACT_BF16, KernelError
 
 __all__ = ["NQ", "band_extract_flux_batch", "band_sums", "band_sums_plain",
-           "band_sums_cuda"]
+           "band_sums_cuda", "band_sums_streamed"]
 
 NQ = 10     #: reductions per (target, cadence), in the order of the kernel's note
 
@@ -107,26 +107,8 @@ _ENTRY = {torch.float32: (BAND_EXTRACT, "band_extract_sums"),
           torch.bfloat16: (BAND_EXTRACT_BF16, "band_extract_sums_bf16")}
 
 
-def band_sums_cuda(images, images_err, backgrounds, pixelflags, masks, r0s, c0s,
-                   windows=None) -> torch.Tensor:
-    """The 10 sums (N, NQ, T) from the CUDA kernel, on the images' card:
-    its float32 or its bfloat16 instantiation, by the dtype of ``images``."""
-    dev = images.device
-    if dev.type != "cuda":
-        raise ValueError(f"band_sums_cuda needs CUDA tensors, got {dev}")
-    if images.dtype not in _ENTRY:
-        raise ValueError(f"images: need float32 or bfloat16, got {images.dtype}")
-    kernel, entry = _ENTRY[images.dtype]
-    T, H, W = images.shape
+def _check_targets(masks, windows, r0s, c0s, dev):
     N, h, w = masks.shape
-    for name, x, dt in (("images", images, images.dtype),
-                        ("images_err", images_err, images.dtype),
-                        ("backgrounds", backgrounds, images.dtype),
-                        ("pixelflags", pixelflags, torch.uint8)):
-        if x.device != dev or x.dtype != dt or tuple(x.shape) != (T, H, W) \
-                or not x.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous {dt} (T, H, W) tensor on {dev}, "
-                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
     for name, x in (("masks", masks), ("windows", windows)):
         if x is not None and (x.device != dev or x.dtype not in (torch.bool, torch.uint8)
                               or tuple(x.shape) != (N, h, w)):
@@ -134,27 +116,164 @@ def band_sums_cuda(images, images_err, backgrounds, pixelflags, masks, r0s, c0s,
     for name, x in (("r0s", r0s), ("c0s", c0s)):
         if x.device != dev or x.dtype != torch.int32 or tuple(x.shape) != (N,):
             raise ValueError(f"{name}: need an int32 (N,) tensor on {dev}")
-    # Checked after the launch, so the card is not idle while the host
-    # waits: the kernel reads nothing for a stamp outside the frame.
+
+
+def _check_planes(planes, where, device_type):
+    """The four (T, H, W) planes: contiguous, on one device of ``device_type``,
+    the value planes float32 or bfloat16 (all three of one dtype), the flags uint8."""
+    images = planes[0]
+    if images.device.type != device_type:
+        raise ValueError(f"{where} needs {device_type.upper()} tensors, got {images.device}")
+    if images.dtype not in _ENTRY:
+        raise ValueError(f"images: need float32 or bfloat16, got {images.dtype}")
+    for name, x, dt in zip(("images", "images_err", "backgrounds", "pixelflags"), planes,
+                           (images.dtype,) * 3 + (torch.uint8,)):
+        if x.device != images.device or x.dtype != dt or x.shape != images.shape \
+                or x.dim() != 3 or not x.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {dt} (T, H, W) tensor on "
+                             f"{images.device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _plan(masks, r0s, c0s, windows, H: int, W: int):
+    """What every launch over these targets shares, built once a call: the
+    frame order, the kernel's target arguments in it (mask|window bytes,
+    corners, window boxes) and the corner check (a device bool, read after
+    the launches so that the card is not idle while the host waits: the
+    kernel reads nothing for a stamp outside the frame)."""
+    N, h, w = masks.shape
     outside = ((r0s.min() < 0) | (r0s.max() > H - h) | (c0s.min() < 0)
                | (c0s.max() > W - w)) if N else None
     mw = masks.to(torch.uint8) | (_as_windows(masks, windows).to(torch.uint8) << 1)
     order = _frame_order(r0s, c0s, W)
     mw, r0s, c0s = mw[order].contiguous(), r0s[order].contiguous(), c0s[order].contiguous()
-    bbox = _window_bbox(mw)
-    out = torch.empty(N, NQ, T, dtype=torch.float32, device=dev)
+    return order, (mw, r0s, c0s, _window_bbox(mw)), outside
+
+
+def _launch(planes, targets, out):
+    """One launch of the instantiation for the planes' dtype on the current
+    stream: sums of every target over the planes' T frames into ``out``
+    (N, NQ, T), rows in the plan's frame order."""
+    kernel, entry = _ENTRY[planes[0].dtype]
+    T, H, W = planes[0].shape
+    N, h, w = targets[0].shape
+    dev = planes[0].device
     launch = getattr(kernel.lib(), entry)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(images.data_ptr(), images_err.data_ptr(), backgrounds.data_ptr(),
-                    pixelflags.data_ptr(), mw.data_ptr(), r0s.data_ptr(), c0s.data_ptr(),
-                    bbox.data_ptr(), out.data_ptr(), N, T, H, W, h, w, stream)
+        rc = launch(*(x.data_ptr() for x in planes), *(x.data_ptr() for x in targets),
+                    out.data_ptr(), N, T, H, W, h, w, stream)
     if rc != 0:
         raise KernelError(f"{entry} launch failed: CUDA error {rc}")
     kernel.launches += 1
-    if N and bool(outside):
+
+
+def _finish(out, order, outside):
+    """The corner check (one host sync), then the rows back in the caller's order."""
+    if outside is not None and bool(outside):
         raise ValueError("stamp corners put a stamp outside the (H, W) frame")
     return torch.empty_like(out).index_copy_(0, order, out)
+
+
+def band_sums_cuda(images, images_err, backgrounds, pixelflags, masks, r0s, c0s,
+                   windows=None) -> torch.Tensor:
+    """The 10 sums (N, NQ, T) from the CUDA kernel, on the images' card:
+    its float32 or its bfloat16 instantiation, by the dtype of ``images``."""
+    planes = (images, images_err, backgrounds, pixelflags)
+    _check_planes(planes, "band_sums_cuda", "cuda")
+    dev = images.device
+    _check_targets(masks, windows, r0s, c0s, dev)
+    T, H, W = images.shape
+    order, targets, outside = _plan(masks, r0s, c0s, windows, H, W)
+    out = torch.empty(masks.shape[0], NQ, T, dtype=torch.float32, device=dev)
+    _launch(planes, targets, out)
+    return _finish(out, order, outside)
+
+
+#: Frames of a host-to-device copy from pageable host memory: two pinned
+#: staging buffers of this many frames of each plane (~0.87 GB at 2048x2048).
+STAGE_FRAMES = 16
+
+
+def _band_sums_streamed_cuda(planes, masks, r0s, c0s, windows, dev, chunk: int):
+    """The kernel over host planes, ``chunk`` frames at a time on card ``dev``.
+
+    Two device buffers of ``chunk`` frames per plane and a copy stream, so
+    that the next chunk's copies need not wait for a chunk's kernel (events
+    order the buffers' reuse).  Pinned planes are copied as they are;
+    pageable ones go through two pinned staging buffers of ``STAGE_FRAMES``
+    frames, which the host fills while the copy engine drains the other.  The plan
+    (compaction, order, boxes), the output and the corner check are built
+    once a call; each chunk's launch writes its sums into a (N, NQ, chunk)
+    part that is copied into its columns of the output on the card (the
+    kernel is unchanged: its sums for a cadence do not depend on T, so they
+    equal the device path's bit for bit).
+    """
+    T, H, W = planes[0].shape
+    N = masks.shape[0]
+    order, targets, outside = _plan(masks, r0s, c0s, windows, H, W)
+    out = torch.empty(N, NQ, T, dtype=torch.float32, device=dev)
+    n_buf = max(min(chunk, T), 1)
+    bufs = [[torch.empty((n_buf, H, W), dtype=p.dtype, device=dev) for p in planes]
+            for _ in range(2)]
+    pinned = all(p.is_pinned() for p in planes)
+    piece = min(STAGE_FRAMES, n_buf)
+    stage = None if pinned else [[torch.empty((piece, H, W), dtype=p.dtype, pin_memory=True)
+                                  for p in planes] for _ in range(2)]
+    main = torch.cuda.current_stream(dev)
+    copy = torch.cuda.Stream(dev)
+    loaded, used, staged = ([torch.cuda.Event() for _ in range(2)] for _ in range(3))
+    n_pieces = 0
+    for i, t0 in enumerate(range(0, T, chunk)):
+        k, n = i % 2, min(chunk, T - t0)
+        copy.wait_event(used[k])            # the kernel of chunk i - 2 has read buffer k
+        for a in range(0, n, piece):
+            m, lo = min(piece, n - a), t0 + a
+            if pinned:
+                srcs = [p[lo:lo + m] for p in planes]
+            else:
+                s = n_pieces % 2
+                staged[s].synchronize()     # its last copy to the card has finished
+                for st, p in zip(stage[s], planes):
+                    st[:m].copy_(p[lo:lo + m])
+                srcs = [st[:m] for st in stage[s]]
+            with torch.cuda.stream(copy):
+                for b, src in zip(bufs[k], srcs):
+                    b[a:a + m].copy_(src, non_blocking=True)
+            if not pinned:
+                staged[s].record(copy)
+                n_pieces += 1
+        loaded[k].record(copy)
+        main.wait_event(loaded[k])
+        part = torch.empty(N, NQ, n, dtype=torch.float32, device=dev)
+        _launch([b[:n] for b in bufs[k]], targets, part)
+        out[:, :, t0:t0 + n] = part
+        used[k].record(main)
+    return _finish(out, order, outside)
+
+
+def band_sums_streamed(images, images_err, backgrounds, pixelflags, masks, r0s, c0s,
+                       windows=None, *, device, chunk: int = 128) -> torch.Tensor:
+    """The 10 sums (N, NQ, T) of host-resident (T, H, W) planes, ``chunk``
+    frames at a time on ``device`` (where the masks, corners and windows
+    are, and the output goes): the kernel on each device-resident chunk on
+    a card, the plain version per chunk on the CPU."""
+    planes = (images, images_err, backgrounds, pixelflags)
+    _check_planes(planes, "band_sums_streamed (host planes)", "cpu")
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:      # where a tensor made on "cuda" lands
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if chunk < 1:
+        raise ValueError(f"chunk={chunk}: need at least one frame")
+    if dev.type == "cuda":
+        _check_targets(masks, windows, r0s, c0s, dev)
+        return _band_sums_streamed_cuda(planes, masks, r0s, c0s, windows, dev, chunk)
+    if dev.type != "cpu":
+        raise ValueError(f"no extraction path for device {dev}")
+    out = torch.empty(masks.shape[0], NQ, images.shape[0], dtype=torch.float32)
+    for t0 in range(0, images.shape[0], chunk):
+        out[:, :, t0:t0 + chunk] = band_sums_plain(*(p[t0:t0 + chunk] for p in planes), masks,
+                                                   r0s, c0s, windows)
+    return out
 
 
 def band_sums(images, images_err, backgrounds, pixelflags, masks, r0s, c0s,

@@ -7,7 +7,9 @@
   cubes read from the file by both packages; ``context_from_jax`` of a
   bfloat16 JAX context keeps the bits.
 - ``cube_dtype`` spellings; anything but float32 and bfloat16 raises
-  ValueError, ``mesh=`` and ``cache="host"`` still raise NotImplementedError.
+  ValueError, ``mesh=`` still raises NotImplementedError, and with
+  ``cache="host"`` the cubes keep their stored float32 (the attribute is
+  kept), as in the JAX package.
 - ``extract_aperture_batch`` on bfloat16 contexts of both packages:
   statuses and masks equal, fluxes to rtol 1e-4 / atol 1e-3
   (tests/test_bandext.py:41); the port's bfloat16 fluxes within 2e-3 of
@@ -125,8 +127,13 @@ def test_cube_dtype_spellings(sector):
             SectorContext(d, 1, 3, 2, cube_dtype=bad, device="cpu")
     with pytest.raises(NotImplementedError):
         SectorContext(d, 1, 3, 2, cube_dtype=torch.bfloat16, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        SectorContext(d, 1, 3, 2, cube_dtype=torch.bfloat16, cache="host", device="cpu")
+    host = SectorContext(d, 1, 3, 2, cube_dtype=torch.bfloat16, cache="host", device="cpu")
+    jhost = JaxSectorContext(d, 1, 3, 2, cube_dtype=jnp.bfloat16, cache="host")
+    assert host.cube_dtype == torch.bfloat16 and host.images.dtype == torch.float32
+    assert jhost.images.dtype == np.float32
+    np.testing.assert_array_equal(host.images.numpy(), jhost.images)
+    host.close()
+    jhost.close()
 
 
 def test_aperture_bf16_matches_jax(sector):

@@ -7,7 +7,8 @@ agree with their plain versions.
   ``extract_aperture_batch`` and ``extract_psf_batch`` run on a tiny
   ``SectorContext.from_arrays`` context on the CPU, and so do
   ``extract_linpsf_batch`` and ``extract_halo_batch``; ``extract_aperture_batch``
-  also runs on a bfloat16 copy of that context and on a ``TpfContext``
+  also runs on a bfloat16 copy of that context, on a host copy
+  (``cache="host"``, streamed 4 frames a chunk) and on a ``TpfContext``
   (a simulated TPF); the prepare stage
   (``prepare.prepare_cube``) runs on a tiny simulated sector into
   ``chip_smoke.DictCube``, the in-memory store the card's run uses.
@@ -100,6 +101,18 @@ ctx16 = SectorContext.from_arrays(
 assert ctx16.images.dtype == torch.bfloat16
 res16 = extract_aperture_batch(ctx16, [1, 2, 3, 4])
 assert [r.status for r in res16] == [r.status for r in res]
+import functools
+from photometry_tpu_torch.core import engine
+engine._extract_flux_streamed = functools.partial(engine._extract_flux_streamed, chunk=4)
+ctxh = SectorContext.from_arrays(
+    images=images, images_err=np.ones_like(images), backgrounds=np.zeros_like(images),
+    pixelflags=np.zeros(images.shape, np.uint8), sumimage=images.mean(0),
+    time=1325.0 + np.arange(T) / 48, timecorr=np.zeros(T, np.float32),
+    cadenceno=np.arange(T), quality=np.zeros(T, np.int32), catalog_path=path, wcs=wcs,
+    sector=1, camera=1, ccd=1, cache="host", device="cpu")
+resh = extract_aperture_batch(ctxh, [1, 2, 3, 4])
+assert [r.status for r in resh] == [r.status for r in res]
+assert all(np.allclose(a.lightcurve["flux"], b.lightcurve["flux"], rtol=1e-6) for a, b in zip(resh, res))
 from photometry_tpu_torch.core.engine import TpfContext
 tpf = TpfContext(SIM_DIR, TPF_STARID, device="cpu")
 got = extract_aperture_batch(tpf, [TPF_STARID])[0]
@@ -227,6 +240,43 @@ def test_band_kernel_matches_plain_on_card():
     assert BAND_EXTRACT.launches == before + 1
     want = bandext.band_sums_plain(*args, windows=win)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_streamed_band_sums_equal_device_path_on_card():
+    """Host planes streamed through the card (``band_sums_streamed``, T = 37
+    in chunks of 16: three launches) give the device path's sums bit for
+    bit, from pageable host memory (the pinned staging buffers) and from
+    pinned host memory (copied as it is), in float32 and in bfloat16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from photometry_tpu_torch.ops import bandext
+    from photometry_tpu_torch.ops._kernels import BAND_EXTRACT, BAND_EXTRACT_BF16
+    rng = np.random.default_rng(3)
+    T, H, W, N, h = 37, 256, 384, 200, 33
+    imgs = rng.normal(100, 5, (T, H, W)).astype(np.float32)
+    imgs[1, 10:40, 10:40] = np.nan
+    imgs[3] = 0.0
+    errs = (np.sqrt(np.abs(imgs)) + 1.0).astype(np.float32)
+    bkgs = rng.normal(20, 1, (T, H, W)).astype(np.float32)
+    flags = (rng.uniform(size=(T, H, W)) < 0.01).astype(np.uint8) * 4
+    r0s = rng.integers(0, H - h + 1, N).astype(np.int32)
+    c0s = rng.integers(0, W - h + 1, N).astype(np.int32)
+    masks = rng.uniform(size=(N, h, h)) < 0.4
+    windows = np.zeros_like(masks)
+    windows[:, 2:30, 1:31] = True
+    targets = [torch.as_tensor(a, device="cuda") for a in (masks, r0s, c0s)]
+    win = torch.as_tensor(windows, device="cuda")
+    for dtype, kernel in ((torch.float32, BAND_EXTRACT), (torch.bfloat16, BAND_EXTRACT_BF16)):
+        host = [torch.as_tensor(a).to(dtype) for a in (imgs, errs, bkgs)] + [torch.as_tensor(flags)]
+        want = bandext.band_sums_cuda(*[x.cuda() for x in host], *targets, windows=win)
+        for planes in (host, [x.pin_memory() for x in host]):
+            before = kernel.launches
+            got = bandext.band_sums_streamed(*planes, *targets, windows=win, device="cuda",
+                                             chunk=16)
+            torch.cuda.synchronize()
+            assert kernel.launches == before + 3
+            assert got.is_cuda and torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda
