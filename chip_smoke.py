@@ -4,13 +4,14 @@
 Drives the port's FFI aperture, PSF and prepare paths, bfloat16 cubes,
 host-resident cubes streamed through the card, the flux-only stamp
 extraction, ECC registration, the default-method drain (both automatic
-switches: halo and linPSF) and Target Pixel Files through the drain, through
-the entry points a user calls, with JAX, h5py and the JAX package blocked
-from import.  Phases run in the order 0, 1, 2, 2b, 2c, 2d (adversarial), 3,
-3b (on phase 3's cube), 3c (phase 3's cube on the host), 2d (main shape, on
-phase 3's cube and targets), 4, 6 (on phase 3's cube), 8 (beside phase 3's
-context), 7 (on phase 3's cubes), 3b (the full sector, once phase 3's cubes
-are freed), 3c (the full sector in float32 on the host), 5:
+switches: halo and linPSF), Target Pixel Files through the drain and the
+chain catalog -> todo -> drain -> merge, through the entry points a user
+calls, with JAX, h5py and the JAX package blocked from import.  Phases run
+in the order 0, 1, 2, 2b, 2c, 2d (adversarial), 3, 3b (on phase 3's cube),
+3c (phase 3's cube on the host), 2d (main shape, on phase 3's cube and
+targets), 4, 6 (on phase 3's cube), 8 (beside phase 3's context), 7 (on
+phase 3's cubes), 3b (the full sector, once phase 3's cubes are freed), 3c
+(the full sector in float32 on the host), 5, 9 (on phase 5's store):
 
 0. imports: ``jax``, ``jaxlib``, ``h5py`` and ``photometry_tpu`` refused.
 1. device: the card's name and power limit; the five kernel sources are
@@ -127,7 +128,9 @@ are freed), 3c (the full sector in float32 on the host), 5:
 5. the prepare slice at full CCD size: 96 synthetic sector-27 FFIs of
    camera 1 CCD 1 in raw TESS geometry (2078x2136, TAN WCS, the field of
    phase 3 on a sky with a corner glow, one saturated patch), a catalog and
-   one TPF, written with ``io.fits.write_fits``; ``prepare.prepare_cube``
+   one TPF (a faint star with two or more faint stars in its 11x11 stamp,
+   the stamp's WCS in its APERTURE header), written with
+   ``io.fits.write_fits``; ``prepare.prepare_cube``
    runs stages 1-5 on them into an in-memory store with the ``ImageCube``
    methods (one 64-frame chunk and a partial one), under ``torch.profiler``,
    then again with ``calc_movement_kernel=True``, which resumes and runs
@@ -180,9 +183,12 @@ are freed), 3c (the full sector in float32 on the host), 5:
    19,728, 27.4 d; an eighth 21x21 and an eighth 15x15, the rest 11x11) on
    phase 3's field, each star rendered as ``make_field`` renders it, moved
    by a drifting POS_CORR, a 1% sinusoid on each primary, a SPOC aperture,
-   4 files gzipped, written with ``io.fits.write_fits``; their ``tpf:NNN``
-   secondaries as photometry_tpu/todolist.py finds them; one 20-s TPF (T =
-   118,080); 256 FFI tasks on phase 3's context; ``run_drain(...,
+   4 files gzipped, written with ``io.fits.write_fits``; one 20-s TPF (T =
+   118,080); the todo list's TPF rows, primaries and ``tpf:NNN``
+   secondaries, from the port's ``todolist.make_todo`` on the phase's
+   folder (every TPF read; its wall printed), held equal to those the
+   phase finds itself from the stars' positions and the apertures; 256 FFI
+   tasks on phase 3's context added to it; ``run_drain(...,
    method=None)`` in leases of 32, so FFI and TPF leases alternate, with
    ``dispatcher.open_context`` handing back phase 3's context for FFI tasks
    only.  Checks: every task gets a final status, TPF primaries end OK,
@@ -196,6 +202,24 @@ are freed), 3c (the full sector in float32 on the host), 5:
    the drain's timers, TPF tasks/s with products and the band kernel's
    time at (N=1, T=19,728, 11x11) and (N=1, T=118,080) beside its bytes
    bound.
+
+9. the chain at full CCD size on phase 5's prepared store (96 frames of
+   2048x2048, the 12,000-star field): the field as a TIC extract (``.npz``)
+   with 64 more stars just off the science area, its catalog built by the
+   port's ``cli/catalog_cmd``; the port's ``todolist.make_todo`` over the
+   store (``todolist.open_cube`` hands back the in-memory store for the
+   cube file's name) and phase 5's TPF: every star on the science area once
+   as an ``ffi`` task and none off it, the TPF primary and its ``tpf:NNN``
+   secondaries, priorities by Tmag; ``run_drain(..., method=None)`` over
+   the 2,048 highest priorities with ``dispatcher.open_context`` handing
+   back a ``SectorContext.from_arrays`` over the store: every drained task
+   a final status, the band kernel launched; the port's
+   ``cli/todo_merge_cmd`` with a corrections file derived as
+   tests/test_scheduler_merge_plots.py::test_todo_merge derives one
+   (``corr_status``, a ``diagnostics_corr`` table, one drained row's status
+   changed): ``corr_status`` NULL on the undrained rows and the changed one
+   only, their ``diagnostics_corr`` rows gone.  Prints each step's wall and
+   the todo's row count.
 
 Prints the wall of each phase, a JSON line of per-kernel results, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -263,6 +287,9 @@ T_SECTOR = 1312
 # tasks, 4 files gzipped; leases of 32 so FFI and TPF leases alternate.
 P8 = {"tpf": 128, "T": 19728, "fast_T": 118080, "ffi": 256, "gzip": 4, "batch": 32}
 RAW_SHAPE = (2078, 2136)                 # raw TESS FFI; science area rows 0:2048, cols 44:2092
+# Phase 9: the chain on phase 5's store: the drain takes the 2,048 highest
+# priorities; 64 catalog stars lie just off the science area.
+P9 = {"todo": 2048, "off": 64, "batch": 256}
 # NVIDIA H100 SXM data sheet: HBM bytes/s, float32 FLOP/s outside the tensor cores,
 # dense TF32 FLOP/s of the tensor cores (3xTF32 spends three products on one).
 PEAK_BYTES, PEAK_F32, PEAK_TF32 = 3.35e12, 67e12, 495e12
@@ -1595,6 +1622,22 @@ def write_todo(folder, sids, tmags, camera=1, ccd=1, datasources=None, cadences=
         conn.execute("CREATE INDEX status_idx ON todolist (status);")
 
 
+def add_tasks(todo, tasks, camera=1, ccd=1):
+    """Add (starid, tmag, datasource, cadence) tasks of sector 1 with no
+    method to a todo list, and number every row's priority by Tmag again
+    (stable), as make_todo numbers them."""
+    import sqlite3
+    cols = "starid, sector, datasource, camera, ccd, cadence, method, tmag, cbv_area"
+    with sqlite3.connect(todo) as conn:
+        rows = conn.execute(f"SELECT {cols} FROM todolist ORDER BY priority").fetchall()
+        rows += [(sid, 1, ds, camera, ccd, cad, None, tm, camera * 100 + ccd * 10 + 1)
+                 for sid, tm, ds, cad in tasks]
+        rows.sort(key=lambda r: r[7])
+        conn.execute("DELETE FROM todolist")
+        conn.executemany(f"INSERT INTO todolist (priority, {cols}) VALUES (?,?,?,?,?,?,?,?,?,?)",
+                         [(p + 1,) + tuple(r) for p, r in enumerate(rows)])
+
+
 def solve_parity(lin_solves, card):
     """The drain's first linPSF solve, its first P7_PARITY targets again on
     a CPU copy of their stamps, positions and PRF: fluxes within rtol 1e-4
@@ -2582,7 +2625,7 @@ def write_phase8(folder, dev, gen, rng, rows, cols, tmag, wcs):
                       "pos_corr": pos_corr.astype(np.float64), "aperture": aperture,
                       "time": t, "gz": k in gz}
         tasks.append((sid, float(tmag[i]), "tpf", cadence))
-        # Secondary targets, as photometry_tpu/todolist.py:171-197 finds them:
+        # Secondary targets, as the todo list finds them (todolist._tpf_targets):
         # catalog stars whose pixel lies inside the stamp and was collected.
         y, x = rows - r0, cols - c0
         inside = (x >= -0.5) & (y >= -0.5) & (x <= side - 0.5) & (y <= side - 0.5)
@@ -2605,24 +2648,36 @@ def tpf_phase(work, dev, gen, rng, ctx_kw, rows, cols, tmag, wcs, card):
     from photometry_tpu_torch.io import fits as pf
     from photometry_tpu_torch.ops import bandext
     from photometry_tpu_torch.ops._kernels import BAND_EXTRACT, BAND_EXTRACT_BF16
+    from photometry_tpu_torch.todolist import make_todo
     folder = os.path.join(work, "phase8")
     os.makedirs(folder)
     tic = time.perf_counter()
     truth, tasks, primaries = write_phase8(folder, dev, gen, rng, rows, cols, tmag, wcs)
+    written = time.perf_counter() - tic
+    # The TPF rows from the port's todo list, held to those write_phase8 found:
+    tic = time.perf_counter()
+    todo = make_todo(folder)
+    todo_wall = time.perf_counter() - tic
+    with sqlite3.connect(todo) as conn:
+        made = set(conn.execute("SELECT starid, datasource, cadence FROM todolist"))
+    want = {(sid, ds, cad) for sid, _, ds, cad in tasks}
+    check(made == want, f"phase 8: make_todo's TPF rows differ from the phase's own: "
+          f"{len(made - want)} extra, {len(want - made)} missing")
     # FFI tasks on phase 3's context, in the same magnitude range:
     pool = [int(j) + 1 for j in np.where((tmag >= 8.0) & (tmag <= 11.0))[0]]
-    for sid in rng.choice(pool, P8["ffi"], replace=False):
-        tasks.append((int(sid), float(tmag[sid - 1]), "ffi", 1800))
-    sids, tmags, ds, cads = (list(x) for x in zip(*tasks))
-    write_todo(folder, sids, np.array(tmags), datasources=ds, cadences=cads)
-    n_sec = sum(d.startswith("tpf:") for d in ds)
+    ffi = [(int(sid), float(tmag[sid - 1]), "ffi", 1800)
+           for sid in rng.choice(pool, P8["ffi"], replace=False)]
+    add_tasks(todo, ffi)
+    tasks += ffi
+    n_sec = sum(t_[2].startswith("tpf:") for t_ in tasks)
     n_bytes = sum(os.path.getsize(os.path.join(folder, f)) for f in os.listdir(folder)
                   if "_tp" in f)
     print(f"phase 8 inputs: {len(truth) - 1} primary TPFs of {P8['T']} cadences at 120 s "
           f"(11x11, 15x15 and 21x21), one 20-s TPF of {P8['fast_T']} cadences, {P8['gzip']} "
-          f"gzipped, {n_bytes / 1e9:.2f} GB of files; todo.sqlite of {len(tasks)} tasks "
-          f"({len(truth)} TPF primaries, {n_sec} secondaries, {P8['ffi']} FFI) "
-          f"({time.perf_counter() - tic:.1f} s)", flush=True)
+          f"gzipped, {n_bytes / 1e9:.2f} GB of files, written in {written:.1f} s; make_todo "
+          f"of the TPF rows ({len(truth)} primaries, {n_sec} secondaries, equal to the "
+          f"phase's own) in {todo_wall:.2f} s ({card}), then {P8['ffi']} FFI tasks: "
+          f"todo.sqlite of {len(tasks)} tasks", flush=True)
 
     ffi_ctx = SectorContext.from_arrays(**ctx_kw)
     real_open, run_batch, run_band = (dispatcher.open_context, drain.photometry_batch,
@@ -2679,7 +2734,7 @@ def tpf_phase(work, dev, gen, rng, ctx_kw, rows, cols, tmag, wcs, card):
     for _, d, _, st, _, _ in rows_db:
         key = (d.split(":")[0], None if st is None else STATUS(st).name)
         counts[key] = counts.get(key, 0) + 1
-    n_tpf = sum(d != "ffi" for d in ds)
+    n_tpf = sum(t_[2] != "ffi" for t_ in tasks)
     t = timers
     print(f"phase 8 drain: {n_done} tasks in {t['wall']:.2f} s = {n_done / t['wall']:.1f} "
           f"tasks/s with products ({card}); lease {t['lease']:.2f} s, context "
@@ -2777,15 +2832,19 @@ def tpf_phase(work, dev, gen, rng, ctx_kw, rows, cols, tmag, wcs, card):
 # --- phase 5: the prepare slice -------------------------------------------------
 
 class DictCube:
-    """The ``io.cube.ImageCube`` methods the prepare stage uses, on host
-    arrays (the card's machine has no h5py).  Reads return copies, as h5py
-    does.  It also keeps the first chunk's raw background fit and the first
-    frames' residuals, which the stage overwrites or drops, for the plain
-    re-runs."""
+    """The ``io.cube.ImageCube`` methods the prepare stage and the todo list
+    use, on host arrays (the card's machine has no h5py).  Reads return
+    copies, as h5py does; ``header`` is the cube's attributes (``header``,
+    the ones a cube file is created with, then those the prepare stage
+    writes).  It also keeps the first chunk's raw background fit and the
+    first frames' residuals, which the stage overwrites or drops, for the
+    plain re-runs."""
 
-    def __init__(self, n_times, shape, keep_frames=8):
+    def __init__(self, n_times, shape, keep_frames=8, header=None):
         self.n_times, self.shape = n_times, tuple(shape)
-        self.attrs, self.stages, self.vectors = {}, set(), {}
+        # Attributes as ImageCube.create stores them (None values left out):
+        self.attrs = {k: v for k, v in (header or {}).items() if v is not None}
+        self.stages, self.vectors = set(), {}
         full = (n_times,) + self.shape
         self.arrays = {k: np.zeros(full, np.float32) for k in ("images", "images_err",
                                                                "backgrounds")}
@@ -2852,6 +2911,22 @@ class DictCube:
 
     def wcs_strings(self):
         return list(self.wcs)
+
+    header = property(lambda self: dict(self.attrs))
+
+    def reference_wcs(self):
+        """The WCS of the reference frame (attribute WCS_REF_FRAME), as
+        ``ImageCube.reference_wcs`` parses it."""
+        from photometry_tpu_torch.io.fits import Header
+        from photometry_tpu_torch.io.wcs import TanWCS
+        ref = self.wcs[int(self.attrs.get("WCS_REF_FRAME", 0))]
+        return TanWCS.from_header(Header.from_bytes(ref.encode("ascii")))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return None
 
     def create_scratch(self):
         self.scratch = np.zeros((self.n_times,) + self.shape, np.float32)
@@ -2941,25 +3016,49 @@ def prepare_inputs(folder, img0, rows, cols, tmag, wcs, dev, gen, T, raw=True):
     make_catalog_from_arrays(folder, sector, camera, ccd, starid=np.arange(1, n + 1),
                              ra_j2000=ra, dec_j2000=dec, pm_ra=np.zeros(n), pm_dec=np.zeros(n),
                              tmag=tmag, reference_time=sector_info(sector).reference_time)
-    # One 2-min TPF over the sector, Desat (32) in the cadences of two frames:
+    # One 2-min TPF over the sector, Desat (32) in the cadences of two frames,
+    # with its stamp's WCS (phase 9's todo finds its secondaries with it):
     nt = 5 * T
     u = s0 - dt / 2 + (np.arange(nt) + 0.5) * 120 / 86400
     quality = np.zeros(nt, np.int32)
     desat = sorted({10 % T, 50 % T})
     for f in desat:
         quality[5 * f + 2] = 32
-    ap = pf.Header()
-    ap.set("CRVAL1P", 101)
-    ap.set("CRVAL2P", 101)
+    i, r0, c0 = phase5_tpf(rows, cols, tmag, (H, W))
+    ap = wcs.shifted(drow=r0, dcol=c0).to_header(pf.Header())
+    ap.set("CRVAL1P", c0 + 1)
+    ap.set("CRVAL2P", r0 + 1)
     flux = np.full((nt, 11, 11), 100.0, np.float32)
-    write_tpf(os.path.join(folder, f"tess2020186164531-s{sector:04d}-{1:016d}-0120-s_tp.fits"),
-              1, sector, camera, ccd,
+    path = os.path.join(folder, f"tess2020186164531-s{sector:04d}-{i + 1:016d}-0120-s_tp.fits")
+    write_tpf(path, i + 1, sector, camera, ccd,
               {"TIME": u + bc, "TIMECORR": np.full(nt, bc, np.float32),
                "CADENCENO": np.arange(nt, dtype=np.int32), "FLUX": flux,
                "FLUX_ERR": np.ones_like(flux), "QUALITY": quality},
               np.ones((11, 11), np.int32), ap)
     sky = (glow[None] * drift[:, None, None]).astype(np.float32)
-    return files, sky, patch, desat, s0 + np.arange(T) * dt + bc
+    tpf = {"path": path, "index": i, "r0": r0, "c0": c0, "side": 11}
+    return files, sky, patch, desat, s0 + np.arange(T) * dt + bc, tpf
+
+
+def phase5_tpf(rows, cols, tmag, shape, side=11):
+    """Phase 5's TPF target: a star fainter than the 4,096 brightest (so that
+    phase 9's drain of the 2,048 highest priorities takes no TPF task), 20 px
+    or more inside the CCD, whose side x side stamp holds two or more other
+    stars, none of them among the 4,096 brightest either.  Returns its index
+    into the field and the stamp's corner (row, col)."""
+    rank = np.empty(len(tmag), int)
+    rank[np.argsort(tmag, kind="stable")] = np.arange(len(tmag))
+    faint = rank >= 2 * P9["todo"]
+    for i in np.where(faint)[0]:
+        r0, c0 = int(round(rows[i])) - side // 2, int(round(cols[i])) - side // 2
+        if min(r0, c0) < 20 or r0 + side > shape[0] - 20 or c0 + side > shape[1] - 20:
+            continue
+        y, x = rows - r0, cols - c0
+        inside = (x >= -0.5) & (y >= -0.5) & (x <= side - 0.5) & (y <= side - 0.5)
+        inside[i] = False
+        if inside.sum() >= 2 and faint[inside].all():
+            return int(i), r0, c0
+    fail("phase 5: no faint star with two faint neighbours in its stamp for the TPF")
 
 
 def device_busy_ms(prof) -> float:
@@ -3047,28 +3146,32 @@ def top_device_ops(prof, k=8) -> str:
 
 def prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result,
                   T=PREP["T"], chunk=PREP["chunk"], raw=True):
-    """Phase 5: the prepare stage on synthetic FFIs through ``prepare_cube``."""
+    """Phase 5: the prepare stage on synthetic FFIs through ``prepare_cube``.
+    Returns the prepared store and its TPF (path, field index, stamp corner)."""
     import torch
     from photometry_tpu_torch import prepare as prep
     from photometry_tpu_torch.core import motion
     from photometry_tpu_torch.core.pixelflags import manual_exclude_mask
     from photometry_tpu_torch.io.loader import iter_frames
     from photometry_tpu_torch.io.settings import sector_info
+    from photometry_tpu_torch.io.tess import read_ffi
     from photometry_tpu_torch.ops._kernels import MEDIAN15, SEGMENT_HIST
     from photometry_tpu_torch.ops.background import radial_coordinates
     from photometry_tpu_torch.quality import PixelQualityFlags as PQ
     folder = os.path.join(work, "ffi")
     os.makedirs(folder, exist_ok=True)
     tic = time.perf_counter()
-    files, sky, patch, desat, tmid = prepare_inputs(folder, img0, rows, cols, tmag, wcs, dev,
-                                                    gen, T, raw=raw)
+    files, sky, patch, desat, tmid, tpf = prepare_inputs(folder, img0, rows, cols, tmag, wcs,
+                                                         dev, gen, T, raw=raw)
     H, W = img0.shape
     print(f"phase 5 inputs: {T} FFIs of {RAW_SHAPE if raw else (H, W)} (sector "
           f"{PREP['sector']}, camera {PREP['camera']} CCD {PREP['ccd']}), a catalog of "
           f"{len(rows)} stars, one TPF; written in {time.perf_counter() - tic:.1f} s", flush=True)
 
-    cube = DictCube(T, (H, W))
     sector, camera, ccd = PREP["sector"], PREP["camera"], PREP["ccd"]
+    # The attributes prepare_one creates a cube file with:
+    cube = DictCube(T, (H, W), header=prep._cube_header(read_ffi(files[0]), sector, camera,
+                                                        ccd))
     acts = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -3190,6 +3293,166 @@ def prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result,
           f"residuals bit-equal: {same_resid}", flush=True)
     check(same_bkg, "first chunk's backgrounds differ between the kernel and the plain histogram")
     check(same_resid, "shenanigans residuals differ between the kernel and the plain median")
+    return cube, tpf
+
+
+# --- phase 9: catalog -> todo -> drain -> merge on phase 5's store ----------------
+
+def chain_phase(work, dev, store, tpf, rows, cols, tmag, wcs, card):
+    """Phase 9: the port's chain on phase 5's prepared store (see the module
+    docstring).  Returns the walls of its steps."""
+    import shutil
+    import sqlite3
+    import torch
+    from photometry_tpu_torch import todolist
+    from photometry_tpu_torch.catalog import StarCatalog
+    from photometry_tpu_torch.cli import catalog_cmd, todo_merge_cmd
+    from photometry_tpu_torch.core import dispatcher
+    from photometry_tpu_torch.core.drain import new_timers, run_drain
+    from photometry_tpu_torch.core.engine import SectorContext
+    from photometry_tpu_torch.core.status import STATUS
+    from photometry_tpu_torch.io.cube import cube_filename
+    from photometry_tpu_torch.ops._kernels import BAND_EXTRACT
+    sector, camera, ccd = PREP["sector"], PREP["camera"], PREP["ccd"]
+    H_, W_ = store.shape
+    folder = os.path.join(work, "phase9")
+    os.makedirs(folder)
+    walls = {}
+
+    # 1. The field as a TIC extract, with P9["off"] stars just off the science
+    # area (catalog only), and the catalog from it through the catalog CLI:
+    rng = np.random.default_rng(9)
+    k = P9["off"] // 4
+    off_r = np.concatenate([rng.uniform(-30, -1, k), rng.uniform(H_, H_ + 30, k),
+                            rng.uniform(0, H_, 2 * k)])
+    off_c = np.concatenate([rng.uniform(0, W_, 2 * k), rng.uniform(-30, -1, k),
+                            rng.uniform(W_, W_ + 30, k)])
+    all_r, all_c = np.concatenate([rows, off_r]), np.concatenate([cols, off_c])
+    all_m = np.concatenate([tmag, rng.uniform(7.5, 13.0, 4 * k)])
+    ra, dec = wcs.radec_of_rowcol(all_r, all_c)
+    extract = os.path.join(work, "phase9_tic.npz")
+    n = len(all_r)
+    np.savez(extract, starid=np.arange(1, n + 1), ra=ra, dec=dec, pm_ra=np.zeros(n),
+             pm_dec=np.zeros(n), tmag=all_m)
+    tic = time.perf_counter()
+    rc = catalog_cmd.main(["-q", "--camera", str(camera), "--ccd", str(ccd), "--tic-source",
+                           extract, str(sector), folder])
+    walls["catalog"] = time.perf_counter() - tic
+    check(rc == 0, f"phase 9: catalog_cmd exited {rc}")
+    with StarCatalog(os.path.join(folder, f"catalog_sector{sector:03d}_camera{camera}"
+                                          f"_ccd{ccd}.sqlite")) as cat:
+        check(len(cat) == n, f"phase 9: the catalog holds {len(cat)} of {n} stars")
+
+    # 2. The todo list over the store (the cube file's name, its contents
+    # read through todolist.open_cube from memory) and phase 5's TPF:
+    open(os.path.join(folder, cube_filename(sector, camera, ccd)), "wb").close()
+    os.symlink(tpf["path"], os.path.join(folder, os.path.basename(tpf["path"])))
+    tic = time.perf_counter()
+    with mock.patch.object(todolist, "open_cube", lambda path: store):
+        todo = todolist.make_todo(folder)
+    walls["todo"] = time.perf_counter() - tic
+    with sqlite3.connect(todo) as conn:
+        rows_db = conn.execute("SELECT priority, starid, datasource, tmag, method "
+                               "FROM todolist ORDER BY priority").fetchall()
+    ffi = [r[1] for r in rows_db if r[2] == "ffi"]
+    on = set(np.where((all_c >= -0.5) & (all_r >= -0.5) & (all_c <= W_ - 0.5)
+                      & (all_r <= H_ - 0.5))[0] + 1)
+    lost = sum(c < 43.5 for c in all_c[np.array(sorted(on)) - 1])
+    y, x = all_r - tpf["r0"], all_c - tpf["c0"]
+    side = tpf["side"]
+    inside = (x >= -0.5) & (y >= -0.5) & (x <= side - 0.5) & (y <= side - 0.5)
+    inside[tpf["index"]] = False
+    sid_tpf = tpf["index"] + 1
+    want_tpf = {(sid_tpf, "tpf")} | {(int(j) + 1, f"tpf:{sid_tpf}") for j in np.where(inside)[0]}
+    got_tpf = {(r[1], r[2]) for r in rows_db if r[2] != "ffi"}
+    tm = [r[3] for r in rows_db]
+    print(f"phase 9 todo: make_todo over phase 5's store ({H_}x{W_}, {store.n_times} frames) "
+          f"and its TPF in {walls['todo']:.2f} s, {len(rows_db)} rows: {len(ffi)} ffi (of "
+          f"{len(on)} stars on the science area, {n - len(on)} off it; {lost} of them in the "
+          f"first 44 columns, which the JAX package's todo list drops on flight cubes), "
+          f"{len(got_tpf)} TPF rows ({len(got_tpf) - 1} secondaries); catalog of {n} stars "
+          f"by catalog_cmd in {walls['catalog']:.2f} s ({card})", flush=True)
+    check(len(ffi) == len(set(ffi)) and set(ffi) == on,
+          f"phase 9: the todo's FFI targets are not the stars on the science area "
+          f"({len(set(ffi) - on)} extra, {len(on - set(ffi))} missing)")
+    check(got_tpf == want_tpf and len(want_tpf) >= 3,
+          f"phase 9: TPF rows {sorted(got_tpf)} != {sorted(want_tpf)}")
+    check([r[0] for r in rows_db] == list(range(1, len(rows_db) + 1)) and tm == sorted(tm),
+          "phase 9: priorities do not follow Tmag")
+
+    # 3. The drain of the 2,048 highest priorities on a context over the store:
+    ctx = SectorContext.from_arrays(
+        images=store.arrays["images"], images_err=store.arrays["images_err"],
+        backgrounds=store.arrays["backgrounds"], pixelflags=store.arrays["pixelflags"],
+        sumimage=store.sumimage, time=store.time, timecorr=store.timecorr,
+        cadenceno=store.cadenceno, quality=store.quality,
+        catalog_path=os.path.join(folder, f"catalog_sector{sector:03d}_camera{camera}"
+                                          f"_ccd{ccd}.sqlite"),
+        wcs=store.reference_wcs(), sector=sector, camera=camera, ccd=ccd, header=store.header,
+        input_folder=folder, device=dev)
+    drained = list(range(1, P9["todo"] + 1))
+    check(all(r[2] == "ffi" for r in rows_db[:P9["todo"]]),
+          "phase 9: a TPF task among the drained priorities")
+    timers = new_timers()
+    reset_counts()
+    torch.cuda.synchronize()
+    with mock.patch.object(dispatcher, "open_context", lambda *a, **kw: ctx):
+        n_done = run_drain(folder, 1, method=None, batch_size=P9["batch"], timers=timers,
+                           constraints={"priority": drained}, device=dev)
+    torch.cuda.synchronize()
+    walls["drain"] = timers["wall"]
+    launches = BAND_EXTRACT.launches
+    ctx.close()
+    with sqlite3.connect(todo) as conn:
+        status = dict(conn.execute("SELECT priority, status FROM todolist"))
+        methods = [m for (m,) in conn.execute("SELECT method_used FROM diagnostics")]
+    final = {STATUS.OK.value, STATUS.WARNING.value, STATUS.ERROR.value, STATUS.SKIPPED.value}
+    counts = {}
+    for p in drained:
+        key = None if status[p] is None else STATUS(status[p]).name
+        counts[key] = counts.get(key, 0) + 1
+    print(f"phase 9 drain: run_drain(method=None) over priorities 1-{P9['todo']}: {n_done} "
+          f"tasks in {walls['drain']:.2f} s = {n_done / walls['drain']:.1f} tasks/s with "
+          f"products ({card}); photometry {timers['photometry']:.2f} s, save "
+          f"{timers['save']:.2f} s; statuses {counts}; methods "
+          + ", ".join(f"{m} {methods.count(m)}" for m in sorted(set(methods)))
+          + f"; band kernel launches {launches}", flush=True)
+    check(all(status[p] in final for p in drained), f"phase 9: unfinished statuses {counts}")
+    check(launches > 0, "phase 9: the drain did not launch the band kernel")
+    check(sum(status[p] is not None for p in status if p > P9["todo"])
+          == sum(status[p] == STATUS.SKIPPED.value for p in status if p > P9["todo"]),
+          "phase 9: a task outside the drained priorities got a status other than SKIPPED")
+
+    # 4. The merge with a corrections file derived from the drained todo:
+    derived = os.path.join(folder, "todo-corr.sqlite")
+    merged = os.path.join(folder, "todo-merged.sqlite")
+    shutil.copy(todo, derived)
+    changed = next(p for p in drained if status[p] == STATUS.OK.value)
+    with sqlite3.connect(derived) as conn:
+        conn.execute("ALTER TABLE todolist ADD COLUMN corr_status INTEGER DEFAULT NULL;")
+        conn.execute("UPDATE todolist SET corr_status=1;")
+        conn.execute("CREATE TABLE diagnostics_corr (priority INTEGER PRIMARY KEY, "
+                     "lightcurve TEXT);")
+        conn.execute("INSERT INTO diagnostics_corr SELECT priority, 'x.fits' FROM todolist;")
+        conn.execute("UPDATE todolist SET status=? WHERE priority=?;",
+                     (STATUS.WARNING.value, changed))
+    tic = time.perf_counter()
+    rc = todo_merge_cmd.main(["-q", todo, derived, merged])
+    walls["merge"] = time.perf_counter() - tic
+    check(rc == 0, f"phase 9: todo_merge_cmd exited {rc}")
+    with sqlite3.connect(merged) as conn:
+        corr = dict(conn.execute("SELECT priority, corr_status FROM todolist"))
+        left = {p for (p,) in conn.execute("SELECT priority FROM diagnostics_corr")}
+    invalid = {p for p, st in status.items() if st is None} | {changed}
+    print(f"phase 9 merge: todo_merge_cmd in {walls['merge']:.2f} s: corr_status NULL on "
+          f"{sum(v is None for v in corr.values())} rows ({len(invalid) - 1} undrained + the "
+          f"changed one), {len(left)} diagnostics_corr rows kept ({card})", flush=True)
+    check({p for p, v in corr.items() if v is None} == invalid
+          and all(corr[p] == 1 for p in corr if p not in invalid),
+          "phase 9: corr_status not invalidated on exactly the undrained and changed rows")
+    check(left == set(corr) - invalid, "phase 9: diagnostics_corr rows of invalid rows kept")
+    print(f"phase 9 walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+          + f"; todo rows {len(rows_db)} ({card})", flush=True)
     return walls
 
 
@@ -3604,9 +3867,14 @@ def main() -> int:
     lap("3c sector")
 
     # --- phase 5: the prepare slice --------------------------------------------
-    prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result)
+    store, tpf = prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result)
     lap("5")
-    print(f"phases 1-8 took {time.perf_counter() - t_start:.1f} s: "
+
+    # --- phase 9: catalog -> todo -> drain -> merge on phase 5's store -----------
+    chain_phase(work, dev, store, tpf, rows, cols, tmag, wcs, card)
+    del store
+    lap("9")
+    print(f"phases 1-9 took {time.perf_counter() - t_start:.1f} s: "
           + ", ".join(f"{name} {b - a:.1f} s" for (_, a), (name, b) in zip(laps, laps[1:])),
           flush=True)
 

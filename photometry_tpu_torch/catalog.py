@@ -9,9 +9,11 @@ footprint-query semantics with pole and RA=0 wraparound handling
 which builds a catalog from plain arrays — fed by the simulator in tests and
 by any external TIC extract in production.
 
-The port's own copy of the parts of ``photometry_tpu/catalog.py`` it uses:
-:class:`StarCatalog` and :func:`make_catalog_from_arrays`, file-compatible
-with the JAX package's.  Reads return columnar numpy arrays.
+The port's own copy of ``photometry_tpu/catalog.py``, file-compatible
+with the JAX package's, without ``download_catalogs`` (it fetches from
+outside the repository): catalogs come from :func:`make_catalog` on a
+local TIC extract, or from the simulator.  Reads return columnar numpy
+arrays.
 """
 
 from __future__ import annotations
@@ -24,7 +26,10 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["StarCatalog", "make_catalog_from_arrays", "catalog_filename"]
+from .utils.mathutils import add_proper_motion
+
+__all__ = ["StarCatalog", "make_catalog", "make_catalog_from_arrays", "catalog_filename",
+           "query_footprint"]
 
 
 def catalog_filename(sector: int, camera: int, ccd: int) -> str:
@@ -73,15 +78,8 @@ def make_catalog_from_arrays(
     tmag = np.asarray(tmag, np.float64)
     teff = np.full(len(starid), np.nan) if teff is None else np.asarray(teff, np.float64)
 
-    # Propagate to the sector reference epoch.  This duplicates the math of
-    # utils.mathutils.add_proper_motion ON PURPOSE: the shared helper is
-    # jnp-based (float32 without x64) while the catalog build needs host
-    # float64; keep the two in sync if the PM convention ever changes.
-    years = (reference_time - 2451544.5) / 365.25 + 2000.0 - epoch
-    dec_rate = pm_dec / 3.6e6
-    dec_now = dec_j2000 + years * dec_rate
-    ra_rate = pm_ra / np.cos(np.deg2rad(dec_j2000 + years * dec_rate / 2.0)) / 3.6e6
-    ra_now = ra_j2000 + years * ra_rate
+    ra_now, dec_now = add_proper_motion(ra_j2000, dec_j2000, pm_ra, pm_dec, reference_time,
+                                        epoch)
 
     if footprint is None:
         footprint = np.array([
@@ -131,6 +129,76 @@ def make_catalog_from_arrays(
         conn.commit()
         cur.execute("PRAGMA journal_mode=DELETE;")
     return path
+
+
+def query_footprint(cursor, footprint: np.ndarray, columns: str = "*",
+                    constraints: Optional[str] = None, buffer_size: float = 5,
+                    pixel_scale: float = 21.0) -> list:
+    """Footprint query with pole and RA=0 wraparound handling.
+
+    Same semantics as reference catalog.py:22-106: a plain box query in the
+    normal case; near a pole, RA is ignored; across RA=0, the query becomes
+    ``ra <= a OR ra >= b``.  A footprint whose corners span more than 180
+    degrees of RA straddles RA=0 (the WCS returns RA in [0, 360)), whether or
+    not a corner lies within the buffer of the line.
+    """
+    constraints = (" AND " + constraints) if constraints else ""
+    buffer_deg = buffer_size * pixel_scale / 3600.0
+    radec_min = np.min(footprint, axis=0)
+    radec_max = np.max(footprint, axis=0)
+    ra_min, ra_max = radec_min[0], radec_max[0]
+    dec_min = radec_min[1] - buffer_deg
+    dec_max = radec_max[1] + buffer_deg
+
+    query = (f"SELECT {columns} FROM catalog WHERE ra BETWEEN :ra_min AND :ra_max "
+             f"AND decl BETWEEN :dec_min AND :dec_max{constraints};")
+    straddles = (ra_max - ra_min) > 180.0
+    if dec_min < -90 or dec_max > 90:
+        cursor.execute(query, {"ra_min": 0, "ra_max": 360,
+                               "dec_min": dec_min, "dec_max": dec_max})
+    elif straddles or ra_min <= buffer_deg or 360 - ra_max <= buffer_deg:
+        corners_ra = np.mod(footprint[:, 0] - buffer_deg, 360)
+        ra_hi = np.min(corners_ra[corners_ra > 180])
+        corners_ra = np.mod(footprint[:, 0] + buffer_deg, 360)
+        ra_lo = np.max(corners_ra[corners_ra < 180])
+        cursor.execute(
+            f"SELECT {columns} FROM catalog WHERE (ra <= :ra_lo OR ra >= :ra_hi) "
+            f"AND decl BETWEEN :dec_min AND :dec_max{constraints};",
+            {"ra_lo": ra_lo, "ra_hi": ra_hi, "dec_min": dec_min, "dec_max": dec_max})
+    else:
+        cursor.execute(query, {"ra_min": ra_min - buffer_deg, "ra_max": ra_max + buffer_deg,
+                               "dec_min": dec_min, "dec_max": dec_max})
+    return cursor.fetchall()
+
+
+def make_catalog(input_folder: str, sector: int, camera: int, ccd: int,
+                 tic_source: Optional[str] = None, overwrite: bool = False,
+                 **kw) -> str:
+    """Create the catalog for one (sector, camera, ccd) from a TIC extract.
+
+    ``tic_source`` is an ``.npz`` (or whitespace table) with columns starid,
+    ra, dec (J2000), pm_ra, pm_dec, tmag and optionally teff, made offline
+    from the public TIC (reference catalog.py:109-336 queries a TASOC-internal
+    database instead).
+    """
+    if tic_source is None:
+        raise ValueError(
+            "A TIC extract file is required (no TASOC-internal database here). "
+            "Provide tic_source=<file.npz> with starid/ra/dec/pm_ra/pm_dec/tmag.")
+    if tic_source.endswith(".npz"):
+        with np.load(tic_source) as d:
+            cols = {k: np.asarray(d[k]) for k in d.files}
+    else:
+        raw = np.loadtxt(tic_source, ndmin=2)  # single-row extracts stay 2-D
+        names = ("starid", "ra", "dec", "pm_ra", "pm_dec", "tmag", "teff")
+        cols = {n: raw[:, i] for i, n in enumerate(names[:raw.shape[1]])}
+    return make_catalog_from_arrays(
+        input_folder, sector, camera, ccd,
+        starid=cols["starid"], ra_j2000=cols["ra"], dec_j2000=cols["dec"],
+        pm_ra=cols.get("pm_ra", np.zeros(len(cols["starid"]))),
+        pm_dec=cols.get("pm_dec", np.zeros(len(cols["starid"]))),
+        tmag=cols["tmag"], teff=cols.get("teff"),
+        overwrite=overwrite, ticver=kw.pop("ticver", "tic-extract"), **kw)
 
 
 _COLUMNS = ("starid", "ra", "decl", "ra_J2000", "decl_J2000", "pm_ra", "pm_decl",
@@ -199,6 +267,14 @@ class StarCatalog:
             else:
                 cols[c] = np.array([np.nan if v is None else v for v in vals], dtype=np.float64)
         return cols
+
+    def query_footprint(self, footprint, constraints=None, buffer_size: float = 5,
+                        pixel_scale: float = 21.0) -> dict:
+        """Columnar footprint query: {column: ndarray}."""
+        rows = query_footprint(self.cursor, np.asarray(footprint),
+                               columns=",".join(_COLUMNS), constraints=constraints,
+                               buffer_size=buffer_size, pixel_scale=pixel_scale)
+        return self._rows_to_columns(rows)
 
     def all_stars(self, faint_limit: Optional[float] = None) -> dict:
         """All catalog stars, optionally brighter than ``faint_limit``."""

@@ -14,16 +14,15 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import logging
 import os
 import sys
+
+from .common import add_device_arg, add_logging_args, resolve_input_folder, setup_logging
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Run TESS photometry (PyTorch + CUDA).")
-    parser.add_argument("-d", "--debug", action="store_true", help="Print debug messages.")
-    parser.add_argument("-q", "--quiet", action="store_true",
-                        help="Only report warnings and errors.")
+    add_logging_args(parser)
     parser.add_argument("-m", "--method", default=None,
                         choices=("aperture", "psf", "linpsf", "halo"))
     parser.add_argument("--starid", type=int, default=None)
@@ -38,19 +37,12 @@ def main(argv=None) -> int:
                         help="Data release version to put in output files.")
     parser.add_argument("-o", "--output", default=None,
                         help="Output directory (default: alongside input).")
-    parser.add_argument("--device", default="cuda",
-                        help="Torch device of the cubes and kernels (default: cuda).")
+    add_device_arg(parser, "the cubes and kernels")
     parser.add_argument("input_folder", nargs="?", default=None)
     args = parser.parse_args(argv)
 
-    level = logging.WARNING if args.quiet else logging.DEBUG if args.debug else logging.INFO
-    logging.basicConfig(level=level, format="%(asctime)s - %(levelname)s - %(message)s")
-
-    input_folder = args.input_folder or os.environ.get("TESSPHOT_INPUT")
-    if not input_folder:
-        raise SystemExit("Please specify an input folder (or set TESSPHOT_INPUT).")
-    if not os.path.isdir(input_folder):
-        raise SystemExit(f"Not a directory: {input_folder}")
+    setup_logging(args)
+    input_folder = resolve_input_folder(args.input_folder)
     output_folder = args.output or os.environ.get("TESSPHOT_OUTPUT") or input_folder
 
     constraints = {k: v for k, v in (("starid", args.starid), ("priority", args.priority),

@@ -13,16 +13,14 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import logging
-import os
 import sys
+
+from .common import add_device_arg, add_logging_args, resolve_input_folder, setup_logging
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Prepare FFIs for photometry (PyTorch + CUDA).")
-    parser.add_argument("-d", "--debug", action="store_true", help="Print debug messages.")
-    parser.add_argument("-q", "--quiet", action="store_true",
-                        help="Only report warnings and errors.")
+    add_logging_args(parser)
     parser.add_argument("--sector", type=int, default=None, action="append")
     parser.add_argument("--camera", type=int, default=None, action="append", choices=(1, 2, 3, 4))
     parser.add_argument("--ccd", type=int, default=None, action="append", choices=(1, 2, 3, 4))
@@ -34,20 +32,12 @@ def main(argv=None) -> int:
                              "(with --num-processes).")
     parser.add_argument("--num-processes", type=int, default=None,
                         help="Total hosts in a static multi-host split.")
-    parser.add_argument("--device", default="cuda",
-                        help="Torch device of the background fit, filters and registration "
-                             "(default: cuda).")
+    add_device_arg(parser, "the background fit, filters and registration")
     parser.add_argument("input_folder", nargs="?", default=None)
     args = parser.parse_args(argv)
 
-    level = logging.WARNING if args.quiet else logging.DEBUG if args.debug else logging.INFO
-    logging.basicConfig(level=level, format="%(asctime)s - %(levelname)s - %(message)s")
-
-    input_folder = args.input_folder or os.environ.get("TESSPHOT_INPUT")
-    if not input_folder:
-        raise SystemExit("Please specify an input folder (or set TESSPHOT_INPUT).")
-    if not os.path.isdir(input_folder):
-        raise SystemExit(f"Not a directory: {input_folder}")
+    setup_logging(args)
+    input_folder = resolve_input_folder(args.input_folder)
 
     from ..prepare import prepare_photometry
     paths = prepare_photometry(input_folder, output_folder=args.output, sectors=args.sector,

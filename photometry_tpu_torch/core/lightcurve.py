@@ -23,11 +23,9 @@ import numpy as np
 
 from ..io import fits as pf
 from ..quality import CorrectorQualityFlags
+from ..version import __version__
 
 __all__ = ["save_lightcurve", "lightcurve_filename"]
-
-#: Pipeline version stamped into PROCVER (that of photometry_tpu/version.py).
-__version__ = "0.1.0"
 
 
 def lightcurve_filename(starid, sector, camera, ccd, cadence, data_rel, version) -> str:

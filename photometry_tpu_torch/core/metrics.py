@@ -3,7 +3,8 @@ Per-target diagnostic metrics, batched, on torch tensors.
 
 Port of ``photometry_tpu/core/metrics.py``: ``compute_metrics_batch``
 (mean flux, variance, rms_hour, ptp, variability, median centroid —
-reference BasePhotometry.py:1344-1407) and ``crowding_metrics_batch``
+reference BasePhotometry.py:1344-1407), its one-light-curve form
+``compute_metrics``, and ``crowding_metrics_batch``
 (SPOC FLFRCSAP / CROWDSAP from an integrated-Gaussian PSF model).  The
 reference ``vmap``s one light curve; here the target batch is the leading
 dimension.  Medians use the numpy-matching ``utils.mathutils.nanmedian``;
@@ -20,7 +21,7 @@ from .. import device  # noqa: F401  (float32 precision policy)
 from ..quality import TESSQualityFlags
 from ..utils.mathutils import nanmedian, polyfit_detrend, ptp_metric, rms_timescale
 
-__all__ = ["compute_metrics_batch", "crowding_metrics_batch"]
+__all__ = ["compute_metrics", "compute_metrics_batch", "crowding_metrics_batch"]
 
 
 def crowding_metrics_batch(masks, cat_row, cat_col, cat_flux, cat_valid, is_target,
@@ -104,3 +105,11 @@ def compute_metrics_batch(time, flux, flux_err, quality, pos_centroid) -> dict:
         "pos_centroid": pos_med,
         "variability": variability,
     }
+
+
+def compute_metrics(time, flux, flux_err, quality, pos_centroid) -> dict:
+    """Diagnostic metrics of one light curve: flux/flux_err (T,),
+    pos_centroid (T, 2); :func:`compute_metrics_batch` on a batch of one.
+    Returns 0-d tensors (``pos_centroid``: (2,))."""
+    out = compute_metrics_batch(time, flux[None], flux_err[None], quality, pos_centroid[None])
+    return {k: v[0] for k, v in out.items()}

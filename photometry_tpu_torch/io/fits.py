@@ -34,7 +34,7 @@ from ..native_ops import bswap_f32, gunzip, gzip_compress
 BLOCK = 2880
 
 __all__ = ["Header", "HDU", "read_fits", "write_fits", "PrimaryHDU",
-           "ImageHDU", "BinTableHDU"]
+           "ImageHDU", "BinTableHDU", "verify_checksums"]
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +113,46 @@ def _hdu_bytes_with_checksum(hdr: Header, data_raw: bytes) -> bytes:
 # ---------------------------------------------------------------------------
 # Header
 # ---------------------------------------------------------------------------
+
+def verify_checksums(path) -> list:
+    """Verify CHECKSUM/DATASUM of every HDU in a file.
+
+    Returns one dict per HDU: {"checksum_ok": bool|None, "datasum_ok":
+    bool|None} (None when the HDU carries no such keyword).
+    """
+    results = []
+    with _open_maybe_gzip(path, "rb") as fh:
+        while True:
+            hdr_raw = b""
+            done = False
+            while True:
+                block = fh.read(BLOCK)
+                if len(block) < BLOCK:
+                    done = True
+                    break
+                hdr_raw += block
+                if any(block[i:i + 8].rstrip() == b"END" for i in range(0, BLOCK, 80)):
+                    break
+            if done or not hdr_raw:
+                break
+            hdr = Header.from_bytes(hdr_raw)
+            naxis = int(hdr.get("NAXIS", 0))
+            nbytes = 0
+            if naxis:
+                nbytes = abs(int(hdr["BITPIX"])) // 8
+                for i in range(1, naxis + 1):
+                    nbytes *= int(hdr[f"NAXIS{i}"])
+                nbytes += int(hdr.get("PCOUNT", 0)) * abs(int(hdr["BITPIX"])) // 8
+            data_raw = fh.read(nbytes + ((-nbytes) % BLOCK))
+            out = {"checksum_ok": None, "datasum_ok": None}
+            if "DATASUM" in hdr:
+                out["datasum_ok"] = int(str(hdr["DATASUM"])) == _ones_complement_sum(data_raw)
+            if "CHECKSUM" in hdr:
+                # a valid HDU sums to all ones:
+                out["checksum_ok"] = _ones_complement_sum(hdr_raw + data_raw) == 0xFFFFFFFF
+            results.append(out)
+    return results
+
 
 class Header:
     """Ordered FITS header: mapping from keyword to (value, comment).

@@ -8,7 +8,8 @@ configuration without monkeypatching module state.
 
 The port's own copy of ``photometry_tpu/io/settings.py``: ``data_dir()`` is
 the port's ``data/`` folder, which holds copies of the JAX package's
-``settings.ini`` and ``sector_info.json``.
+``settings.ini``, ``sector_info.json`` and the todo list's
+``todolist-exclude.dat`` and ``todolist-methods.dat``.
 """
 
 from __future__ import annotations

@@ -10,8 +10,8 @@ Port of ``photometry_tpu/io/wcs.py`` with the same two faces:
   device in the tensors' own dtype.
 
 Both faces run the same formulas through a small array namespace (numpy or
-the torch shim below).  ``fit_tan_wcs`` belongs to the prepare stage and is
-not ported yet.
+the torch shim below).  :func:`fit_tan_wcs` fits a TAN WCS to matched
+points, in numpy float64.
 
 Pixel convention: FITS 1-based (x = column+1, y = row+1), matching the headers.
 """
@@ -25,7 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["TanWCS", "tan_pixel_to_world", "tan_world_to_pixel"]
+__all__ = ["TanWCS", "fit_tan_wcs", "tan_pixel_to_world", "tan_world_to_pixel"]
 
 _D2R = np.pi / 180.0
 
@@ -210,6 +210,11 @@ class TanWCS:
         x, y = self.world_to_pixel(ra, dec)
         return y - 1.0, x - 1.0
 
+    @property
+    def pixel_scale(self) -> float:
+        """Approximate pixel scale in arcsec/pixel."""
+        return float(np.sqrt(np.abs(np.linalg.det(self.cd))) * 3600.0)
+
     def shifted(self, drow: float = 0.0, dcol: float = 0.0) -> "TanWCS":
         """The same sky solution on a cropped/translated pixel grid where
         new (row, col) = old (row, col) - (drow, dcol).
@@ -301,3 +306,66 @@ class TanWCS:
         return TanWCS(cp(self.crpix), cp(self.crval), cp(self.cd), cp(self.sip_a),
                       cp(self.sip_a_pow), cp(self.sip_b), cp(self.sip_b_pow),
                       self.sip_order)
+
+
+def fit_tan_wcs(x, y, ra, dec, crpix=None) -> TanWCS:
+    """Fit a linear TAN WCS to matched (pixel, sky) points (>= 4).
+
+    Counterpart of astropy's ``fit_wcs_from_points``.  A gnomonic projection
+    composed with an affine pixel map sends homogeneous pixel coordinates
+    to sky directions linearly, ``u ∝ M @ (x, y, 1)`` with ``M = R_crval @ K``
+    and K's last row (0, 0, 1): M comes from a direct linear transform, the
+    tangent point from the third row of ``M^-1``, then the exact affine
+    (CD and a CRPIX shift) about it by least squares.  Exact on noise-free
+    TAN data.
+    """
+    x = np.asarray(x, np.float64)
+    y = np.asarray(y, np.float64)
+    ra = np.asarray(ra, np.float64)
+    dec = np.asarray(dec, np.float64)
+    if x.size < 4:
+        raise ValueError("Need at least 4 points to fit a TAN WCS "
+                         "(the 9-parameter DLT is underdetermined below 4: "
+                         "3 points return an arbitrary nullspace vector)")
+    if crpix is None:
+        crpix = np.array([np.mean(x), np.mean(y)])
+    crpix = np.asarray(crpix, np.float64)
+
+    # Normalised homogeneous pixel coordinates (conditioning):
+    sx = max(np.std(x), 1.0)
+    sy = max(np.std(y), 1.0)
+    hx = (x - crpix[0]) / sx
+    hy = (y - crpix[1]) / sy
+    H = np.stack([hx, hy, np.ones_like(hx)], axis=1)          # (N, 3)
+    rr, dd = np.deg2rad(ra), np.deg2rad(dec)
+    V = np.stack([np.cos(dd) * np.cos(rr), np.cos(dd) * np.sin(rr), np.sin(dd)], axis=1)
+
+    # DLT: v x (M h) = 0, one row block per component pair.
+    n = len(x)
+    C = np.zeros((3 * n, 9))
+    for k in range(3):
+        i, j = (k + 1) % 3, (k + 2) % 3
+        C[k::3, 3 * j:3 * j + 3] = V[:, i:i + 1] * H
+        C[k::3, 3 * i:3 * i + 3] = -V[:, j:j + 1] * H
+    _, _, vt = np.linalg.svd(C, full_matrices=False)
+    M = vt[-1].reshape(3, 3)
+    if np.sum(np.einsum("nk,nk->n", V, H @ M.T)) < 0:      # M h along v, not -v
+        M = -M
+
+    # Tangent point = direction of the third row of M^-1:
+    p = np.linalg.inv(M)[2]
+    p /= np.linalg.norm(p)
+    if np.dot(p, V.mean(axis=0)) < 0:
+        p = -p
+    crval = np.array([np.rad2deg(np.arctan2(p[1], p[0])) % 360.0,
+                      np.rad2deg(np.arcsin(np.clip(p[2], -1, 1)))])
+
+    # Exact affine about the recovered tangent point:
+    xi, eta = _tan_project(ra, dec, crval, _NumpyNS)
+    A = np.stack([x - crpix[0], y - crpix[1], np.ones_like(x)], axis=1)
+    cx, *_ = np.linalg.lstsq(A, np.asarray(xi), rcond=None)
+    cy, *_ = np.linalg.lstsq(A, np.asarray(eta), rcond=None)
+    cd = np.array([[cx[0], cx[1]], [cy[0], cy[1]]])
+    # Fold the constant terms into CRPIX (xi = CD (p - crpix_new)):
+    shift = np.linalg.solve(cd, np.array([cx[2], cy[2]]))
+    return TanWCS(crpix=crpix - shift, crval=crval, cd=cd)

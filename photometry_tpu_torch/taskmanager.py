@@ -267,6 +267,12 @@ class TaskManager:
                 logger.exception("Could not write summary file")
 
     # ------------------------------------------------------------------ leasing
+    def get_number_tasks(self, **kwargs) -> int:
+        c = build_constraints(**kwargs)
+        row = self.cursor.execute(
+            "SELECT COUNT(*) FROM todolist WHERE status IS NULL" + c + ";").fetchone()
+        return int(row[0])
+
     def get_task(self, **kwargs) -> Optional[dict]:
         """Next unprocessed task by ascending priority, or None."""
         c = build_constraints(**kwargs)
@@ -306,12 +312,31 @@ class TaskManager:
              head["cadence"], batch_size)).fetchall()
         return [dict(r) for r in rows]
 
+    def start_task(self, taskid: int):
+        self.cursor.execute(
+            f"UPDATE todolist SET status={STATUS.STARTED.value:d} WHERE priority=?;", [taskid])
+        self.conn.commit()
+        self.summary["STARTED"] += 1
+
     def start_tasks(self, taskids):
         self.cursor.executemany(
             f"UPDATE todolist SET status={STATUS.STARTED.value:d} WHERE priority=?;",
             [(int(t),) for t in taskids])
         self.conn.commit()
         self.summary["STARTED"] += len(taskids)
+
+    def release_tasks(self, taskids):
+        """Return leased (STARTED) tasks to the queue — used when a worker
+        dies mid-batch so another worker can pick its lease up immediately
+        (in-run form of the startup STARTED-reset, taskmanager.py:257-272)."""
+        rows = [(int(t),) for t in taskids]
+        self.cursor.executemany(
+            f"UPDATE todolist SET status=NULL WHERE priority=? "
+            f"AND status={STATUS.STARTED.value:d};", rows)
+        released = max(self.cursor.rowcount, 0)
+        self.conn.commit()
+        self.summary["STARTED"] = max(self.summary["STARTED"] - released, 0)
+        return released
 
     # ------------------------------------------------------------------ results
     def save_result(self, result: dict):

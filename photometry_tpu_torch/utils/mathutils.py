@@ -1,9 +1,12 @@
 """
-Numeric utilities of the metrics path, on torch tensors.
+Numeric utilities: the metrics path on torch tensors, and host helpers.
 
-Port of the parts of ``photometry_tpu/utils/mathutils.py`` the aperture
-slice runs.  Every function takes a batch along the leading dimensions and
-reduces along the last one (the JAX package ``vmap``s the 1-D forms).
+Port of ``photometry_tpu/utils/mathutils.py``.  The torch functions take a
+batch along the leading dimensions and reduce along the last one (the JAX
+package ``vmap``s the 1-D forms).  The host helpers at the end
+(``sphere_distance``, ``add_proper_motion``, ... reference
+photometry/utilities.py) are numpy in float64: the todo list, the catalog
+and the simulator call them on the host, never on a device.
 
 Medians and quantiles follow ``jnp.nanmedian`` / ``jnp.nanquantile``
 exactly (sort with NaNs last, then the same index and weight arithmetic):
@@ -18,7 +21,9 @@ import torch
 
 __all__ = ["MAD_TO_SIGMA", "TESS_ZEROPOINT", "mag2flux", "nanmedian",
            "nanquantile", "nanmin", "nanmax", "rms_timescale", "ptp_metric",
-           "polyfit_detrend", "moving_median_central"]
+           "polyfit_detrend", "moving_median_central", "flux2mag", "add_proper_motion",
+           "sphere_distance", "radec_to_cartesian", "cartesian_to_radec",
+           "integrated_gaussian", "nanmad", "find_nearest", "np_moving_median_central"]
 
 #: 1 / norm.ppf(3/4) — converts a median absolute deviation to a sigma.
 MAD_TO_SIGMA = 1.482602218505602
@@ -168,3 +173,92 @@ def polyfit_detrend(time: torch.Tensor, flux: torch.Tensor, flux_err: torch.Tens
     detrend = (((time - tmin)[..., None] ** powers) @ coeffs[..., None])[..., 0]
     n_good = good.sum(dim=-1, keepdim=True)
     return torch.where(n_good > (order + 1), detrend, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Host helpers (numpy, float64)
+# ---------------------------------------------------------------------------
+
+def flux2mag(flux, zp: float = TESS_ZEROPOINT):
+    """Inverse of :func:`mag2flux`."""
+    return -2.5 * np.log10(np.asarray(flux, np.float64)) + zp
+
+
+def add_proper_motion(ra, dec, pm_ra, pm_dec, bjd, epoch=2000.0):
+    """Project (ra, dec) [deg] with proper motions [mas/yr] to epoch ``bjd`` [JD].
+
+    ``pm_ra`` is the catalog mu_alpha* (projected); the unprojection uses the
+    mean declination between the two epochs (photometry/utilities.py:65-97).
+    """
+    ra = np.asarray(ra, np.float64)
+    dec = np.asarray(dec, np.float64)
+    dt_years = (np.asarray(bjd, np.float64) - 2451544.5) / 365.25 + 2000.0 - epoch
+    dec_rate = np.asarray(pm_dec, np.float64) / 3.6e6  # deg/yr
+    dec_new = dec + dt_years * dec_rate
+    ra_rate = np.asarray(pm_ra, np.float64) / np.cos(np.deg2rad(dec + dt_years * dec_rate / 2.0)) / 3.6e6
+    return ra + dt_years * ra_rate, dec_new
+
+
+def sphere_distance(ra1, dec1, ra2, dec2):
+    """Great-circle distance in degrees (Vincenty formula, stable at poles)."""
+    ra1, ra2 = np.deg2rad(np.asarray(ra1, np.float64)), np.deg2rad(np.asarray(ra2, np.float64))
+    dec1, dec2 = np.deg2rad(np.asarray(dec1, np.float64)), np.deg2rad(np.asarray(dec2, np.float64))
+    dra = ra2 - ra1
+    num = np.sqrt((np.cos(dec2) * np.sin(dra)) ** 2
+                  + (np.cos(dec1) * np.sin(dec2) - np.sin(dec1) * np.cos(dec2) * np.cos(dra)) ** 2)
+    den = np.sin(dec1) * np.sin(dec2) + np.cos(dec1) * np.cos(dec2) * np.cos(dra)
+    return np.rad2deg(np.arctan2(num, den))
+
+
+def radec_to_cartesian(radec):
+    """(N, 2) array of (ra, dec) in degrees -> (N, 3) unit vectors."""
+    radec = np.atleast_2d(np.asarray(radec, np.float64))
+    phi = np.deg2rad(radec[:, 0])
+    theta = np.pi / 2 - np.deg2rad(radec[:, 1])
+    return np.stack([np.sin(theta) * np.cos(phi), np.sin(theta) * np.sin(phi), np.cos(theta)],
+                    axis=1)
+
+
+def cartesian_to_radec(xyz):
+    """(N, 3) unit vectors -> (N, 2) array of (ra, dec) in degrees, ra in [0, 360)."""
+    xyz = np.atleast_2d(np.asarray(xyz, np.float64))
+    dec = np.pi / 2 - np.arccos(np.clip(xyz[:, 2], -1.0, 1.0))
+    ra = np.arctan2(xyz[:, 1], xyz[:, 0])
+    ra = np.where(ra < 0, ra + 2 * np.pi, ra)
+    return np.rad2deg(np.stack([ra, dec], axis=1))
+
+
+def integrated_gaussian(x, y, flux, x_0, y_0, sigma=1.0):
+    """Symmetric 2-D Gaussian integrated over unit pixels centred at (x, y)."""
+    from scipy.special import erf
+    denom = np.sqrt(2.0) * sigma
+    ex = erf((x - x_0 + 0.5) / denom) - erf((x - x_0 - 0.5) / denom)
+    ey = erf((y - y_0 + 0.5) / denom) - erf((y - y_0 - 0.5) / denom)
+    return flux / 4.0 * ex * ey
+
+
+def nanmad(x, axis=None, scale_to_sigma: bool = False):
+    """Median absolute deviation, ignoring NaNs; optionally scaled to sigma."""
+    x = np.asarray(x)
+    med = np.nanmedian(x, axis=axis, keepdims=axis is not None)
+    mad = np.nanmedian(np.abs(x - med), axis=axis)
+    return mad * MAD_TO_SIGMA if scale_to_sigma else mad
+
+
+def find_nearest(array, value):
+    """Index of the element of ``array`` closest to ``value`` (NaN-safe)."""
+    array = np.asarray(array)
+    return int(np.argmin(np.where(np.isnan(array), np.inf, np.abs(array - value))))
+
+
+def np_moving_median_central(x, width: int, axis: int = 0) -> np.ndarray:
+    """Host version of :func:`moving_median_central`: centred moving median
+    with shrinking edge windows."""
+    x = np.moveaxis(np.asarray(x, dtype=float), axis, 0)
+    n = x.shape[0]
+    half = width // 2
+    out = np.empty_like(x)
+    for k in range(n):
+        lo, hi = max(0, k - half), min(n, k + half + 1)
+        out[k] = np.nanmedian(x[lo:hi], axis=0)
+    return np.moveaxis(out, 0, axis)

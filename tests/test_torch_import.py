@@ -11,7 +11,10 @@ agree with their plain versions.
   (``cache="host"``, streamed 4 frames a chunk) and on a ``TpfContext``
   (a simulated TPF); the prepare stage
   (``prepare.prepare_cube``) runs on a tiny simulated sector into
-  ``chip_smoke.DictCube``, the in-memory store the card's run uses.
+  ``chip_smoke.DictCube``, the in-memory store the card's run uses; and the
+  chain catalog -> todo -> merge runs through the port's CLIs on a folder
+  of one TPF (a catalog built from a TIC extract, the todo list, a merge
+  with a corrections file), which needs no cube and so no ``h5py``.
 - No module of ``photometry_tpu_torch``, and not ``chip_smoke.py``, has an
   import statement naming ``jax``, ``jaxlib`` or ``photometry_tpu``.
 - The ``*_on_card`` tests need a CUDA card (marker ``cuda``) and skip
@@ -129,6 +132,29 @@ assert cube.stages == set(STAGES), cube.stages
 assert np.isfinite(cube.arrays["backgrounds"]).all() and all(cube.wcs)
 assert cube.kept_resid.shape == (2, 48, 48) and cube.scratch is None
 
+import os, shutil, sqlite3
+from photometry_tpu_torch.cli import catalog_cmd, todo_cmd, todo_merge_cmd
+from photometry_tpu_torch.io.discovery import find_tpf_files
+chain = tempfile.mkdtemp()
+shutil.copy(find_tpf_files(SIM_DIR)[0], chain)
+assert catalog_cmd.main(["-q", "--camera", "3", "--ccd", "2", "--tic-source", TIC, "1",
+                         chain]) == 0
+assert todo_cmd.main(["-q", chain]) == 0
+todo = os.path.join(chain, "todo.sqlite")
+with sqlite3.connect(todo) as conn:
+    rows = conn.execute("SELECT starid, datasource FROM todolist ORDER BY priority").fetchall()
+    conn.execute("UPDATE todolist SET status=1")
+assert (TPF_STARID, "tpf") in rows and all(ds.startswith("tpf") for _, ds in rows), rows
+derived = os.path.join(chain, "todo-corr.sqlite")
+shutil.copy(todo, derived)
+with sqlite3.connect(derived) as conn:
+    conn.execute("ALTER TABLE todolist ADD COLUMN corr_status INTEGER DEFAULT NULL")
+    conn.execute("UPDATE todolist SET corr_status=1")
+merged = os.path.join(chain, "merged.sqlite")
+assert todo_merge_cmd.main(["-q", todo, derived, merged]) == 0
+with sqlite3.connect(merged) as conn:
+    assert conn.execute("SELECT COUNT(*) FROM todolist WHERE corr_status=1").fetchone()[0] == len(rows)
+
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("OK", len(res), len(psf), len(files))
 '''
@@ -156,11 +182,17 @@ def test_slice_runs_with_jax_blocked(tmp_path):
     sim.write_ffis(str(tmp_path))
     sim.write_tpf(str(tmp_path), int(sim.starid[0]), n_times=60)
     sim.write_catalog(str(tmp_path))
+    tic = str(tmp_path.parent / f"{tmp_path.name}-tic.npz")
+    arr = sim.catalog_arrays()
+    np.savez(tic, starid=arr["starid"], ra=arr["ra_j2000"], dec=arr["dec_j2000"],
+             pm_ra=arr["pm_ra"], pm_dec=arr["pm_dec"], tmag=arr["tmag"])
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     modules = _modules()
-    assert "photometry_tpu_torch.models.psf_fused" in modules
-    assert "photometry_tpu_torch.prepare" in modules
-    script = (f"MODULES = {modules!r}\nSIM_DIR = {str(tmp_path)!r}\n"
+    assert {"photometry_tpu_torch.models.psf_fused", "photometry_tpu_torch.prepare",
+            "photometry_tpu_torch.todolist", "photometry_tpu_torch.todo_merge",
+            "photometry_tpu_torch.sim.simulator", "photometry_tpu_torch.tools.fuzz_e2e",
+            "photometry_tpu_torch.cli.catalog_cmd"} <= set(modules)
+    script = (f"MODULES = {modules!r}\nSIM_DIR = {str(tmp_path)!r}\nTIC = {tic!r}\n"
               f"TPF_STARID = {int(sim.starid[0])}\n" + _SCRIPT)
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -180,7 +212,10 @@ def test_no_module_imports_jax():
     """No import statement (absolute; relative ones stay inside the port)
     names jax, jaxlib or the JAX package."""
     offenders = []
-    for path in _py_files():
+    paths = list(_py_files())
+    assert {os.path.join(PKG, "tools", "fuzz_e2e.py"), os.path.join(PKG, "todolist.py"),
+            os.path.join(PKG, "sim", "simulator.py")} <= set(paths)
+    for path in paths:
         with open(path) as fh:
             tree = ast.parse(fh.read(), path)
         for node in ast.walk(tree):
