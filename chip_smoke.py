@@ -4,14 +4,17 @@
 Drives the port's FFI aperture, PSF and prepare paths, bfloat16 cubes,
 host-resident cubes streamed through the card, the flux-only stamp
 extraction, ECC registration, the default-method drain (both automatic
-switches: halo and linPSF), Target Pixel Files through the drain and the
-chain catalog -> todo -> drain -> merge, through the entry points a user
-calls, with JAX, h5py and the JAX package blocked from import.  Phases run
+switches: halo and linPSF), Target Pixel Files through the drain, the
+chain catalog -> todo -> drain -> merge, several worker processes draining
+one todo list (the task-pull scheduler) and the ``--plot`` diagnostics,
+through the entry points a user calls, with JAX, h5py and the JAX package
+blocked from import.  Phases run
 in the order 0, 1, 2, 2b, 2c, 2d (adversarial), 3, 3b (on phase 3's cube),
 3c (phase 3's cube on the host), 2d (main shape, on phase 3's cube and
 targets), 4, 6 (on phase 3's cube), 8 (beside phase 3's context), 7 (on
 phase 3's cubes), 3b (the full sector, once phase 3's cubes are freed), 3c
-(the full sector in float32 on the host), 5, 9 (on phase 5's store):
+(the full sector in float32 on the host), 5, 9 (on phase 5's store), 10
+(with no cube of the parent's on the card):
 
 0. imports: ``jax``, ``jaxlib``, ``h5py`` and ``photometry_tpu`` refused.
 1. device: the card's name and power limit; the five kernel sources are
@@ -221,6 +224,38 @@ phase 3's cubes), 3b (the full sector, once phase 3's cubes are freed), 3c
    only, their ``diagnostics_corr`` rows gone.  Prints each step's wall and
    the todo's row count.
 
+10. the task-pull scheduler and the diagnostics, with the parent holding no
+   cube on the card (its ``torch.cuda.memory_allocated()`` printed first);
+   every kernel was built in phase 1, before any worker starts.  (a) the
+   port's ``cli/scheduler_cmd`` with 2 local workers over pipes on a copy
+   of phase 8's folder whose todo holds its 16 highest-priority primary
+   TPFs and their secondaries: the workers open the TPFs through the real
+   ``open_context``; exit 0, drained, every task final, one diagnostics row
+   each, every task's status, method and FLUX_RAW equal to phase 8's
+   ``run_drain``.  (b) phase 7's traffic (2,048 tasks of a 2048x2048, T =
+   512 float32 sector with 40 bright stars and 32 pairs, method NULL,
+   leases of 256) on a sector rebuilt from the seed alone
+   (``phase10_sector``): first ``run_drain`` in this process (the
+   reference; its cube freed after (c)), then N = 1 and N = 2 TCP workers,
+   each a process of this script (``phase10_worker``: the import blocker,
+   the sector rebuilt on the card, handed back by
+   ``dispatcher.open_context``, ``scheduler.worker_remote``) that writes
+   its band launches, peak device memory and drain wall to a file at exit;
+   the master is ``run_distributed(listen=...)`` here.  Checks: drained,
+   every task final, no priority twice in diagnostics, the band kernel
+   launched in every worker, no blocked module imported, per task the same
+   method and FLUX_RAW as the reference (bit for bit, else within
+   ROADMAP's tolerances), no other status difference than SKIPPED (those
+   counted), no task both run and SKIPPED.  Tasks/s with products for
+   ``run_drain``, N = 1 and N = 2, and each worker's peak memory.  (c) on
+   the reference's cube: the K2P2 debug images (``diagnostics.k2p2_debug``)
+   of 32 targets on the card equal to the same call on the CPU (above,
+   labels, seg, mask; blurred within the blur tolerance); where matplotlib
+   imports, ``run_drain(plot=True)`` over 64 tasks with one halo star and
+   one linPSF pair: sumimage and masks_flux for every OK aperture task,
+   psf_fit for the linPSF ones, the weight maps for the halo one, the
+   figures' wall beside the drain's.
+
 Prints the wall of each phase, a JSON line of per-kernel results, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero on any failure, without a result, and when no CUDA card is
@@ -238,6 +273,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from unittest import mock
 
@@ -290,6 +326,10 @@ RAW_SHAPE = (2078, 2136)                 # raw TESS FFI; science area rows 0:204
 # Phase 9: the chain on phase 5's store: the drain takes the 2,048 highest
 # priorities; 64 catalog stars lie just off the science area.
 P9 = {"todo": 2048, "off": 64, "batch": 256}
+# Phase 10: (a) the 16 highest-priority primary TPFs of phase 8 and their
+# secondaries; (b) phase 7's 2,048 tasks in leases of 256; (c) the K2P2 debug
+# images of 32 targets and a plotted drain of 64 tasks.
+P10 = {"tpf": 16, "batch": 256, "debug": 32, "plot": 64}
 # NVIDIA H100 SXM data sheet: HBM bytes/s, float32 FLOP/s outside the tensor cores,
 # dense TF32 FLOP/s of the tensor cores (3xTF32 spends three products on one).
 PEAK_BYTES, PEAK_F32, PEAK_TF32 = 3.35e12, 67e12, 495e12
@@ -2827,6 +2867,7 @@ def tpf_phase(work, dev, gen, rng, ctx_kw, rows, cols, tmag, wcs, card):
               f"by bytes ({card})", flush=True)
     del band_calls, aperture, ffi_ctx
     torch.cuda.empty_cache()
+    return folder
 
 
 # --- phase 5: the prepare slice -------------------------------------------------
@@ -3115,10 +3156,8 @@ def photometry_context(work, rows, cols, tmag, cubes, dev):
     import torch
     from photometry_tpu_torch.catalog import make_catalog_from_arrays
     from photometry_tpu_torch.core.engine import SectorContext
-    from photometry_tpu_torch.io.wcs import TanWCS
     images, errs, bkgs, flags = cubes
-    wcs = TanWCS(crpix=[W / 2 + 0.5, H / 2 + 0.5], crval=[95.0, -60.0],
-                 cd=[[-21.0 / 3600, 0.0], [0.0, 21.0 / 3600]])
+    wcs = field_wcs()
     ra, dec = wcs.radec_of_rowcol(rows, cols)
     cat = make_catalog_from_arrays(work, 1, 1, 1, starid=np.arange(1, len(rows) + 1),
                                    ra_j2000=ra, dec_j2000=dec, pm_ra=np.zeros(len(rows)),
@@ -3454,6 +3493,469 @@ def chain_phase(work, dev, store, tpf, rows, cols, tmag, wcs, card):
     print(f"phase 9 walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
           + f"; todo rows {len(rows_db)} ({card})", flush=True)
     return walls
+
+
+# --- phase 10: several workers drain one todo list; diagnostics -------------------
+
+def field_wcs():
+    """The TAN WCS of the seeded field (phases 3, 7 and 10)."""
+    from photometry_tpu_torch.io.wcs import TanWCS
+    return TanWCS(crpix=[W / 2 + 0.5, H / 2 + 0.5], crval=[95.0, -60.0],
+                  cd=[[-21.0 / 3600, 0.0], [0.0, 21.0 / 3600]])
+
+
+def phase10_sector(dev, seed):
+    """Phase 10's phase-7-like sector, rebuilt on ``dev`` from ``seed`` alone:
+    ``make_field``, ``make_cubes``, ``phase7_layout``, ``renoise_phase7`` and
+    ``inject_phase7`` each draw from a generator of their own, so every
+    process that calls this holds the same cube bit for bit.  Returns the
+    cubes, every star's row, column and Tmag (the field, then the bright
+    stars, then the pairs), the bright stars', the pairs' and the field's
+    starids, and the phase-7 todo list of P7["todo"] starids (those three
+    in turn)."""
+    import torch
+    rows, cols, tmag, img0 = make_field(np.random.default_rng([seed, 10, 1]))
+    gens = []
+    for k in range(3):
+        gens.append(torch.Generator(device=dev))
+        gens[-1].manual_seed(1_000_003 * seed + 10 + k)
+    images, errs, bkgs, flags = make_cubes(img0, gens[0], dev)
+    lay = phase7_layout(np.random.default_rng([seed, 10, 2]), rows, cols, tmag, H, W)
+    renoise_phase7(images, errs, img0, gens[1])
+    inject_phase7(images, errs, lay, gens[2])
+    nb, n0 = len(lay["b_tmag"]), len(rows)
+    all_tmag = np.concatenate([tmag, lay["b_tmag"], lay["p_tmag"]])
+    sids = np.arange(1, len(all_tmag) + 1)
+    field = [int(s) for s in np.argsort(tmag, kind="stable")
+             [:P7["todo"] - nb - len(lay["p_tmag"])] + 1]
+    b_sids = [int(s) for s in sids[n0:n0 + nb]]
+    p_sids = [int(s) for s in sids[n0 + nb:]]
+    return {"cubes": (images, errs, bkgs, flags),
+            "rows": np.concatenate([rows, lay["b_rows"], lay["p_rows"]]),
+            "cols": np.concatenate([cols, lay["b_cols"], lay["p_cols"]]),
+            "tmag": all_tmag, "b_sids": b_sids, "p_sids": p_sids, "field": field,
+            "todo": b_sids + p_sids + field}
+
+
+def phase10_folder(folder, sec, todo):
+    """A drain's folder: the sector's catalog and a todo.sqlite of ``todo``."""
+    from photometry_tpu_torch.catalog import make_catalog_from_arrays
+    os.makedirs(folder)
+    ra, dec = field_wcs().radec_of_rowcol(sec["rows"], sec["cols"])
+    n = len(sec["tmag"])
+    make_catalog_from_arrays(folder, 1, 1, 1, starid=np.arange(1, n + 1), ra_j2000=ra,
+                             dec_j2000=dec, pm_ra=np.zeros(n), pm_dec=np.zeros(n),
+                             tmag=sec["tmag"], reference_time=2458340.0)
+    write_todo(folder, todo, sec["tmag"][np.array(todo) - 1])
+    return folder
+
+
+def frame_nanmean(images, chunk=64):
+    """The mean over frames of an (T, H, W) cube, NaN left out, ``chunk``
+    frames at a time: ``torch.nanmean`` over the whole cube takes a
+    temporary as large as the cube, which two workers' cubes leave no room
+    for on one card."""
+    import torch
+    total = torch.zeros(images.shape[1:], device=images.device)
+    count = torch.zeros(images.shape[1:], device=images.device)
+    for t0 in range(0, images.shape[0], chunk):
+        block = images[t0:t0 + chunk]
+        nan = torch.isnan(block)
+        total += torch.where(nan, 0.0, block).sum(dim=0)
+        count += (~nan).sum(dim=0)
+    return (total / count).cpu().numpy()
+
+
+def phase10_context(folder, sec, dev):
+    """``SectorContext.from_arrays`` over the sector's cubes, its catalog in ``folder``."""
+    from photometry_tpu_torch.catalog import catalog_filename
+    from photometry_tpu_torch.core.engine import SectorContext
+    images, errs, bkgs, flags = sec["cubes"]
+    T_ = images.shape[0]
+    return SectorContext.from_arrays(
+        images=images, images_err=errs, backgrounds=bkgs, pixelflags=flags,
+        sumimage=frame_nanmean(images),
+        time=1325.3 + np.arange(T_) / 48.0, timecorr=np.zeros(T_, np.float32),
+        cadenceno=np.arange(T_, dtype=np.int32), quality=np.zeros(T_, np.int32),
+        catalog_path=os.path.join(folder, catalog_filename(1, 1, 1)), wcs=field_wcs(),
+        sector=1, camera=1, ccd=1, header={"PSFSIGMA": 1.2}, input_folder=folder,
+        device=dev)
+
+
+def phase10_worker(port, folder, seed, device, sizes):
+    """A TCP worker of phase 10(b), in a process of its own: the import
+    blocker, phase 10's sector rebuilt on the card from ``seed``, handed
+    back by ``dispatcher.open_context``, then ``scheduler.worker_remote``.
+    At exit it writes its band-kernel launches, peak device memory and the
+    wall of its drain to ``<folder>/worker-<pid>.json``."""
+    import torch
+    globals().update(sizes)
+    sys.path.insert(0, HERE)
+    sys.meta_path.insert(0, _Blocked())
+    from photometry_tpu_torch.core import dispatcher
+    from photometry_tpu_torch.ops._kernels import BAND_EXTRACT
+    from photometry_tpu_torch.parallel import scheduler
+    dev = torch.device(device)
+    sec = phase10_sector(dev, seed)
+    ctx = phase10_context(folder, sec, dev)
+    dispatcher.open_context = lambda *a, **k: ctx
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    scheduler.worker_remote(("127.0.0.1", port), folder, version=1, device=dev,
+                            connect_timeout=600.0)
+    t1 = time.time()
+    blocked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "h5py",
+                                                            "photometry_tpu")]
+    with open(os.path.join(folder, f"worker-{os.getpid()}.json"), "w") as fh:
+        json.dump({"launches": BAND_EXTRACT.launches, "t0": t0, "t1": t1, "blocked": blocked,
+                   "peak": torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0},
+                  fh)
+
+
+def read_drain(folder):
+    """{priority: (starid, status, method or None, FLUX_RAW or None)} of a
+    drained folder; the products read on a thread pool."""
+    import sqlite3
+    from concurrent.futures import ThreadPoolExecutor
+    from photometry_tpu_torch.io import fits as pf
+    with sqlite3.connect(os.path.join(folder, "todo.sqlite")) as conn:
+        rows = conn.execute(
+            "SELECT t.priority, t.starid, t.status, d.method_used, d.lightcurve FROM todolist t "
+            "LEFT JOIN diagnostics d ON t.priority = d.priority").fetchall()
+        dup = conn.execute("SELECT COUNT(*) FROM (SELECT priority FROM diagnostics "
+                           "GROUP BY priority HAVING COUNT(*) > 1)").fetchone()[0]
+        skipped = {p for p, in conn.execute("SELECT priority FROM photometry_skipped")}
+
+    def flux(path):
+        if not path:
+            return None
+        return np.asarray(pf.read_fits(os.path.join(folder, path))[1].data["FLUX_RAW"])
+
+    with ThreadPoolExecutor(8) as pool:
+        fluxes = list(pool.map(flux, [r[4] for r in rows]))
+    check(dup == 0, f"{folder}: a priority has more than one diagnostics row")
+    return {p: (sid, st, m, f) for (p, sid, st, m, _), f in zip(rows, fluxes)}, skipped
+
+
+def compare_drains(what, got, want, strict):
+    """Per task the same status, and for tasks run in both the same method
+    and FLUX_RAW: bit for bit, else within ROADMAP's tolerances (aperture
+    RTOL/ATOL, linPSF rtol 1e-4, halo rtol 5e-4).  With ``strict`` the
+    statuses must be equal; without, tasks SKIPPED in one run only are
+    counted.  Also: no task both run and SKIPPED (its status OK, WARNING or
+    ERROR while photometry_skipped names it).  Returns a summary line."""
+    from photometry_tpu_torch.core.status import STATUS
+    (g, g_skipped), (w, _) = got, want
+    final = {STATUS.OK.value, STATUS.WARNING.value, STATUS.ERROR.value, STATUS.SKIPPED.value}
+    check(set(g) == set(w) and all(v[1] in final for v in g.values()),
+          f"{what}: a task has no final status")
+    run = (STATUS.OK.value, STATUS.WARNING.value, STATUS.ERROR.value)
+    both = sorted(p for p in g if g[p][1] in run and w[p][1] in run)
+    skip_diff = sum((g[p][1] == STATUS.SKIPPED.value) != (w[p][1] == STATUS.SKIPPED.value)
+                    for p in g)
+    other_diff = sum(g[p][1] != w[p][1] for p in g) - skip_diff
+    run_and_skipped = sum(g[p][1] in run for p in g_skipped)
+    tol = {"aperture": (RTOL, ATOL), "linpsf": (1e-4, 0.0), "halo": (5e-4, 0.0)}
+    methods_differ, bit_equal, within, worst = 0, 0, 0, 0.0
+    for p in both:
+        (_, _, mg, fg), (_, _, mw, fw) = g[p], w[p]
+        if mg != mw:
+            methods_differ += 1
+            continue
+        if fg is None or fw is None:
+            check(fg is None and fw is None, f"{what}: priority {p} has a product in one run only")
+            continue
+        if np.array_equal(fg.view(np.uint32), fw.view(np.uint32)):
+            bit_equal += 1
+            continue
+        rtol, atol = tol.get(mg, (RTOL, ATOL))
+        ok = np.isnan(fg) == np.isnan(fw)
+        fin = ~np.isnan(fw)
+        d = np.abs(fg[fin] - fw[fin])
+        ok = bool(ok.all() and np.all(d <= atol + rtol * np.abs(fw[fin])))
+        check(ok, f"{what}: priority {p} ({mg}) FLUX_RAW off by up to {d.max():.3g}")
+        within += 1
+        worst = max(worst, float(d.max()) if d.size else 0.0)
+    check(methods_differ == 0, f"{what}: {methods_differ} tasks ran another method")
+    check(other_diff == 0, f"{what}: {other_diff} tasks end in another status (not SKIPPED)")
+    check(not strict or skip_diff == 0, f"{what}: {skip_diff} tasks SKIPPED in one run only")
+    check(run_and_skipped == 0, f"{what}: {run_and_skipped} tasks both run and SKIPPED")
+    return (f"{len(both)} tasks run in both: the same methods, FLUX_RAW bit-equal {bit_equal}, "
+            f"within the tolerances {within} (max |diff| {worst:.3g}); {skip_diff} tasks "
+            f"SKIPPED in one run only; none both run and SKIPPED")
+
+
+def phase10_tpf(work, p8_folder, dev, card):
+    """Phase 10(a): ``cli/scheduler_cmd`` with two local workers over pipes on
+    a todo of P10["tpf"] of phase 8's primary TPFs and their secondaries;
+    the workers open the TPFs through the real ``open_context``."""
+    import contextlib
+    import io
+    import shutil
+    import sqlite3
+    from photometry_tpu_torch.catalog import catalog_filename
+    from photometry_tpu_torch.cli import scheduler_cmd
+    folder = os.path.join(work, "phase10a")
+    os.makedirs(folder)
+    src = os.path.join(p8_folder, "todo.sqlite")
+    with sqlite3.connect(src) as conn:
+        prim = conn.execute("SELECT starid, cadence FROM todolist WHERE datasource='tpf' "
+                            "ORDER BY priority LIMIT ?", (P10["tpf"],)).fetchall()
+    shutil.copy(src, os.path.join(folder, "todo.sqlite"))
+    with sqlite3.connect(os.path.join(folder, "todo.sqlite")) as conn:
+        keep = [p for sid, cad in prim for p, in conn.execute(
+            "SELECT priority FROM todolist WHERE cadence=? AND (datasource=? OR "
+            "(datasource='tpf' AND starid=?))", (cad, f"tpf:{sid}", sid))]
+        conn.execute(f"DELETE FROM todolist WHERE priority NOT IN ({','.join('?' * len(keep))})",
+                     keep)
+        conn.execute("UPDATE todolist SET status=NULL")
+        conn.execute("DROP TABLE IF EXISTS diagnostics")
+        conn.execute("DROP TABLE IF EXISTS photometry_skipped")
+        n_tasks = conn.execute("SELECT COUNT(*) FROM todolist").fetchone()[0]
+    shutil.copy(os.path.join(p8_folder, catalog_filename(1, 1, 1)), folder)
+    n_files = 0
+    for name in os.listdir(p8_folder):
+        if "tp.fits" in name and any(f"{sid:016d}" in name and ("fast-" in name) == (cad == 20)
+                                 for sid, cad in prim):
+            os.symlink(os.path.join(p8_folder, name), os.path.join(folder, name))
+            n_files += 1
+    check(n_files == len(prim), f"phase 10(a): {n_files} TPF files for {len(prim)} primaries")
+    out = io.StringIO()
+    tic = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = scheduler_cmd.main(["-q", "--workers", "2", "--datasource", "tpf", "--version",
+                                 "1", "--device", str(dev), folder])
+    wall = time.perf_counter() - tic
+    summary = json.loads(out.getvalue().strip().splitlines()[-1])
+    check(rc == 0 and summary["drained"] is True,
+          f"phase 10(a): scheduler_cmd exited {rc}, drained {summary.get('drained')}")
+    got = read_drain(folder)
+    want, _ = read_drain(p8_folder)
+    want = {p: v for p, v in want.items() if p in got[0]}
+    line = compare_drains("phase 10(a)", got, (want, None), strict=True)
+    n_prod = sum(v[3] is not None for v in got[0].values())
+    print(f"phase 10(a) scheduler_cmd --workers 2 --datasource tpf: {n_tasks} tasks "
+          f"({len(prim)} primary TPFs of phase 8 and their secondaries) in {wall:.2f} s = "
+          f"{n_tasks / wall:.2f} tasks/s with {n_prod} products, the workers' start included "
+          f"({card}); exit 0, drained, every task final, one diagnostics row each; against "
+          f"phase 8's run_drain: {line}", flush=True)
+    return {"wall": wall, "n": n_tasks}
+
+
+def phase10_debug(ctx, sids, card):
+    """Phase 10(c), first part: the K2P2 debug images of P10["debug"] targets
+    on the card against the same call on the CPU (above, labels, seg and
+    mask exact; blurred within tests/test_torch_k2p2.py's blur tolerance)."""
+    from photometry_tpu_torch.core.engine import extract_aperture_batch
+    from photometry_tpu_torch.core.status import STATUS
+    from photometry_tpu_torch.diagnostics import k2p2_debug
+    res = [r for r in extract_aperture_batch(ctx, sids[:2 * P10["debug"]])
+           if r.status in (STATUS.OK, STATUS.WARNING) and r.stamp is not None][:P10["debug"]]
+    check(len(res) == P10["debug"], f"phase 10(c): {len(res)} aperture results to debug")
+    tic = time.perf_counter()
+    worst, shapes = 0.0, set()
+    for r in res:
+        got, want = k2p2_debug(r, ctx), k2p2_debug(r, ctx, device="cpu")
+        for key in ("above", "labels", "seg", "mask"):
+            check(np.array_equal(got[key], want[key]),
+                  f"phase 10(c): TIC {r.starid}'s K2P2 {key} differs between card and CPU")
+        check(np.allclose(got["blurred"], want["blurred"], rtol=1e-5, atol=1e-3),
+              f"phase 10(c): TIC {r.starid}'s blurred flux differs between card and CPU")
+        check(np.array_equal(got["mask"], r.mask), f"phase 10(c): TIC {r.starid}'s debug "
+              "mask differs from its aperture mask")
+        worst = max(worst, float(np.abs(got["blurred"] - want["blurred"]).max()))
+        shapes.add(got["seg"].shape)
+    ctx.close()
+    print(f"phase 10(c) K2P2 debug: {len(res)} stamps ({sorted(shapes)}) on the card == on the "
+          f"CPU: above, labels, seg and mask equal (and the mask the aperture pass's), "
+          f"blurred max |diff| {worst:.3g}; {time.perf_counter() - tic:.2f} s ({card})",
+          flush=True)
+
+
+def phase10_plots(work, sec, dev, card):
+    """Phase 10(c), second part: ``run_drain(plot=True)`` over P10["plot"]
+    tasks with one bright star (halo switch) and one pair (deblend switch):
+    every OK aperture task's sumimage and masks_flux, the linPSF ones'
+    psf_fit, the halo one's weight maps."""
+    from photometry_tpu_torch import diagnostics
+    from photometry_tpu_torch.core import dispatcher
+    from photometry_tpu_torch.core.drain import new_timers, run_drain
+    from photometry_tpu_torch.core.status import STATUS
+    todo = [sec["b_sids"][0]] + sec["p_sids"][:2] + sec["field"][:P10["plot"] - 3]
+    folder = phase10_folder(os.path.join(work, "phase10c"), sec, todo)
+    ctx = phase10_context(folder, sec, dev)
+    plot_wall = [0.0]
+    run_plot = diagnostics.plot_target_diagnostics
+
+    def timed_plot(res, ctx_, base):
+        tic_ = time.perf_counter()
+        out = run_plot(res, ctx_, base)
+        plot_wall[0] += time.perf_counter() - tic_
+        return out
+
+    timers = new_timers()
+    with mock.patch.object(dispatcher, "open_context", lambda *a, **k: ctx), \
+            mock.patch.object(diagnostics, "plot_target_diagnostics", timed_plot):
+        n_done = run_drain(folder, 1, method=None, batch_size=P10["batch"], plot=True,
+                           timers=timers, device=dev)
+    got, _ = read_drain(folder)
+    methods = {}
+    for sid, st, m, _ in got.values():
+        if st in (STATUS.OK.value, STATUS.WARNING.value):
+            methods[sid] = m
+    n_fig = 0
+    for sid, m in methods.items():
+        figs = set(os.listdir(diagnostics.target_plot_folder(folder, sid)))
+        want = {"sumimage.png"} | ({"masks_flux.png"} if m == "aperture" else set()) \
+            | ({"psf_fit.png"} if m == "linpsf" else set())
+        check(want <= figs, f"phase 10(c): TIC {sid} ({m}) lacks {sorted(want - figs)}")
+        if m == "halo":
+            check(any(f.startswith(f"{sid}_weightmap_") for f in figs),
+                  f"phase 10(c): the halo star {sid} has no weight map")
+        n_fig += len(figs)
+    b, p = sec["b_sids"][0], sec["p_sids"][:2]
+    check(methods.get(b) == "halo", f"phase 10(c): the bright star ran {methods.get(b)}")
+    check([methods.get(s) for s in p] == ["linpsf", "linpsf"],
+          f"phase 10(c): the pair ran {[methods.get(s) for s in p]}")
+    t = timers
+    print(f"phase 10(c) plots: run_drain(plot=True) of {n_done} tasks (one halo star, one "
+          f"linPSF pair) in {t['wall']:.2f} s, of which the figures {plot_wall[0]:.2f} s "
+          f"(photometry {t['photometry']:.2f} s, save {t['save']:.2f} s); {n_fig} figures for "
+          f"{len(methods)} OK/WARNING tasks, each with the JAX package's set ({card})",
+          flush=True)
+    ctx.close()
+
+
+def scheduler_phase(work, p8_folder, seed, dev, card):
+    """Phase 10 (see the module docstring).  Returns the tasks/s it printed."""
+    import multiprocessing
+    import shutil
+    import socket
+    import torch
+    from photometry_tpu_torch.core import dispatcher
+    from photometry_tpu_torch.core.drain import new_timers, run_drain
+    from photometry_tpu_torch.ops._kernels import BAND_EXTRACT
+    from photometry_tpu_torch.parallel.scheduler import run_distributed
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        print(f"phase 10 start: torch.cuda.memory_allocated() {torch.cuda.memory_allocated()} "
+              f"bytes, reserved {torch.cuda.memory_reserved()}", flush=True)
+    phase10_tpf(work, p8_folder, dev, card)
+
+    # (b) the reference: run_drain in this process on the same seeded sector.
+    tic = time.perf_counter()
+    sec = phase10_sector(dev, seed)
+    if on_card:
+        torch.cuda.synchronize()
+    made = time.perf_counter() - tic
+    folders = {name: phase10_folder(os.path.join(work, f"phase10b-{name}"), sec, sec["todo"])
+               for name in ("drain", "N1", "N2")}
+    ctx = phase10_context(folders["drain"], sec, dev)
+    timers = new_timers()
+    reset_counts()
+    with mock.patch.object(dispatcher, "open_context", lambda *a, **k: ctx):
+        n_ref = run_drain(folders["drain"], 1, method=None, batch_size=P10["batch"],
+                          timers=timers, device=dev)
+    ref_launches = BAND_EXTRACT.launches
+    check(ref_launches > 0, "phase 10(b): the reference drain did not launch the band kernel")
+    rates = {"run_drain": n_ref / timers["wall"]}
+    print(f"phase 10(b) reference: the seeded sector ({T}, {H}, {W}) x4 made on the card in "
+          f"{made:.1f} s; run_drain of {n_ref} tasks in {timers['wall']:.2f} s = "
+          f"{rates['run_drain']:.1f} tasks/s with products (photometry "
+          f"{timers['photometry']:.2f} s, save {timers['save']:.2f} s), band kernel launches "
+          f"{ref_launches} ({card})", flush=True)
+    phase10_debug(phase10_context(folders["drain"], sec, dev), sec["p_sids"][:4] + sec["field"],
+                  card)
+    tools = {m: (getattr(__import__(m), "__version__", "?")
+                 if importlib.util.find_spec(m) is not None else None)
+             for m in ("matplotlib", "PIL")}
+    print(f"phase 10(c) figure tools here: matplotlib {tools['matplotlib'] or 'not installed'}, "
+          f"Pillow {tools['PIL'] or 'not installed'}, ffmpeg "
+          f"{shutil.which('ffmpeg') or 'not on PATH'}", flush=True)
+    if tools["matplotlib"] is None:
+        print("phase 10(c) plots: without matplotlib the figures are not drawn", flush=True)
+    else:
+        phase10_plots(work, sec, dev, card)
+    del ctx, sec
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    ref = read_drain(folders["drain"])
+
+    # N = 1 and 2 TCP workers, each holding its own copy of the sector.
+    mp = multiprocessing.get_context("spawn")
+    sizes = {"H": H, "W": W, "T": T, "N_STARS": N_STARS, "P7": P7}
+    for n in (1, 2):
+        folder = folders[f"N{n}"]
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        procs = [mp.Process(target=phase10_worker, args=(port, folder, seed, str(dev), sizes))
+                 for _ in range(n)]
+        tic = time.perf_counter()
+        for proc in procs:
+            proc.start()
+        done = threading.Event()
+
+        def watchdog():
+            """The master waits in accept() for every worker: one that dies
+            before it connects would hang the run, so the run ends here."""
+            while not done.wait(1.0):
+                codes = [proc.exitcode for proc in procs]
+                if any(c not in (None, 0) for c in codes):
+                    print(f"FAIL: phase 10(b) N={n}: worker exit codes {codes}", flush=True)
+                    for proc in procs:
+                        if proc.is_alive():
+                            proc.terminate()
+                    os._exit(1)
+
+        threading.Thread(target=watchdog, daemon=True).start()
+        try:
+            summary = run_distributed(folder, n_workers=n, version=1, batch_size=P10["batch"],
+                                      device=dev, listen=("127.0.0.1", port))
+        finally:
+            done.set()
+            for proc in procs:
+                proc.join(timeout=120)
+                if proc.is_alive():
+                    proc.terminate()
+                    proc.join()
+        total = time.perf_counter() - tic
+        check(all(proc.exitcode == 0 for proc in procs),
+              f"phase 10(b) N={n}: worker exit codes {[proc.exitcode for proc in procs]}")
+        check(summary["drained"] is True, f"phase 10(b) N={n}: the queue was not drained")
+        stats = []
+        for name in sorted(os.listdir(folder)):
+            if name.startswith("worker-"):
+                with open(os.path.join(folder, name)) as fh:
+                    stats.append(json.load(fh))
+        check(len(stats) == n, f"phase 10(b) N={n}: {len(stats)} worker reports")
+        check(all(st["launches"] > 0 for st in stats),
+              f"phase 10(b) N={n}: a worker did not launch the band kernel: "
+              f"{[st['launches'] for st in stats]}")
+        check(not any(st["blocked"] for st in stats), f"phase 10(b) N={n}: a worker imported "
+              f"{[st['blocked'] for st in stats]}")
+        wall = max(st["t1"] for st in stats) - max(st["t0"] for st in stats)
+        got = read_drain(folder)
+        n_done = sum(v[2] is not None for v in got[0].values())
+        rates[f"N={n}"] = n_done / wall
+        line = compare_drains(f"phase 10(b) N={n}", got, ref, strict=False)
+        print(f"phase 10(b) N={n} TCP workers: {n_done} tasks drained in {wall:.2f} s (from "
+              f"the last worker's connect to the last BYE; {total:.1f} s with the workers' "
+              f"start and cubes) = {rates[f'N={n}']:.1f} tasks/s with products; band kernel "
+              f"launches per worker {[st['launches'] for st in stats]}, peak device memory "
+              f"per worker {[round(st['peak'] / 1e9, 2) for st in stats]} GB ({card}); "
+              f"against run_drain: {line}", flush=True)
+    print(f"phase 10(b) tasks/s with products: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in rates.items())
+          + f"; N=2 / N=1 {rates['N=2'] / rates['N=1']:.2f}, N=1 / run_drain "
+          f"{rates['N=1'] / rates['run_drain']:.2f} ({card})", flush=True)
+    shutil.rmtree(os.path.join(work, "phase10c"), ignore_errors=True)
+    return rates
 
 
 def main() -> int:
@@ -3844,8 +4346,8 @@ def main() -> int:
     lap("6")
 
     # --- phase 8: Target Pixel Files through the drain, beside phase 3's context -----
-    tpf_phase(work, dev, gens["8"], np.random.default_rng([args.seed, 9]), ctx_kw, rows, cols,
-              tmag, wcs, card)
+    p8_folder = tpf_phase(work, dev, gens["8"], np.random.default_rng([args.seed, 9]), ctx_kw,
+                          rows, cols, tmag, wcs, card)
     lap("8")
 
     # --- phase 7: the default-method drain, on phase 3's cubes ----------------------
@@ -3874,7 +4376,11 @@ def main() -> int:
     chain_phase(work, dev, store, tpf, rows, cols, tmag, wcs, card)
     del store
     lap("9")
-    print(f"phases 1-9 took {time.perf_counter() - t_start:.1f} s: "
+
+    # --- phase 10: several workers drain one todo list; diagnostics ---------------
+    scheduler_phase(work, p8_folder, args.seed, dev, card)
+    lap("10")
+    print(f"phases 1-10 took {time.perf_counter() - t_start:.1f} s: "
           + ", ".join(f"{name} {b - a:.1f} s" for (_, a), (name, b) in zip(laps, laps[1:])),
           flush=True)
 

@@ -5,7 +5,8 @@ Port of ``photometry_tpu/cli/photometry_cmd.py`` (reference run_tessphot.py):
 select a task by --starid, --priority, --random or queue order, or drain
 the whole queue with --all.  ``--method`` forces aperture, psf, linpsf or
 halo; without it each task runs its own method (aperture with the automatic
-halo and linPSF switches by default).
+halo and linPSF switches by default).  ``--plot`` renders each target's
+diagnostic figures.
 
 Usage:
     python -m photometry_tpu_torch.cli.photometry_cmd --version 1 [options] [input_folder]
@@ -37,6 +38,10 @@ def main(argv=None) -> int:
                         help="Data release version to put in output files.")
     parser.add_argument("-o", "--output", default=None,
                         help="Output directory (default: alongside input).")
+    parser.add_argument("-p", "--plot", action="store_true",
+                        help="Render per-target diagnostic figures into "
+                             "<output>/plots/<starid>/ (reference run_tessphot.py --plot; "
+                             "needs matplotlib).")
     add_device_arg(parser, "the cubes and kernels")
     parser.add_argument("input_folder", nargs="?", default=None)
     args = parser.parse_args(argv)
@@ -58,7 +63,7 @@ def main(argv=None) -> int:
         products_folder=None if args.output is None else output_folder,
         all_tasks=args.all, random_task=args.random,
         batch_size=args.batch_size, method=args.method,
-        constraints=constraints, device=args.device,
+        constraints=constraints, plot=args.plot, device=args.device,
         summary=os.path.join(output_folder, "summary.json") if args.all else None)
     return 0
 

@@ -12,8 +12,10 @@ traceback, as in the reference (tessphot.py:20-49), and a switch whose rerun
 fails keeps the aperture results — except what says the port or the card
 cannot do the work: ``NotImplementedError``, a CUDA kernel's ``KernelError``
 and ``torch.OutOfMemoryError`` propagate, from a method group, from either
-switch's rerun and from a queue's flush alike.  Diagnostics plots
-(``plot_folder``) are not ported.
+switch's rerun and from a queue's flush alike.  With ``plot_folder``, each
+OK/WARNING result's diagnostic figures are rendered (``diagnostics``, which
+needs matplotlib only then); the deblend switch's linPSF rerun then keeps
+its fit image too, so that a switched blend gets its ``psf_fit`` figure.
 """
 
 from __future__ import annotations
@@ -273,11 +275,14 @@ class HaloSwitchQueue:
         if sa.get("save", True):
             _save_results_parallel(ctx, out, sa.get("output_folder"), sa.get("version"),
                                    timers=self._timers)
+        if sa.get("plot_folder"):
+            _plot_results(ctx, out, sa["plot_folder"])
         return list(zip(tasks, out))
 
 
 def photometry_batch(ctx, tasks: list, output_folder: Optional[str] = None,
                      version: Optional[int] = None, save: bool = True,
+                     plot_folder: Optional[str] = None,
                      halo_queue: Optional[HaloSwitchQueue] = None,
                      timers: Optional[dict] = None) -> list:
     """Run photometry for a batch of compatible tasks on one context.
@@ -285,7 +290,10 @@ def photometry_batch(ctx, tasks: list, output_folder: Optional[str] = None,
     Tasks without an explicit method run aperture photometry; of those,
     bright targets matching the halo-switch condition are rerun with halo,
     and blends matching the deblend condition with linPSF.  When ``save``,
-    light curves of OK/WARNING results are written.
+    light curves of OK/WARNING results are written.  With ``plot_folder``,
+    their diagnostic figures go to ``<plot_folder>/plots/<starid>/``
+    (reference BasePhotometry.py:394-397), and the PSF-family extractors
+    keep the fit images the figures need.
 
     With ``halo_queue``, FFI halo-switch candidates are queued for a later
     batched rerun instead of rerunning inline; their interim results come
@@ -301,6 +309,7 @@ def photometry_batch(ctx, tasks: list, output_folder: Optional[str] = None,
     for task in tasks:
         by_method.setdefault(task.get("method") or "aperture", []).append(task)
 
+    keep_diag = plot_folder is not None
     results = {}
     for method, group in by_method.items():
         tic = _timer()
@@ -308,7 +317,8 @@ def photometry_batch(ctx, tasks: list, output_folder: Optional[str] = None,
         # diagnostics errors column (BasePhotometry.py:171-179, 1409-1414):
         with capture_warnings() as log_messages:
             try:
-                got = _run_method(ctx, [int(t["starid"]) for t in group], method)
+                got = _run_method(ctx, [int(t["starid"]) for t in group], method,
+                                  keep_diag=keep_diag)
             except _PROPAGATE:
                 raise
             except Exception:
@@ -333,7 +343,7 @@ def photometry_batch(ctx, tasks: list, output_folder: Optional[str] = None,
         for t in switch:
             res = results[int(t["starid"])]
             halo_queue.add(ctx, t, res, save=save, output_folder=output_folder,
-                           version=version)
+                           version=version, plot_folder=plot_folder)
             res.details["halo_switch_deferred"] = True
     elif switch:
         tic = _timer()
@@ -357,7 +367,8 @@ def photometry_batch(ctx, tasks: list, output_folder: Optional[str] = None,
         tic = _timer()
         try:
             with capture_warnings() as lin_messages:
-                out = _run_method(ctx, [int(t["starid"]) for t in deblend], "linpsf")
+                out = _run_method(ctx, [int(t["starid"]) for t in deblend], "linpsf",
+                                  keep_diag=keep_diag)
         except _PROPAGATE:
             raise
         except Exception:
@@ -384,7 +395,19 @@ def photometry_batch(ctx, tasks: list, output_folder: Optional[str] = None,
     out = [results[int(t["starid"])] for t in tasks]
     if save:
         _save_results_parallel(ctx, out, output_folder, version, timers=timers)
+    if plot_folder is not None:
+        _plot_results(ctx, out, plot_folder)
     return out
+
+
+def _plot_results(ctx, results: list, plot_folder: str):
+    """Diagnostic figures of the OK/WARNING results (deferred halo-switch
+    candidates are plotted by their queue's flush)."""
+    from ..diagnostics import plot_target_diagnostics
+    for res in results:
+        if (res.status in (STATUS.OK, STATUS.WARNING)
+                and not res.details.get("halo_switch_deferred")):
+            plot_target_diagnostics(res, ctx, plot_folder)
 
 
 def _save_results_parallel(ctx, results: list, output_folder, version,
@@ -431,7 +454,7 @@ def photometry_single(starid: int, input_folder: str, method: Optional[str] = No
                       camera: Optional[int] = None, ccd: Optional[int] = None,
                       cadence: Optional[int] = None, output_folder: Optional[str] = None,
                       version: Optional[int] = None, save: bool = True,
-                      device="cuda") -> TargetResult:
+                      plot_folder: Optional[str] = None, device="cuda") -> TargetResult:
     """One-star entry point (reference tessphot.py call signature), on ``device``."""
     device = resolve_device(device)
     task = {"starid": starid, "datasource": datasource, "sector": sector,
@@ -448,6 +471,6 @@ def photometry_single(starid: int, input_folder: str, method: Optional[str] = No
         task.update({"sector": ctx.sector, "camera": ctx.camera, "ccd": ctx.ccd,
                      "cadence": ctx.cadence})
         return photometry_batch(ctx, [task], output_folder=output_folder,
-                                version=version, save=save)[0]
+                                version=version, save=save, plot_folder=plot_folder)[0]
     finally:
         ctx.close()

@@ -49,14 +49,17 @@ def run_drain(input_folder: str, version: int,
               products_folder: Optional[str] = None,
               *, all_tasks: bool = True, random_task: bool = False,
               batch_size: int = 256, method: Optional[str] = None,
-              constraints: Optional[dict] = None, summary: Optional[str] = None,
-              timers: Optional[dict] = None, device="cuda") -> int:
+              constraints: Optional[dict] = None, plot: bool = False,
+              summary: Optional[str] = None, timers: Optional[dict] = None,
+              device="cuda") -> int:
     """Drain the TODO queue (or one task) through the batch dispatcher on ``device``.
 
     Arguments as the reference's ``run_drain``; ``method`` forces one of
     aperture, psf, linpsf or halo for every task, None keeps the tasks' own
-    (aperture with both automatic switches by default).  Returns the number
-    of tasks processed.
+    (aperture with both automatic switches by default); ``plot`` renders
+    each OK/WARNING task's diagnostic figures into
+    ``<output_folder>/plots/<starid>/``.  Returns the number of tasks
+    processed.
     """
     constraints = dict(constraints or {})
     output_folder = output_folder or input_folder
@@ -118,7 +121,9 @@ def run_drain(input_folder: str, version: int,
                     for tk in batch:
                         tk["method"] = method
                 results = photometry_batch(ctx, batch, output_folder=products_folder,
-                                           version=version, halo_queue=halo_queue, timers=t)
+                                           version=version,
+                                           plot_folder=output_folder if plot else None,
+                                           halo_queue=halo_queue, timers=t)
             finally:
                 ctx_cache.release(ctx, cached)
             elaptime = (default_timer() - tic_batch) / max(len(batch), 1)

@@ -320,13 +320,18 @@ def _mask_tail(sumimage, seg, above, any_flux, cut, bw, cat_col, cat_row,
 
 def build_masks_batch(sumimages, cat_col, cat_row, cat_tmag, cat_starid,
                       cat_valid, target_row, target_col, target_tmag,
-                      collected=None, params: K2P2Params = K2P2Params()) -> dict:
+                      collected=None, params: K2P2Params = K2P2Params(),
+                      debug: bool = False) -> dict:
     """K2P2 masks of N target stamps.
 
     sumimages: (N, h, w) float32; cat_*: (N, K) padded catalogs in stamp
     coordinates; target_*: (N,).  Returns a dict of (N, ...) tensors on the
     stamps' device: ``mask``, ``found_mask``, ``no_flux``, ``edge``,
-    ``cut``, ``bandwidth``, ``in_mask``, ``mask_size``.
+    ``cut``, ``bandwidth``, ``in_mask``, ``mask_size``.  With ``debug``,
+    also the intermediate images of the K2P2 diagnostic figure, as the
+    reference's ``build_mask(debug=True)`` (k2p2v2.py:664-744): ``above``
+    (pixels over the cut), ``labels`` (DBSCAN), ``seg`` (the watershed) and
+    ``blurred`` (the flux that drives it).
     """
     if collected is None:
         collected = torch.isfinite(sumimages)
@@ -354,8 +359,12 @@ def build_masks_batch(sumimages, cat_col, cat_row, cat_tmag, cat_starid,
         seg = _batch_first(watershed_segment(_batch_last(blurred), _batch_last(markers),
                                              _batch_last(above2), connectivity=1))
     else:
+        blurred = torch.where(above2, torch.nan_to_num(sumimages), 0.0) if debug else None
         seg = torch.where(above2, labels, 0)
 
     # E. tail:
-    return _mask_tail(sumimages, seg, above, any_flux, cut, bw, cat_col, cat_row,
-                      cat_tmag, cat_valid, target_row, target_col, collected, params)
+    out = _mask_tail(sumimages, seg, above, any_flux, cut, bw, cat_col, cat_row,
+                     cat_tmag, cat_valid, target_row, target_col, collected, params)
+    if debug:
+        out.update(above=above, labels=labels, seg=seg, blurred=blurred)
+    return out

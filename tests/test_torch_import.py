@@ -14,7 +14,14 @@ agree with their plain versions.
   ``chip_smoke.DictCube``, the in-memory store the card's run uses; and the
   chain catalog -> todo -> merge runs through the port's CLIs on a folder
   of one TPF (a catalog built from a TIC extract, the todo list, a merge
-  with a corrections file), which needs no cube and so no ``h5py``.
+  with a corrections file), which needs no cube and so no ``h5py``; on
+  copies of that folder's todo a drain runs without plots, and the
+  scheduler with one spawned CPU worker (the blocker is the subprocess's
+  ``sitecustomize``, so the worker has it too).  ``matplotlib`` is refused
+  as well until then: ``import photometry_tpu_torch``, every module but
+  ``plots`` and ``movie`` (``diagnostics`` and ``cli.movie_cmd`` too), the
+  drain and the scheduler leave it out of ``sys.modules``; the two import
+  last, with it allowed.
 - No module of ``photometry_tpu_torch``, and not ``chip_smoke.py``, has an
   import statement naming ``jax``, ``jaxlib`` or ``photometry_tpu``.
 - The ``*_on_card`` tests need a CUDA card (marker ``cuda``) and skip
@@ -37,23 +44,36 @@ import torch_parity  # noqa: F401  (one intra-op thread per test worker)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "photometry_tpu_torch")
 
-_SCRIPT = r'''
-import importlib.abc, sys, tempfile
-
-BLOCKED = ("jax", "jaxlib", "h5py", "photometry_tpu")
+#: ``sitecustomize`` of the subprocess and of the workers it spawns: the
+#: blocker, which also refuses ``matplotlib`` until the script lifts that.
+_SITE = r'''
+import importlib.abc, sys
 
 class _Blocked(importlib.abc.MetaPathFinder):
+    blocked = {"jax", "jaxlib", "h5py", "photometry_tpu", "matplotlib"}
+
     def find_spec(self, name, path, target=None):
-        if name.split(".")[0] in BLOCKED:
+        if name.split(".")[0] in self.blocked:
             raise ImportError(f"{name} is blocked")
         return None
 
 sys.meta_path.insert(0, _Blocked())
+'''
+
+_SCRIPT = r'''
+import os, shutil, sqlite3, sys, tempfile
+
+BLOCKED = ("jax", "jaxlib", "h5py", "photometry_tpu")
+BLOCKER = sys.meta_path[0]
+assert type(BLOCKER).__name__ == "_Blocked"
 import numpy as np
 import torch
 
+import photometry_tpu_torch
+assert "matplotlib" not in sys.modules
 for m in MODULES:
-    __import__(m)
+    if m not in FIGURE_MODULES:
+        __import__(m)
 
 from photometry_tpu_torch.catalog import make_catalog_from_arrays
 from photometry_tpu_torch.core.engine import SectorContext, extract_aperture_batch
@@ -132,7 +152,6 @@ assert cube.stages == set(STAGES), cube.stages
 assert np.isfinite(cube.arrays["backgrounds"]).all() and all(cube.wcs)
 assert cube.kept_resid.shape == (2, 48, 48) and cube.scratch is None
 
-import os, shutil, sqlite3
 from photometry_tpu_torch.cli import catalog_cmd, todo_cmd, todo_merge_cmd
 from photometry_tpu_torch.io.discovery import find_tpf_files
 chain = tempfile.mkdtemp()
@@ -145,6 +164,24 @@ with sqlite3.connect(todo) as conn:
     rows = conn.execute("SELECT starid, datasource FROM todolist ORDER BY priority").fetchall()
     conn.execute("UPDATE todolist SET status=1")
 assert (TPF_STARID, "tpf") in rows and all(ds.startswith("tpf") for _, ds in rows), rows
+
+# A drain without plots, and the scheduler with one spawned CPU worker (the
+# blocker is its sitecustomize too), each on a copy of the chain's todo:
+from photometry_tpu_torch.core.drain import run_drain
+from photometry_tpu_torch.parallel.scheduler import run_distributed
+drained, sched = chain + "-drain", chain + "-sched"
+for dst in (drained, sched):
+    shutil.copytree(chain, dst)
+    with sqlite3.connect(os.path.join(dst, "todo.sqlite")) as conn:
+        conn.execute("UPDATE todolist SET status=NULL")
+assert run_drain(drained, 1, device="cpu") == len(rows)
+summary = run_distributed(sched, n_workers=1, version=1, device="cpu")
+assert summary["drained"] and summary["tasks_run"] == len(rows), summary
+for dst in (drained, sched):
+    with sqlite3.connect(os.path.join(dst, "todo.sqlite")) as conn:
+        done = conn.execute("SELECT COUNT(*) FROM todolist WHERE status IN (1, 3, 5)").fetchone()[0]
+    assert done == len(rows), (dst, done)
+assert "matplotlib" not in sys.modules
 derived = os.path.join(chain, "todo-corr.sqlite")
 shutil.copy(todo, derived)
 with sqlite3.connect(derived) as conn:
@@ -156,10 +193,17 @@ with sqlite3.connect(merged) as conn:
     assert conn.execute("SELECT COUNT(*) FROM todolist WHERE corr_status=1").fetchone()[0] == len(rows)
 
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+BLOCKER.blocked.discard("matplotlib")
+for m in FIGURE_MODULES:
+    __import__(m)
+assert "matplotlib" in sys.modules
 print("OK", len(res), len(psf), len(files))
 '''
 
 _IGNORED = {"_build", "__pycache__"}
+
+#: The modules that import matplotlib, and only they.
+FIGURE_MODULES = ("photometry_tpu_torch.plots", "photometry_tpu_torch.movie")
 
 
 def _modules():
@@ -186,13 +230,21 @@ def test_slice_runs_with_jax_blocked(tmp_path):
     arr = sim.catalog_arrays()
     np.savez(tic, starid=arr["starid"], ra=arr["ra_j2000"], dec=arr["dec_j2000"],
              pm_ra=arr["pm_ra"], pm_dec=arr["pm_dec"], tmag=arr["tmag"])
-    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    site = tmp_path.parent / f"{tmp_path.name}-site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_SITE)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([str(site), ROOT, os.environ.get("PYTHONPATH", "")]))
     modules = _modules()
     assert {"photometry_tpu_torch.models.psf_fused", "photometry_tpu_torch.prepare",
             "photometry_tpu_torch.todolist", "photometry_tpu_torch.todo_merge",
             "photometry_tpu_torch.sim.simulator", "photometry_tpu_torch.tools.fuzz_e2e",
-            "photometry_tpu_torch.cli.catalog_cmd"} <= set(modules)
-    script = (f"MODULES = {modules!r}\nSIM_DIR = {str(tmp_path)!r}\nTIC = {tic!r}\n"
+            "photometry_tpu_torch.cli.catalog_cmd", "photometry_tpu_torch.parallel.scheduler",
+            "photometry_tpu_torch.parallel.multihost", "photometry_tpu_torch.cli.scheduler_cmd",
+            "photometry_tpu_torch.diagnostics", "photometry_tpu_torch.cli.movie_cmd",
+            *FIGURE_MODULES} <= set(modules)
+    script = (f"MODULES = {modules!r}\nFIGURE_MODULES = {FIGURE_MODULES!r}\n"
+              f"SIM_DIR = {str(tmp_path)!r}\nTIC = {tic!r}\n"
               f"TPF_STARID = {int(sim.starid[0])}\n" + _SCRIPT)
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -213,8 +265,10 @@ def test_no_module_imports_jax():
     names jax, jaxlib or the JAX package."""
     offenders = []
     paths = list(_py_files())
-    assert {os.path.join(PKG, "tools", "fuzz_e2e.py"), os.path.join(PKG, "todolist.py"),
-            os.path.join(PKG, "sim", "simulator.py")} <= set(paths)
+    assert {os.path.join(PKG, *f.split("/")) for f in (
+        "tools/fuzz_e2e.py", "todolist.py", "sim/simulator.py", "parallel/__init__.py",
+        "parallel/scheduler.py", "parallel/multihost.py", "plots.py", "diagnostics.py",
+        "movie.py", "cli/scheduler_cmd.py", "cli/movie_cmd.py")} <= set(paths)
     for path in paths:
         with open(path) as fh:
             tree = ast.parse(fh.read(), path)
