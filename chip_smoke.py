@@ -6,15 +6,20 @@ host-resident cubes streamed through the card, the flux-only stamp
 extraction, ECC registration, the default-method drain (both automatic
 switches: halo and linPSF), Target Pixel Files through the drain, the
 chain catalog -> todo -> drain -> merge, several worker processes draining
-one todo list (the task-pull scheduler) and the ``--plot`` diagnostics,
-through the entry points a user calls, with JAX, h5py and the JAX package
-blocked from import.  Phases run
+one todo list (the task-pull scheduler), the ``--plot`` diagnostics and
+the multi-card layer on a mesh of four entries of the one card, through
+the entry points a user calls, with JAX, h5py and the JAX package blocked
+from import.  Phases run
 in the order 0, 1, 2, 2b, 2c, 2d (adversarial), 3, 3b (on phase 3's cube),
 3c (phase 3's cube on the host), 2d (main shape, on phase 3's cube and
-targets), 4, 6 (on phase 3's cube), 8 (beside phase 3's context), 7 (on
-phase 3's cubes), 3b (the full sector, once phase 3's cubes are freed), 3c
-(the full sector in float32 on the host), 5, 9 (on phase 5's store), 10
-(with no cube of the parent's on the card):
+targets), 4, 11 (a-d, f: phase 3's cubes and phase 4's fits on a mesh), 6
+(on phase 3's cube), 8 (beside phase 3's context), 7 (on phase 3's cubes),
+11e (phase 7's tasks on a mesh), 3b (the full sector, once phase 3's cubes
+are freed), 3c (the full sector in float32 on the host), 5, 9 (on phase
+5's store), 10 (with no cube of the parent's on the card).  Cut to keep
+the script within half its time limit once phase 11 came: phase 8's
+primary TPFs from 128 to 48, and phase 7's profiled leases from two to
+one.
 
 0. imports: ``jax``, ``jaxlib``, ``h5py`` and ``photometry_tpu`` refused.
 1. device: the card's name and power limit; the five kernel sources are
@@ -176,13 +181,13 @@ phase 3's cubes), 3b (the full sector, once phase 3's cubes are freed), 3c
    (fluxes rtol 1e-4; weights rtol 5e-4, atol 1e-6, objective rel 1e-3).
    Prints the drain's wall and its timers, the halo
    flushes, the linPSF reruns' wall and peak memory, then the drain's
-   first two leases again under ``torch.profiler``: device busy share and
+   first lease again under ``torch.profiler``: device busy share and
    top device ops.  Phases 7 and 8 print the native host runtime's state
    (failing if it did not load) and hold one written product to MTIME 0
    in its gzip header and to the same bytes when its HDUs are written
    twice a second apart.
 
-8. Target Pixel Files through the drain: 128 primary TPFs at 120 s (T =
+8. Target Pixel Files through the drain: 48 primary TPFs at 120 s (T =
    19,728, 27.4 d; an eighth 21x21 and an eighth 15x15, the rest 11x11) on
    phase 3's field, each star rendered as ``make_field`` renders it, moved
    by a drifting POS_CORR, a 1% sinusoid on each primary, a SPOC aperture,
@@ -256,6 +261,33 @@ phase 3's cubes), 3b (the full sector, once phase 3's cubes are freed), 3c
    psf_fit for the linPSF ones, the weight maps for the halo one, the
    figures' wall beside the drain's.
 
+11. the multi-card layer on one card: a mesh of four entries of it
+   (``make_mesh(..., ["cuda:0"] * 4)``, the counterpart of the JAX suite's
+   virtual devices), after phase 4, on phase 3's cubes and targets, beside
+   phase 3's and phase 4's walls and phase 3's peak device memory.
+   (a) ``SectorContext.from_arrays(..., mesh=time=4)`` on phase 3's
+   tensors (four views, checked by their storage) and
+   ``extract_aperture_batch`` on the 10,240 targets: 4 band launches, every
+   status, mask and light-curve column bit-equal to phase 3's; again at T
+   = 510 (three views and a padded copied last shard), against phase 3's
+   first 510 cadences; wall and peak memory of each.  (b) (a)'s final masks
+   through ``engine._extract_flux_sharded`` on a time=2 x targets=2 mesh:
+   4 launches, bit-equal to (a).  (c) ``sharded_psf_fit`` on each of phase
+   4's own fit calls (recorded in its timed slice) over 4 shards: the PSF
+   kernel launched, each call bit-equal to phase 4's (or, where the split
+   changed the arithmetic, 99% of the fluxes within 2e-2, phase 4's
+   check).  (d) ``prepare_step`` on 32 frames of phase 3's field on a 150
+   e-/s sky (phase 5's floor) at time=4 (tile 64) against ``estimate_background`` -> ``time_moving_nanmean`` ->
+   the mean on one device: backgrounds within 1e-5 relative, the sum image
+   within 1e-5 of itself plus 1e-5 of the background.  (f) a one-process
+   NCCL group: ``multihost.initialize``, ``global_mesh(n_targets=2)`` over
+   four entries of the card, ``local_data_slice(8)``, a sharded sum of
+   arange(8) through the group's ``all_gather`` (28), ``shutdown``.  (e),
+   after phase 7: its first 512 tasks drained by ``run_drain(mesh=...)``
+   (time=2 x targets=2; ``open_context`` patched to build the context on
+   the mesh it is handed) and without a mesh: per task the same status
+   and method, FLUX_RAW bit for bit, 4 band launches a lease against 1.
+
 Prints the wall of each phase, a JSON line of per-kernel results, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero on any failure, without a result, and when no CUDA card is
@@ -319,9 +351,10 @@ P7 = {"bright": 40, "pairs": 32, "todo": 2048, "tail": 160}
 P7_PARITY = 4                            # targets of phase 7's linPSF and TV-min re-run on the CPU
 # Phase 3b: a full primary-mission sector (1,312 frames at 1,800 s) in bfloat16.
 T_SECTOR = 1312
-# Phase 8: 128 primary TPFs at 120 s over 27.4 d, one 20-s TPF, 256 FFI
-# tasks, 4 files gzipped; leases of 32 so FFI and TPF leases alternate.
-P8 = {"tpf": 128, "T": 19728, "fast_T": 118080, "ffi": 256, "gzip": 4, "batch": 32}
+# Phase 8: 48 primary TPFs at 120 s over 27.4 d (cut from 128 to make room
+# for phase 11), one 20-s TPF, 256 FFI tasks, 4 files gzipped; leases of 32
+# so FFI and TPF leases alternate.
+P8 = {"tpf": 48, "T": 19728, "fast_T": 118080, "ffi": 256, "gzip": 4, "batch": 32}
 RAW_SHAPE = (2078, 2136)                 # raw TESS FFI; science area rows 0:2048, cols 44:2092
 # Phase 9: the chain on phase 5's store: the drain takes the 2,048 highest
 # priorities; 64 catalog stars lie just off the science area.
@@ -1981,10 +2014,10 @@ def drain_phase(work, dev, gen, rng, cubes, img0, rows, cols, tmag, wcs, card):
     tvmin_parity(tv_runs, card)
 
     if dev.type == "cuda":
-        # The drain's first two leases again under torch.profiler, on a fresh
-        # todo (the bright stars' lease with its halo flush, and the next):
-        # the trace of all eight takes minutes to collect and sort.
-        n_prof = 512
+        # The drain's first lease again under torch.profiler, on a fresh todo
+        # (the bright stars' lease with its halo flush): the trace of all
+        # eight takes minutes to collect and sort.
+        n_prof = 256
         os.replace(os.path.join(folder, "todo.sqlite"), os.path.join(folder, "done.sqlite"))
         write_todo(folder, todo[:n_prof], all_tmag[np.array(todo[:n_prof]) - 1])
         ptimers = new_timers()
@@ -1999,7 +2032,8 @@ def drain_phase(work, dev, gen, rng, cubes, img0, rows, cols, tmag, wcs, card):
               f"profiled photometry phase's {ptimers['photometry']:.2f} s (drain "
               f"{ptimers['wall']:.2f} s profiled, {time.perf_counter() - tic:.1f} s with the "
               f"trace's processing); top device ops: {top_device_ops(prof)} ({card})", flush=True)
-    return {"wall": t["wall"], "n": n_done}
+    return {"wall": t["wall"], "n": n_done, "ctx_kw": ctx_kw, "todo": todo,
+            "tmags": all_tmag[np.array(todo) - 1], "folder": folder}
 
 
 # --- phase 3b: bfloat16 cubes ---------------------------------------------------
@@ -2725,12 +2759,12 @@ def tpf_phase(work, dev, gen, rng, ctx_kw, rows, cols, tmag, wcs, card):
     aperture, band_calls, walls = {}, [], {"tpf": 0.0, "ffi": 0.0}
     run_aperture = dispatcher.extract_aperture_batch
 
-    def open_ctx(folder_, task, device="cuda"):
+    def open_ctx(folder_, task, device="cuda", mesh=None):
         """Phase 3's context for FFI tasks; the drain's own TpfContext, timed, for TPF ones."""
         if task["datasource"] == "ffi":
             return ffi_ctx
         tic_ = time.perf_counter()
-        out = real_open(folder_, task, device=device)
+        out = real_open(folder_, task, device=device, mesh=mesh)
         walls["tpf"] += time.perf_counter() - tic_
         return out
 
@@ -3495,6 +3529,272 @@ def chain_phase(work, dev, store, tpf, rows, cols, tmag, wcs, card):
     return walls
 
 
+# --- phase 11: the mesh on one card -----------------------------------------------
+
+MESH_CARD = ["cuda:0"] * 4            # four mesh entries of the one card (JAX's virtual devices)
+P11 = {"T_pad": 510, "prep_frames": 32, "sky": 150.0, "drain": 512}
+
+
+def mesh_results_equal(what, got, want, T_=None):
+    """Statuses, masks and every light-curve column of ``got`` equal to
+    ``want``'s bit for bit (``want``'s cut to the first ``T_`` cadences).
+    Returns the number of light curves compared."""
+    keys = ("flux", "flux_err", "flux_background", "pos_centroid", "shenanigans_any")
+    n_lc = 0
+    for a, b in zip(want, got):
+        check(a.starid == b.starid and a.status == b.status,
+              f"{what}: TIC {a.starid} status {b.status} != {a.status}")
+        check((a.mask is None) == (b.mask is None)
+              and (a.mask is None or np.array_equal(a.mask, b.mask)),
+              f"{what}: TIC {a.starid} mask differs")
+        for k in keys:
+            if k in a.lightcurve:
+                ref = a.lightcurve[k] if T_ is None else a.lightcurve[k][:T_]
+                check(lc_bits_equal(ref, b.lightcurve[k]), f"{what}: TIC {a.starid} {k} differs")
+        n_lc += bool(a.lightcurve)
+    check(len(got) == len(want), f"{what}: {len(got)} results, not {len(want)}")
+    return n_lc
+
+
+def mesh_phase(ctx_kw, sids, results3, psf_calls, walls, card):
+    """Phase 11 (a)-(d): phase 3's cubes on a mesh of one card, against
+    phases 3 and 4 (see the module docstring); returns nothing, fails on a
+    mismatch."""
+    import torch
+    from photometry_tpu_torch.core import engine
+    from photometry_tpu_torch.core.engine import SectorContext, extract_aperture_batch
+    from photometry_tpu_torch.ops._kernels import BAND_EXTRACT, PSF_WARM_FIT
+    from photometry_tpu_torch.ops.background import estimate_background
+    from photometry_tpu_torch.ops.filters import time_moving_nanmean
+    from photometry_tpu_torch.parallel.mesh import ShardedCube, make_mesh
+    from photometry_tpu_torch.parallel.sharded import prepare_step, sharded_psf_fit
+    names = ("images", "images_err", "backgrounds", "pixelflags")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    print(f"phase 11 mesh: make_mesh(..., {MESH_CARD}) (four entries of the one card); "
+          f"{base / 1e9:.1f} GB held before; phase 3's slice {walls['3']:.2f} s (peak "
+          f"{walls['3 peak'] / 1e9:.2f} GB above what it held), phase 4's {walls['4']:.2f} s "
+          f"({card})", flush=True)
+
+    # (a) time=4 on phase 3's tensors: four views; then T = 510, a padded last shard.
+    sharded_calls = []
+    run_sharded = engine._extract_flux_sharded
+
+    def seen_sharded(ctx_, *a):
+        out = run_sharded(ctx_, *a)
+        sharded_calls.append((a, out))
+        return out
+
+    for T_ in (T, P11["T_pad"]):
+        kw = dict(ctx_kw, mesh=make_mesh(4, 1, MESH_CARD))
+        if T_ != T:
+            kw.update({k: ctx_kw[k][:T_] for k in names},
+                      **{k: ctx_kw[k][:T_] for k in ("time", "timecorr", "cadenceno", "quality")})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        tic = time.perf_counter()
+        ctx = SectorContext.from_arrays(**kw)
+        torch.cuda.synchronize()
+        made = time.perf_counter() - tic
+        views = [all(c.shards[i].data_ptr() == ctx_kw[k][i * c.frames].data_ptr()
+                     for k, c in ((k, getattr(ctx, k)) for k in names)) for i in range(4)]
+        check(all(isinstance(getattr(ctx, k), ShardedCube) for k in names)
+              and ctx.n_times == T_ and ctx.images.shape[0] == 4 * -(-T_ // 4),
+              f"phase 11a: the mesh context's cubes at T={T_} are not time-sharded")
+        check(views == [True, True, True, T_ == T],
+              f"phase 11a: shards that are views at T={T_}: {views}")
+        reset_counts()
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        with mock.patch.object(engine, "_extract_flux_sharded", seen_sharded):
+            res = extract_aperture_batch(ctx, sids)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tic
+        peak = torch.cuda.max_memory_allocated() - held
+        launches = BAND_EXTRACT.launches
+        check(launches == 4, f"phase 11a: {launches} band launches at T={T_}, not 4 (one a shard)")
+        n_lc = mesh_results_equal(f"phase 11a T={T_}", res, results3, None if T_ == T else T_)
+        layout = ("four views of phase 3's cube" if T_ == T
+                  else "three views, the last shard a padded copy")
+        print(f"phase 11a time=4 at T={T_} ({layout}): "
+              f"context in {made:.3f} s; {len(sids)} targets in {wall:.2f} s = "
+              f"{len(sids) / wall:.1f} targets/s ({wall / walls['3']:.2f}x phase 3's wall); band "
+              f"kernel launches {launches}; peak {peak / 1e9:.2f} GB above what was held "
+              f"({(peak - walls['3 peak']) / 1e9:+.2f} GB against phase 3's); statuses, masks and "
+              f"{n_lc} light curves bit-equal to phase 3's ({card})", flush=True)
+        ctx.close()
+        del ctx, res
+    check(len(sharded_calls) == 2, f"phase 11a: {len(sharded_calls)} sharded extractions, not 2")
+
+    # (b) time=2, targets=2: the same targets through _extract_flux_sharded.
+    args, want = sharded_calls[0]
+    ctx = SectorContext.from_arrays(**dict(ctx_kw, mesh=make_mesh(2, 2, MESH_CARD)))
+    reset_counts()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    got = engine._extract_flux_sharded(ctx, *args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    launches = BAND_EXTRACT.launches
+    check(launches == 4, f"phase 11b: {launches} band launches, not 4 (2 x 2 blocks)")
+    check(all(bit_equal(a, b) if a.dtype.is_floating_point else torch.equal(a, b)
+              for a, b in zip(got, want)), "phase 11b: time=2 x targets=2 differs from time=4")
+    print(f"phase 11b time=2 x targets=2: _extract_flux_sharded on the {args[0].shape[0]} final "
+          f"masks ({args[0].shape[1]}x{args[0].shape[2]}) in {wall:.3f} s; band kernel launches "
+          f"{launches}; the five outputs bit-equal to (a)'s, so to phase 3's ({card})", flush=True)
+    ctx.close()
+    del ctx, got, want, sharded_calls, args
+
+    # (c) sharded_psf_fit on phase 4's own fit calls, over the flattened 4-entry mesh.
+    mesh4 = make_mesh(4, 1, MESH_CARD)
+    reset_counts()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    n_equal, n_fused, fracs = 0, 0, []
+    for a, out in psf_calls:
+        before = PSF_WARM_FIT.launches
+        got = sharded_psf_fit(*a[:10], mesh4, a[10] if len(a) > 10 else "Gaussian_d")
+        n_fused += PSF_WARM_FIT.launches > before
+        if all(bit_equal(got[k], out[k]) for k in out):
+            n_equal += 1
+            continue
+        g, w = got["flux"].cpu().numpy(), out["flux"].cpu().numpy()
+        ok = (np.abs(g - w) <= 2e-2 * np.abs(w)) | (np.isnan(g) & np.isnan(w))
+        fracs.append(float(ok.mean()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    launches = PSF_WARM_FIT.launches
+    n_targets = sum(out["flux"].shape[0] for _, out in psf_calls)
+    print(f"phase 11c sharded_psf_fit: phase 4's {len(psf_calls)} fit calls ({n_targets} targets "
+          f"with padding) over 4 shards in {wall:.2f} s ({wall / walls['4']:.2f}x phase 4's "
+          f"slice); PSF kernel launches {launches} ({n_fused} calls through the kernel, "
+          f"{len(psf_calls) - n_fused} plain); {n_equal} of {len(psf_calls)} calls bit-equal "
+          f"to phase 4's fit" + (f", the others' flux within 2e-2 for a share of "
+                                 f"{min(fracs):.4f} at least" if fracs else "")
+          + f" ({card})", flush=True)
+    check(launches >= 8, f"phase 11c: {launches} PSF kernel launches over 4 shards")
+    check(not fracs or min(fracs) >= 0.99, "phase 11c: the sharded fit differs from phase 4's")
+    del psf_calls
+
+    # (d) prepare_step on 32 frames of phase 3's field at time=4, on a sky
+    # (phase 3's field has none: its zero-mean noise puts half the pixels
+    # below 0, which the background fit excludes).
+    frames = ctx_kw["images"][:P11["prep_frames"]] + P11["sky"]
+    quality = np.zeros(len(frames), np.int32)
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    sub, bkg, s = prepare_step(frames, quality, mesh4, tile=64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    tic = time.perf_counter()
+    b1 = time_moving_nanmean(estimate_background(frames, tile=64)[0])
+    sub1 = frames - b1
+    fin = torch.isfinite(sub1)
+    s1 = torch.where(fin, sub1, 0.0).sum(dim=0) / torch.clamp(fin.sum(dim=0), min=1)
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - tic
+    bk = bkg.full()
+    rel_b = float(((bk - b1).abs() / b1.abs().clamp(min=1e-30)).max())
+    d_s = float((s - s1).abs().max())
+    lim_s = float((1e-5 * s1.abs() + 1e-5 * b1.abs().amax(dim=0)).min())
+    ok_s = bool(((s - s1).abs() <= 1e-5 * s1.abs() + 1e-5 * b1.abs().amax(dim=0)).all())
+    print(f"phase 11d prepare_step: {len(frames)} frames of {H}x{W} (phase 3's field on a "
+          f"{P11['sky']:g} e-/s sky) at time=4, tile 64, in "
+          f"{wall:.2f} s (unsharded estimate_background -> time_moving_nanmean -> sum "
+          f"{wall1:.2f} s); backgrounds max relative diff {rel_b:.3g} (bound 1e-5), sum image "
+          f"max |diff| {d_s:.3g} (bound 1e-5 of it plus 1e-5 of the background) ({card})",
+          flush=True)
+    check(rel_b <= 1e-5 and ok_s, f"phase 11d: prepare_step off the unsharded path "
+          f"(background {rel_b:.3g}, sum image {d_s:.3g}, tightest limit {lim_s:.3g})")
+    del sub, bkg, s, b1, sub1, s1, bk, frames
+    torch.cuda.empty_cache()
+
+
+def mesh_drain(drained, dev, card):
+    """Phase 11 (e): phase 7's first P11["drain"] tasks drained again with
+    and without a (time=2, targets=2) mesh of the card, the mesh passed to
+    ``run_drain`` and on through ``open_context``: per task the same status
+    and method, FLUX_RAW bit for bit."""
+    import torch
+    from photometry_tpu_torch.core import dispatcher
+    from photometry_tpu_torch.core.drain import new_timers, run_drain
+    from photometry_tpu_torch.core.engine import SectorContext
+    from photometry_tpu_torch.ops._kernels import BAND_EXTRACT
+    from photometry_tpu_torch.parallel.mesh import make_mesh
+    ctx_kw, todo, tmags, folder = drained["ctx_kw"], drained["todo"], drained["tmags"], \
+        drained["folder"]
+    n = P11["drain"]
+    out = {}
+    for name, mesh in (("plain", None), ("mesh", make_mesh(2, 2, MESH_CARD))):
+        sub = os.path.join(folder, f"phase11-{name}")
+        os.makedirs(sub)
+        write_todo(sub, todo[:n], tmags[:n])
+        seen = []
+
+        def opened(input_folder, task, cache="device", device=None, mesh=None):
+            seen.append(mesh)
+            return SectorContext.from_arrays(**ctx_kw, mesh=mesh)
+
+        timers = new_timers()
+        reset_counts()
+        with mock.patch.object(dispatcher, "open_context", opened):
+            done = run_drain(sub, 1, method=None, batch_size=256, timers=timers, device=dev,
+                             mesh=mesh)
+        torch.cuda.synchronize()
+        check(seen and all(m is mesh for m in seen),
+              f"phase 11e: run_drain did not hand its mesh to open_context: {seen}")
+        out[name] = (read_drain(sub)[0], done, timers["wall"], BAND_EXTRACT.launches)
+    (got, n_m, wall_m, bl_m), (want, n_p, wall_p, bl_p) = out["mesh"], out["plain"]
+    check(set(got) == set(want), "phase 11e: the two drains hold other tasks")
+    diff = [p for p in want if got[p][1:3] != want[p][1:3]
+            or (want[p][3] is None) != (got[p][3] is None)
+            or (want[p][3] is not None and not lc_bits_equal(got[p][3], want[p][3]))]
+    n_lc = sum(v[3] is not None for v in want.values())
+    methods = [v[2] for v in want.values()]
+    print(f"phase 11e drain: {n} of phase 7's tasks (methods "
+          + ", ".join(f"{m} {methods.count(m)}" for m in sorted(set(map(str, methods))))
+          + f"): run_drain with a time=2 x targets=2 mesh {n_m} tasks in {wall_m:.2f} s (band "
+          f"launches {bl_m}), without {n_p} in {wall_p:.2f} s (band launches {bl_p}); "
+          f"{len(want) - len(diff)} of {len(want)} tasks the same status and method, {n_lc} "
+          f"FLUX_RAW compared bit for bit ({card})", flush=True)
+    check(not diff, f"phase 11e: {len(diff)} tasks differ with a mesh: {diff[:5]}")
+    check(bl_m == 4 * bl_p and bl_p > 0,
+          f"phase 11e: {bl_m} band launches with the mesh, {bl_p} without (want 4x)")
+
+
+def nccl_phase(card):
+    """Phase 11 (f): a one-process NCCL group on the card: initialize,
+    global_mesh over four entries of the card, local_data_slice, a sharded
+    sum through the group's all_gather, shutdown (the card's counterpart
+    of tests/test_multihost.py:170-184)."""
+    import socket
+    import torch
+    from photometry_tpu_torch.parallel import multihost
+    from photometry_tpu_torch.parallel.mesh import shard_cube
+    from photometry_tpu_torch.parallel.sharded import sharded_sumimage
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tic = time.perf_counter()
+    pid = multihost.initialize(f"127.0.0.1:{port}", num_processes=1, process_id=0,
+                               device="cuda", timeout=120)
+    import torch.distributed as dist
+    backend = dist.get_backend()
+    mesh = multihost.global_mesh(n_targets=2, devices=MESH_CARD)
+    sl = multihost.local_data_slice(8, mesh)
+    x = shard_cube(torch.arange(8.0, device="cuda").reshape(8, 1, 1), mesh)
+    total = float(sharded_sumimage(x, np.ones(8, bool), mesh)[0, 0] * 8)
+    multihost.shutdown()
+    wall = time.perf_counter() - tic
+    print(f"phase 11f NCCL: initialize -> process {pid} of 1 ({backend}), global_mesh "
+          f"{mesh.shape}, local_data_slice(8) {sl}, sharded sum of arange(8) = {total:g}, "
+          f"shutdown; {wall:.2f} s ({card})", flush=True)
+    check(pid == 0 and backend == "nccl" and mesh.shape == {"time": 2, "targets": 2}
+          and sl == slice(0, 8) and total == 28.0 and not multihost.is_initialized(),
+          "phase 11f: the one-process NCCL smoke failed")
+
+
 # --- phase 10: several workers drain one todo list; diagnostics -------------------
 
 def field_wcs():
@@ -4209,16 +4509,21 @@ def main() -> int:
 
     band_sums = bandext.band_sums
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base3 = torch.cuda.memory_allocated()
     reset_counts()
     tic = time.perf_counter()
     with mock.patch.object(bandext, "band_sums", recording_band_sums):
         results = extract_aperture_batch(ctx, sids)
     torch.cuda.synchronize()
     wall = time.perf_counter() - tic
+    walls = {"3": wall, "3 peak": torch.cuda.max_memory_allocated() - base3}
     result["band_extract"]["launches"] = BAND_EXTRACT.launches
     check(BAND_EXTRACT.launches > 0, "the aperture slice did not launch the band kernel")
     print(f"phase 3 slice: {N_TARGETS} targets in {wall:.2f} s = {N_TARGETS / wall:.1f} "
-          f"targets/s ({card}); band kernel launches {BAND_EXTRACT.launches}", flush=True)
+          f"targets/s ({card}); band kernel launches {BAND_EXTRACT.launches}; peak device "
+          f"memory {walls['3 peak'] / 1e9:.2f} GB above the {base3 / 1e9:.1f} GB held",
+          flush=True)
     band_main_phase(captured, card)
     captured.clear()                      # the launch's arguments hold phase 3's cubes
 
@@ -4300,10 +4605,20 @@ def main() -> int:
     torch.cuda.synchronize()
     reset_counts()
     psf_fit.ROUTES.update(fused=0, plain=0)
+    psf_calls = []                        # phase 11c's inputs: each fit call and its result
+    run_fit = psf_fit.fit_psf_timeseries_batch
+
+    def recording_fit(*a, **kw):
+        out = run_fit(*a, **kw)
+        psf_calls.append((a, out))
+        return out
+
     tic = time.perf_counter()
-    res_psf = psf_fit.extract_psf_batch(ctx, psf_sids)
+    with mock.patch.object(psf_fit, "fit_psf_timeseries_batch", recording_fit):
+        res_psf = psf_fit.extract_psf_batch(ctx, psf_sids)
     torch.cuda.synchronize()
     wall = time.perf_counter() - tic
+    walls["4"] = wall
     routes = dict(psf_fit.ROUTES)
     result["psf_warm_fit"]["launches"] = PSF_WARM_FIT.launches
     print(f"phase 4 slice: {N_PSF} PSF targets in {wall:.2f} s = {N_PSF / wall:.1f} targets/s "
@@ -4341,6 +4656,12 @@ def main() -> int:
     ctx.close()
     lap("4")
 
+    # --- phase 11: phase 3's cubes on a mesh of four entries of the card -------------
+    mesh_phase(ctx_kw, sids, results, psf_calls, walls, card)
+    del psf_calls
+    nccl_phase(card)
+    lap("11")
+
     # --- phase 6: ECC registration against injected motion --------------------------
     ecc_phase(dev, img0, gen, rng, ctx_kw, sids, card)
     lap("6")
@@ -4351,9 +4672,14 @@ def main() -> int:
     lap("8")
 
     # --- phase 7: the default-method drain, on phase 3's cubes ----------------------
-    drain_phase(work, dev, gen, np.random.default_rng([args.seed, 7]),
-                (images, errs, bkgs, flags), img0, rows, cols, tmag, wcs, card)
+    p7 = drain_phase(work, dev, gen, np.random.default_rng([args.seed, 7]),
+                     (images, errs, bkgs, flags), img0, rows, cols, tmag, wcs, card)
     lap("7")
+
+    # --- phase 11e: phase 7's tasks drained with and without a mesh ------------------
+    mesh_drain(p7, dev, card)
+    del p7
+    lap("11e")
     del ctx, ctx_kw, cube, launch, images, errs, bkgs, flags, res_psf, refit, results
     torch.cuda.empty_cache()
 
@@ -4380,7 +4706,7 @@ def main() -> int:
     # --- phase 10: several workers drain one todo list; diagnostics ---------------
     scheduler_phase(work, p8_folder, args.seed, dev, card)
     lap("10")
-    print(f"phases 1-10 took {time.perf_counter() - t_start:.1f} s: "
+    print(f"phases 1-11 took {time.perf_counter() - t_start:.1f} s: "
           + ", ".join(f"{name} {b - a:.1f} s" for (_, a), (name, b) in zip(laps, laps[1:])),
           flush=True)
 

@@ -6,7 +6,9 @@ select a task by --starid, --priority, --random or queue order, or drain
 the whole queue with --all.  ``--method`` forces aperture, psf, linpsf or
 halo; without it each task runs its own method (aperture with the automatic
 halo and linPSF switches by default).  ``--plot`` renders each target's
-diagnostic figures.
+diagnostic figures.  ``--mesh SPEC`` shards each FFI sector's cubes over
+a device mesh (``time=4,targets=2``, a bare count, or ``auto``: every card
+of ``--device``'s type; ``parallel/mesh.parse_mesh_spec``).
 
 Usage:
     python -m photometry_tpu_torch.cli.photometry_cmd --version 1 [options] [input_folder]
@@ -15,6 +17,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import sys
 
@@ -42,6 +45,9 @@ def main(argv=None) -> int:
                         help="Render per-target diagnostic figures into "
                              "<output>/plots/<starid>/ (reference run_tessphot.py --plot; "
                              "needs matplotlib).")
+    parser.add_argument("--mesh", default=None, metavar="SPEC",
+                        help="Shard FFI cubes over a device mesh, e.g. 'time=4,targets=2' or "
+                             "'auto' (every device of --device's type on the time axis).")
     add_device_arg(parser, "the cubes and kernels")
     parser.add_argument("input_folder", nargs="?", default=None)
     args = parser.parse_args(argv)
@@ -55,6 +61,12 @@ def main(argv=None) -> int:
                                      ("camera", args.camera), ("ccd", args.ccd))
                    if v is not None}
 
+    mesh = None
+    if args.mesh:
+        from ..parallel.mesh import parse_mesh_spec
+        mesh = parse_mesh_spec(args.mesh, device=args.device)
+        logging.getLogger(__name__).info("Device mesh: %s", mesh)
+
     from ..core.drain import run_drain
     run_drain(
         input_folder, args.version,
@@ -63,7 +75,7 @@ def main(argv=None) -> int:
         products_folder=None if args.output is None else output_folder,
         all_tasks=args.all, random_task=args.random,
         batch_size=args.batch_size, method=args.method,
-        constraints=constraints, plot=args.plot, device=args.device,
+        constraints=constraints, plot=args.plot, device=args.device, mesh=mesh,
         summary=os.path.join(output_folder, "summary.json") if args.all else None)
     return 0
 

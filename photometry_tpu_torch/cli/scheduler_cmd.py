@@ -3,8 +3,9 @@ CLI: several worker processes drain one todo list (the master/worker
 task-pull scheduler, counterpart of run_tessphot_mpi.py).
 
 Port of ``photometry_tpu/cli/scheduler_cmd.py``: ``--device`` takes the
-place of the JAX-platform flag; ``--mesh`` is refused (multi-card meshes
-are not ported).  Exits 0 when the queue drained, 1 when tasks are left.
+place of the JAX-platform flag; ``--mesh SPEC`` makes each worker shard its
+FFI cubes over a device mesh of ``--device``'s type, built in the worker.
+Exits 0 when the queue drained, 1 when tasks are left.
 
 Usage:
     python -m photometry_tpu_torch.cli.scheduler_cmd --workers 2 --version 5 [input_folder]
@@ -50,7 +51,8 @@ def main(argv=None) -> int:
                         help="Run as a remote worker joining the master at "
                              "HOST:PORT (no master loop on this host).")
     parser.add_argument("--mesh", default=None, metavar="SPEC",
-                        help="Multi-card mesh: not ported (refused).")
+                        help="Run each worker's FFI extraction over a device mesh, e.g. "
+                             "'time=4,targets=2' or 'auto'.")
     add_device_arg(parser, "the workers' cubes and kernels")
     parser.add_argument("input_folder", nargs="?", default=None)
     args = parser.parse_args(argv)

@@ -68,12 +68,14 @@ class ContextCache:
 
     TPF contexts are per target: never cached, and a TPF batch does not
     evict the FFI context held (``get`` returns ``cached=False`` for them,
-    so the caller's ``release`` closes them).
+    so the caller's ``release`` closes them).  ``mesh`` (a
+    ``parallel.mesh.Mesh``) shards every FFI context's cubes over it.
     """
 
-    def __init__(self, capacity: int = 1, device="cuda"):
+    def __init__(self, capacity: int = 1, device="cuda", mesh=None):
         self.capacity = max(capacity, 1)
         self.device = device
+        self.mesh = mesh
         self._items: "dict[tuple, SectorContext]" = {}
 
     def get(self, input_folder: str, task: dict):
@@ -82,7 +84,7 @@ class ContextCache:
         key = (input_folder, int(task["sector"]), int(task["camera"]), int(task["ccd"]))
         ctx = self._items.pop(key, None)
         if ctx is None:
-            ctx = open_context(input_folder, task, device=self.device)
+            ctx = open_context(input_folder, task, device=self.device, mesh=self.mesh)
             while len(self._items) >= self.capacity:
                 # evict the least recently used context (hits re-insert):
                 self._items.pop(next(iter(self._items))).close()
@@ -106,16 +108,20 @@ class ContextCache:
         self.close()
 
 
-def open_context(input_folder: str, task: dict, cache: str = "device", device="cuda"):
+def open_context(input_folder: str, task: dict, cache: str = "device", device="cuda",
+                 mesh=None):
     """The context of a task, on ``device``: a SectorContext for ``ffi``
-    (its cubes on the device, or on the host with ``cache="host"``), a
+    (its cubes on the device, time-sharded over ``mesh`` when one is given
+    (a ``parallel.mesh.Mesh``), or on the host with ``cache="host"``), a
     TpfContext for ``tpf`` (the task's own star) and for ``tpf:NNN`` (a
-    secondary target in star NNN's TPF), which ignores ``cache``."""
+    secondary target in star NNN's TPF), which ignores ``cache`` and
+    ``mesh`` (photometry_tpu/core/dispatcher.py:115-135)."""
     ds = task["datasource"]
     if ds == "ffi":
         return SectorContext(input_folder, int(task["sector"]), int(task["camera"]),
                              int(task["ccd"]), cache=cache,
-                             time_corrector=default_time_corrector(), device=device)
+                             time_corrector=default_time_corrector(), mesh=mesh,
+                             device=device)
     starid = int(ds[4:]) if ds.startswith("tpf:") else int(task["starid"])
     return TpfContext(input_folder, starid, sector=int(task["sector"]),
                       cadence=int(task["cadence"]), device=device)

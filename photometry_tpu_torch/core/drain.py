@@ -51,15 +51,16 @@ def run_drain(input_folder: str, version: int,
               batch_size: int = 256, method: Optional[str] = None,
               constraints: Optional[dict] = None, plot: bool = False,
               summary: Optional[str] = None, timers: Optional[dict] = None,
-              device="cuda") -> int:
+              device="cuda", mesh=None) -> int:
     """Drain the TODO queue (or one task) through the batch dispatcher on ``device``.
 
     Arguments as the reference's ``run_drain``; ``method`` forces one of
     aperture, psf, linpsf or halo for every task, None keeps the tasks' own
     (aperture with both automatic switches by default); ``plot`` renders
     each OK/WARNING task's diagnostic figures into
-    ``<output_folder>/plots/<starid>/``.  Returns the number of tasks
-    processed.
+    ``<output_folder>/plots/<starid>/``; ``mesh`` (a ``parallel.mesh.Mesh``
+    of ``device``'s type) shards every FFI context's cubes over it and
+    extracts once per mesh block.  Returns the number of tasks processed.
     """
     constraints = dict(constraints or {})
     output_folder = output_folder or input_folder
@@ -67,7 +68,7 @@ def run_drain(input_folder: str, version: int,
     tic_wall = default_timer()
 
     with TaskManager(input_folder, cleanup=all_tasks, summary=summary) as tm, \
-            ContextCache(device=device) as ctx_cache:
+            ContextCache(device=device, mesh=mesh) as ctx_cache:
         n_done = 0
         # Halo-switch candidates accumulate across lease batches and rerun
         # as one halo batch; single-task modes keep the inline switch:

@@ -18,10 +18,11 @@ Port of ``photometry_tpu/core/engine.py``:
   ``ops.bandext.band_extract_flux_batch`` — the CUDA kernel on the card
   (its float32 or bfloat16 instantiation), the plain gather formulation on
   the CPU — or, for a host cube, through :func:`_extract_flux_streamed`,
-  which streams it through the device in chunks of frames.
+  which streams it through the device in chunks of frames, or, for a
+  context on a device mesh (``mesh=``, ``parallel/mesh.py``), through
+  :func:`_extract_flux_sharded`, which runs the same extraction once per
+  (time shard, target shard) block of the mesh.
 - :func:`extract_flux_core` is that plain formulation on any device.
-
-Not ported yet (it raises ``NotImplementedError``): multi-chip ``mesh=``.
 """
 
 from __future__ import annotations
@@ -43,6 +44,8 @@ from ..io.tess import read_tpf
 from ..io.wcs import TanWCS
 from ..models.k2p2 import K2P2Params, build_masks_batch
 from ..ops.bandext import _extract, band_extract_flux_batch, band_sums_plain, band_sums_streamed
+from ..parallel.mesh import TARGET_AXIS, TIME_AXIS, make_mesh, shard_cube
+from ..parallel.sharded import pad_to_multiple, sharded_band_extract, sharded_extract_flux
 from ..quality import TESSQualityFlags
 from ..utils.mathutils import mag2flux
 from .metrics import compute_metrics_batch, crowding_metrics_batch
@@ -177,6 +180,17 @@ class SectorContext:
     streams the cubes through it in chunks of frames
     (:func:`_extract_flux_streamed`).  PSF, linPSF and halo gather their
     stamps on the host and move only those.
+
+    ``mesh`` (a ``parallel.mesh.Mesh`` of devices of ``device``'s type)
+    with ``cache="device"`` puts the four cubes on the mesh time-sharded
+    (:class:`~photometry_tpu_torch.parallel.mesh.ShardedCube`): T is padded
+    to a multiple of the time-axis size with NaN frames (pixel flags 0),
+    ``n_times`` stays the true T, and the final extraction runs once per
+    mesh block (:func:`_extract_flux_sharded`); a tensor already on a
+    shard's device in the cube dtype is shared, not copied (only a padded
+    last shard is).  With ``cache="host"`` the mesh is kept and not
+    applied, as in the JAX package.  A context's mesh holds this process's
+    devices only.
     """
 
     datasource = "ffi"
@@ -184,8 +198,6 @@ class SectorContext:
     def __init__(self, input_folder: str, sector: int, camera: int, ccd: int,
                  cache: str = "device", motion_mode: str = "wcs",
                  time_corrector=None, cube_dtype=None, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("multi-chip mesh= is not ported to photometry_tpu_torch yet")
         cube_dtype = _cube_dtype(cube_dtype)
         cubes = discovery.find_cube_files(input_folder, sector=sector, camera=camera, ccd=ccd)
         if len(cubes) != 1:
@@ -219,7 +231,7 @@ class SectorContext:
                 wcs=wcs, sector=sector, camera=camera, ccd=ccd, header=cube.header,
                 bkg_pixels_used=np.asarray(cube.h5["bkg_pixels_used"]), motion=motion,
                 input_folder=input_folder, time_corrector=time_corrector,
-                cube_dtype=cube_dtype, cache=cache, device=device)
+                cube_dtype=cube_dtype, cache=cache, mesh=mesh, device=device)
 
     @classmethod
     def from_arrays(cls, *, images, images_err, backgrounds, pixelflags, sumimage,
@@ -227,7 +239,7 @@ class SectorContext:
                     sector: int, camera: int, ccd: int, header: Optional[dict] = None,
                     bkg_pixels_used=None, motion: Optional[MotionModel] = None,
                     input_folder: str = ".", time_corrector=None, cube_dtype=None,
-                    cache: str = "device", device="cuda") -> "SectorContext":
+                    cache: str = "device", mesh=None, device="cuda") -> "SectorContext":
         """A context from in-memory state.
 
         Cubes (T, H, W) may be numpy arrays (a JAX bfloat16 array's host
@@ -238,7 +250,8 @@ class SectorContext:
         own dtype (a contiguous CPU tensor, pinned or not, is used as it
         is; a numpy array's memory is shared).  ``header`` carries the cube
         attributes (DATA_REL, CADENCE, NUM_FRM, ...; defaults as the
-        reference's).
+        reference's).  ``mesh`` as for the file constructor: on a mesh of
+        one card, a tensor there in the cube dtype becomes the shards' views.
         """
         ctx = cls.__new__(cls)
         ctx._setup(images=images, images_err=images_err, backgrounds=backgrounds,
@@ -247,16 +260,25 @@ class SectorContext:
                    sector=sector, camera=camera, ccd=ccd, header=header,
                    bkg_pixels_used=bkg_pixels_used, motion=motion,
                    input_folder=input_folder, time_corrector=time_corrector,
-                   cube_dtype=_cube_dtype(cube_dtype), cache=cache, device=device)
+                   cube_dtype=_cube_dtype(cube_dtype), cache=cache, mesh=mesh, device=device)
         return ctx
 
     def _setup(self, *, images, images_err, backgrounds, pixelflags, sumimage, time,
                timecorr, cadenceno, quality, catalog_path, wcs, sector, camera, ccd,
                header, bkg_pixels_used, motion, input_folder, time_corrector, cube_dtype,
-               cache, device):
+               cache, mesh, device):
         if cache not in ("device", "host"):
             raise ValueError(f"cache={cache!r}: need 'device' or 'host'")
         self.device = resolve_device(device)
+        #: The device mesh (``parallel.mesh.Mesh``) the cubes are sharded on, or None.
+        self.mesh = mesh
+        if mesh is not None:
+            kinds = {mesh.device(i, j).type for _, i, j in mesh.flat()}
+            if kinds != {self.device.type}:
+                raise ValueError(f"mesh devices are {sorted(kinds)}, the context's device is "
+                                 f"{self.device}")
+            if mesh.spans_processes:
+                raise ValueError("a context's mesh must hold this process's devices only")
         self.cube_dtype = cube_dtype
         self.cache = cache
         #: Optional core.timecorr.TimeCorrector for per-target barycentric
@@ -293,15 +315,23 @@ class SectorContext:
             self.images, self.images_err, self.backgrounds = (
                 _on_host(x) for x in (images, images_err, backgrounds))
             self.pixelflags = _on_host(pixelflags, torch.uint8)
+        elif mesh is not None:
+            self.images, self.images_err, self.backgrounds = (
+                shard_cube(x, mesh, put=lambda p, d: _on_device(p, cube_dtype, d))
+                for x in (images, images_err, backgrounds))
+            self.pixelflags = shard_cube(pixelflags, mesh, fill=0,
+                                         put=lambda p, d: _on_device(p, torch.uint8, d))
         else:
             self.images = _on_device(images, cube_dtype, dev)
             self.images_err = _on_device(images_err, cube_dtype, dev)
             self.backgrounds = _on_device(backgrounds, cube_dtype, dev)
             self.pixelflags = _on_device(pixelflags, torch.uint8, dev)
         for name in ("images", "images_err", "backgrounds", "pixelflags"):
-            if tuple(getattr(self, name).shape) != (self.n_times,) + self.shape:
-                raise ValueError(f"{name} has shape {tuple(getattr(self, name).shape)}, "
-                                 f"expected {(self.n_times,) + self.shape}")
+            x = getattr(self, name)
+            got = (getattr(x, "n_times", x.shape[0]),) + tuple(x.shape[1:])
+            if got != (self.n_times,) + self.shape:
+                raise ValueError(f"{name} has shape {got}, expected "
+                                 f"{(self.n_times,) + self.shape}")
         self.motion = motion if motion is not None else MotionModel(warpmode="unchanged")
         # Collected pixels (aperture bit 1): pixel was read out at all.
         self.collected = np.isfinite(self.sumimage)
@@ -336,7 +366,19 @@ def context_from_jax(jax_ctx, device) -> SectorContext:
     ``SectorContext`` (cubes via ``np.asarray``, bfloat16 ones bit for bit;
     the cube dtype, the cache (a JAX host context's numpy cubes make a host
     context), catalog file, WCS, motion series and header fields carried
-    over)."""
+    over).  A JAX mesh context's cubes are gathered, cut to its true T and
+    sharded again on a port mesh of the same shape, each entry ``device``
+    (``["cpu"] * 8`` for the JAX suite's 8 virtual devices): the same
+    padding and ``n_times``."""
+    mesh = None
+    if getattr(jax_ctx, "mesh", None) is not None:
+        shape = jax_ctx.mesh.shape
+        mesh = make_mesh(shape[TIME_AXIS], shape[TARGET_AXIS],
+                         [device] * (shape[TIME_AXIS] * shape[TARGET_AXIS]))
+    n = jax_ctx.n_times
+
+    def cube(x):
+        return np.asarray(x)[:n]
     jm = jax_ctx.motion
     wcs_ref = None if getattr(jm, "wcs_ref", None) is None else TanWCS.from_any(jm.wcs_ref)
     motion = MotionModel(warpmode=jm.warpmode, wcs_ref=wcs_ref)
@@ -345,8 +387,8 @@ def context_from_jax(jax_ctx, device) -> SectorContext:
     elif jm.warpmode != "unchanged":
         motion.load_series(jm.series_times, jm.series_kernels)
     return SectorContext.from_arrays(
-        images=np.asarray(jax_ctx.images), images_err=np.asarray(jax_ctx.images_err),
-        backgrounds=np.asarray(jax_ctx.backgrounds), pixelflags=np.asarray(jax_ctx.pixelflags),
+        images=cube(jax_ctx.images), images_err=cube(jax_ctx.images_err),
+        backgrounds=cube(jax_ctx.backgrounds), pixelflags=cube(jax_ctx.pixelflags),
         sumimage=jax_ctx.sumimage, time=jax_ctx.time, timecorr=jax_ctx.timecorr,
         cadenceno=jax_ctx.cadenceno, quality=jax_ctx.quality,
         catalog_path=jax_ctx.catalog.path, wcs=jax_ctx.wcs, sector=jax_ctx.sector,
@@ -354,7 +396,8 @@ def context_from_jax(jax_ctx, device) -> SectorContext:
         bkg_pixels_used=jax_ctx.bkg_pixels_used, motion=motion,
         input_folder=jax_ctx.input_folder, time_corrector=jax_ctx.time_corrector,
         cube_dtype=getattr(jax_ctx, "cube_dtype", None),
-        cache="host" if isinstance(jax_ctx.images, np.ndarray) else "device", device=device)
+        cache="host" if isinstance(jax_ctx.images, np.ndarray) else "device", mesh=mesh,
+        device=device)
 
 
 class TpfContext:
@@ -557,6 +600,33 @@ def _extract_flux_streamed(ctx, masks, r0s, c0s, h: int, w: int, chunk: int = 12
     sums = functools.partial(band_sums_streamed, device=ctx.device, chunk=chunk)
     return _extract(sums, ctx.images, ctx.images_err, ctx.backgrounds, ctx.pixelflags, masks,
                     r0s, c0s, h, w, windows)
+
+
+def _extract_flux_sharded(ctx, masks, r0s, c0s, h: int, w: int, windows):
+    """Aperture sums of a mesh context (``ctx.mesh``, time x targets).
+
+    The cubes are time-sharded (and time-padded) by SectorContext; the
+    host target arrays (masks, corners, windows) are padded here to a
+    multiple of the target-axis size, then ``parallel.sharded`` runs
+    ``band_extract_flux_batch`` once per block: once per time shard
+    (``sharded_band_extract``) on a time-only mesh, once per (time shard,
+    target shard) otherwise (``sharded_extract_flux``), as the JAX
+    package's ``_extract_flux_sharded`` picks (photometry_tpu/core/
+    engine.py:532-570).  Returns the five outputs cut to (N, ctx.n_times)
+    on ``ctx.device``: bit-equal to the single-device extraction, as every
+    element depends on one (target, cadence) pair.
+    """
+    mesh = ctx.mesh
+    N, T = len(masks), ctx.n_times
+    n_targets = mesh.shape[TARGET_AXIS]
+    masks_p, _ = pad_to_multiple(np.asarray(masks), 0, n_targets, fill=False)
+    windows_p, _ = pad_to_multiple(np.asarray(windows), 0, n_targets, fill=False)
+    r0s_p, _ = pad_to_multiple(np.asarray(r0s, np.int32), 0, n_targets, fill=0)
+    c0s_p, _ = pad_to_multiple(np.asarray(c0s, np.int32), 0, n_targets, fill=0)
+    run = sharded_band_extract if n_targets == 1 else sharded_extract_flux
+    out = run(ctx.images, ctx.images_err, ctx.backgrounds, ctx.pixelflags, masks_p, r0s_p,
+              c0s_p, mesh, h, w, windows=windows_p, out_device=ctx.device)
+    return tuple(o[:N, :T].contiguous() for o in out)
 
 
 def _stamp_catalog_select(cat_all: dict, r0, r1, c0, c1, buffer_px: float = 5.0) -> np.ndarray:
@@ -842,6 +912,9 @@ def extract_aperture_batch(ctx, starids, retries: Optional[int] = None,
         if ctx.cache == "host":
             # Host-resident cube: stream chunks of frames through the device.
             out = _extract_flux_streamed(ctx, *stamps_d, windows=windows_d)
+        elif getattr(ctx, "mesh", None) is not None:
+            # A mesh context: one extraction per block of the mesh.
+            out = _extract_flux_sharded(ctx, masks_f, r0s, c0s, bh, bw, windows_f)
         else:
             out = band_extract_flux_batch(ctx.images, ctx.images_err, ctx.backgrounds,
                                           ctx.pixelflags, *stamps_d, windows=windows_d)

@@ -34,6 +34,7 @@ import torch
 from ..core.engine import TargetResult, _full_catalog_positions, _host, aperture_image
 from ..core.metrics import compute_metrics_batch
 from ..core.status import STATUS
+from ..parallel.mesh import map_time
 from ..quality import TESSQualityFlags
 from ..utils.mathutils import mag2flux
 
@@ -249,11 +250,13 @@ def extract_halo_batch(ctx, starids, maxiter: int = MAXITER, objective: str = "t
     # ---- one batched stamp fetch, normalised on the host in float64 -----------
     def fetch(cube):
         """(N, T, h, w) float64 stamps, sliced where the cube lies (a host
-        cube's slabs on the host, as photometry_tpu/models/halo.py:258-262)
-        and widened there (numpy has no bfloat16)."""
-        return _host(torch.stack([cube[:, r0:r0 + h, c0:c0 + w]
-                                  for (_, _, _, _, r0, c0, _) in work]).to(torch.float32)
-                     ).astype(np.float64)
+        cube's slabs on the host, as photometry_tpu/models/halo.py:258-262;
+        a mesh context's shard by shard, joined in time order and cut to
+        the true T) and widened there (numpy has no bfloat16)."""
+        def slabs(c):
+            return torch.stack([c[:, r0:r0 + h, c0:c0 + w]
+                                for (_, _, _, _, r0, c0, _) in work]).to(torch.float32)
+        return _host(map_time(cube, slabs, 1)).astype(np.float64)
 
     imgs_all, errs_all = fetch(ctx.images), fetch(ctx.images_err)
 

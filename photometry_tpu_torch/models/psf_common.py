@@ -18,6 +18,7 @@ import torch
 
 from ..core.engine import default_stamp_size
 from ..io.settings import data_dir
+from ..parallel.mesh import ShardedCube, map_time
 from ..utils.mathutils import mag2flux
 from .prf import PRF
 
@@ -156,7 +157,12 @@ def gather_stamp_stack(cube: torch.Tensor, r0s, c0s, bh: int, bw: int,
     the cube's dtype and widened after, so a bfloat16 cube is read at two
     bytes a pixel (as the JAX package's gather), and a host cube
     (``cache="host"``) is gathered on the host and only its stamps move
-    (photometry_tpu/models/psf_common.py:173-175)."""
+    (photometry_tpu/models/psf_common.py:173-175).  A time-sharded cube (a
+    mesh context's ``ShardedCube``) is gathered shard by shard on each
+    shard's device; the stamps move to ``device`` and are joined in time
+    order, cut to the true T."""
+    if isinstance(cube, ShardedCube):
+        return map_time(cube, lambda s: gather_stamp_stack(s, r0s, c0s, bh, bw), 1, device)
     dev = cube.device
     rows = torch.as_tensor(np.asarray(r0s, np.int64), device=dev)[:, None] + torch.arange(bh, device=dev)
     cols = torch.as_tensor(np.asarray(c0s, np.int64), device=dev)[:, None] + torch.arange(bw, device=dev)

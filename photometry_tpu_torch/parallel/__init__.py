@@ -1,2 +1,3 @@
 """Several worker processes draining one todo list (the task-pull scheduler),
-and the host-level work split of ``multihost``."""
+device meshes and the sharded programs over them (``mesh``, ``sharded``),
+and the multi-process layer over ``torch.distributed`` (``multihost``)."""

@@ -31,8 +31,12 @@ On a CUDA card:
   not drained, ``summary["drained"]`` is False and ``scheduler_cmd`` exits
   1.  Any other failure of a lease becomes STATUS.ERROR rows, as in the
   reference.
-- ``mesh_spec`` (a multi-card mesh) is not ported and raises
-  ``NotImplementedError`` before any worker starts.
+- ``mesh_spec`` (e.g. ``time=4,targets=2``) makes each worker shard its
+  FFI contexts over a device mesh (``parallel.mesh.parse_mesh_spec`` on
+  the worker's ``device`` type), built inside the worker process once it
+  has started, as the JAX package builds it (its scheduler.py:72-90); the
+  master only checks the spec's form (``mesh_axes``), which touches no
+  device, so a malformed spec raises ValueError before any worker starts.
 
 The test hooks ``PHOTOMETRY_TPU_TEST_CRASH_ONCE`` (a marker file: the first
 worker to take a lease exits with code 17) and
@@ -65,10 +69,11 @@ def _authkey() -> bytes:
     return os.environ.get(_AUTHKEY_ENV, "photometry-tpu").encode()
 
 
-def _no_mesh(mesh_spec):
+def _check_mesh_spec(mesh_spec):
+    """ValueError for a malformed mesh spec (touches no device)."""
     if mesh_spec:
-        raise NotImplementedError("multi-card meshes (mesh_spec) are not ported to the "
-                                  "PyTorch + CUDA package")
+        from .mesh import mesh_axes
+        mesh_axes(mesh_spec)
 
 
 def _result_to_dict(task, res, elaptime, worker_wait_time):
@@ -87,13 +92,18 @@ def _result_to_dict(task, res, elaptime, worker_wait_time):
 
 def worker_loop(conn, input_folder: str, output_folder: Optional[str], version: int,
                 device="cuda", mesh_spec: Optional[str] = None):
-    """Worker process: READY -> START batch -> photometry on ``device`` -> DONE ... EXIT -> BYE."""
-    _no_mesh(mesh_spec)
+    """Worker process: READY -> START batch -> photometry on ``device`` (FFI
+    cubes sharded over the mesh of ``mesh_spec``, built here) -> DONE ...
+    EXIT -> BYE."""
     from ..core.dispatcher import _PROPAGATE, ContextCache, HaloSwitchQueue, photometry_batch
     from ..core.status import STATUS
     from ..utils.profiling import StageTimer
 
-    ctx_cache = ContextCache(device=device)
+    mesh = None
+    if mesh_spec:
+        from .mesh import parse_mesh_spec
+        mesh = parse_mesh_spec(mesh_spec, device=device)
+    ctx_cache = ContextCache(device=device, mesh=mesh)
     halo_queue = HaloSwitchQueue()
 
     def _flush_halo(force=False):
@@ -188,7 +198,7 @@ def worker_remote(address, input_folder: str, output_folder: Optional[str] = Non
     host's own view of the shared file system."""
     import time
     from multiprocessing.connection import Client
-    _no_mesh(mesh_spec)
+    _check_mesh_spec(mesh_spec)
     deadline = default_timer() + connect_timeout
     while True:
         try:
@@ -198,7 +208,7 @@ def worker_remote(address, input_folder: str, output_folder: Optional[str] = Non
             if default_timer() > deadline:
                 raise
             time.sleep(0.25)
-    worker_loop(conn, input_folder, output_folder, version, device)
+    worker_loop(conn, input_folder, output_folder, version, device, mesh_spec)
 
 
 def run_distributed(input_folder: str, n_workers: int = 2, version: int = 1,
@@ -214,9 +224,10 @@ def run_distributed(input_folder: str, n_workers: int = 2, version: int = 1,
     dies has every task leased to it returned to the queue; a local one is
     replaced, up to ``max_respawns`` times.  Returns the summary dict, with
     ``respawns`` and ``drained`` (False when tasks are left: every worker
-    lost and the respawns spent).
+    lost and the respawns spent).  ``mesh_spec`` goes to each spawned
+    worker, which builds its mesh itself.
     """
-    _no_mesh(mesh_spec)
+    _check_mesh_spec(mesh_spec)
     from ..core.status import STATUS
     from ..taskmanager import TaskManager
 
@@ -227,7 +238,7 @@ def run_distributed(input_folder: str, n_workers: int = 2, version: int = 1,
     def _spawn_local():
         parent_conn, child_conn = mp.Pipe()
         proc = mp.Process(target=worker_loop, args=(child_conn, input_folder, output_folder,
-                                                    version, device))
+                                                    version, device, mesh_spec))
         proc.start()
         child_conn.close()
         return {"proc": proc, "conn": parent_conn, "alive": True, "leased": set()}

@@ -492,8 +492,10 @@ def prepare_photometry(input_folder: str, output_folder: Optional[str] = None,
     """Prepare every discovered (sector, camera, ccd), each by :func:`prepare_one`.
 
     Counterpart of reference prepare.py:79-206.  A fleet of hosts splits the
-    CCD list statically: pass ``process_id``/``process_count`` together and
-    each host takes ``combos[process_id::process_count]``.
+    CCD list statically: pass ``process_id``/``process_count`` together, or
+    join a process group first (``parallel.multihost.initialize``) and each
+    process takes its round-robin shard, ``combos[rank::world_size]``
+    (``multihost.process_shard``).
     """
     combos = set()
     for f in discovery.find_ffi_files(input_folder):
@@ -506,15 +508,13 @@ def prepare_photometry(input_folder: str, output_folder: Optional[str] = None,
             continue
         combos.add((info["sector"], info["camera"], info["ccd"]))
     combos = sorted(combos)
+    from .parallel import multihost
     if process_count is not None or process_id is not None:
         if process_count is None or process_id is None:
             raise ValueError("process_id and process_count must be given together")
-        if process_count < 1:
-            raise ValueError(f"process_count must be >= 1, got {process_count}")
-        if not 0 <= process_id < process_count:
-            raise ValueError(f"process_id {process_id} outside [0, {process_count}) — ids are "
-                             f"0-based; an out-of-range id would overlap another host's shard")
-        combos = combos[process_id::process_count]
+        combos = multihost.process_shard(combos, process_id, process_count)
+    elif multihost.is_initialized():
+        combos = multihost.process_shard(combos)
     return [prepare_one(input_folder, sector, camera, ccd, output_folder=output_folder,
                         device=device, **kw)
             for sector, camera, ccd in combos]

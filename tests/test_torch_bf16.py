@@ -7,7 +7,8 @@
   cubes read from the file by both packages; ``context_from_jax`` of a
   bfloat16 JAX context keeps the bits.
 - ``cube_dtype`` spellings; anything but float32 and bfloat16 raises
-  ValueError, ``mesh=`` still raises NotImplementedError, and with
+  ValueError, on a device mesh (``mesh=``) the shards are bfloat16 with
+  the single-device cube's bits, and with
   ``cache="host"`` the cubes keep their stored float32 (the attribute is
   kept), as in the JAX package.
 - ``extract_aperture_batch`` on bfloat16 contexts of both packages:
@@ -125,8 +126,16 @@ def test_cube_dtype_spellings(sector):
     for bad in (torch.float16, "float64", np.int32, "bf16"):
         with pytest.raises(ValueError, match="cube_dtype"):
             SectorContext(d, 1, 3, 2, cube_dtype=bad, device="cpu")
-    with pytest.raises(NotImplementedError):
-        SectorContext(d, 1, 3, 2, cube_dtype=torch.bfloat16, mesh=object(), device="cpu")
+    from photometry_tpu_torch.parallel.mesh import make_mesh
+    one = SectorContext(d, 1, 3, 2, cube_dtype=torch.bfloat16, device="cpu")
+    on_mesh = SectorContext(d, 1, 3, 2, cube_dtype=torch.bfloat16, device="cpu",
+                            mesh=make_mesh(4, 1, ["cpu"] * 4))
+    for name in ("images", "images_err", "backgrounds"):
+        cube = getattr(on_mesh, name)
+        assert cube.dtype == torch.bfloat16 and cube.n_times == one.n_times
+        assert torch.equal(cube.full().view(torch.int16), getattr(one, name).view(torch.int16))
+    one.close()
+    on_mesh.close()
     host = SectorContext(d, 1, 3, 2, cube_dtype=torch.bfloat16, cache="host", device="cpu")
     jhost = JaxSectorContext(d, 1, 3, 2, cube_dtype=jnp.bfloat16, cache="host")
     assert host.cube_dtype == torch.bfloat16 and host.images.dtype == torch.float32

@@ -9,7 +9,9 @@ agree with their plain versions.
   ``extract_linpsf_batch`` and ``extract_halo_batch``; ``extract_aperture_batch``
   also runs on a bfloat16 copy of that context, on a host copy
   (``cache="host"``, streamed 4 frames a chunk) and on a ``TpfContext``
-  (a simulated TPF); the prepare stage
+  (a simulated TPF) and on a mesh copy of the tiny context
+  (``make_mesh(4, 1, ["cpu"] * 4)``, T = 6 padded to 8: the same statuses
+  and fluxes); the prepare stage
   (``prepare.prepare_cube``) runs on a tiny simulated sector into
   ``chip_smoke.DictCube``, the in-memory store the card's run uses; and the
   chain catalog -> todo -> merge runs through the port's CLIs on a folder
@@ -22,12 +24,18 @@ agree with their plain versions.
   ``plots`` and ``movie`` (``diagnostics`` and ``cli.movie_cmd`` too), the
   drain and the scheduler leave it out of ``sys.modules``; the two import
   last, with it allowed.
+- ``photometry_cmd --mesh time=2 --device cpu`` drains a prepared sector
+  in a subprocess that refuses ``jax``, ``jaxlib`` and ``photometry_tpu``;
+  every entry point that takes a mesh in the JAX package takes one in the
+  port, and none of the mesh layer raises ``NotImplementedError``.
 - No module of ``photometry_tpu_torch``, and not ``chip_smoke.py``, has an
   import statement naming ``jax``, ``jaxlib`` or ``photometry_tpu``.
 - The ``*_on_card`` tests need a CUDA card (marker ``cuda``) and skip
   without one.  Run them on the card with
   ``python -m pytest --noconftest -m cuda tests/test_torch_import.py``
-  (the repository's conftest.py imports JAX).
+  (the repository's conftest.py imports JAX).  Among them the band kernel
+  on a mesh's shards (views that start mid-cube and a padded last shard)
+  and ``sharded_psf_fit`` against the single-device kernel fit.
 """
 
 import ast
@@ -136,6 +144,18 @@ ctxh = SectorContext.from_arrays(
 resh = extract_aperture_batch(ctxh, [1, 2, 3, 4])
 assert [r.status for r in resh] == [r.status for r in res]
 assert all(np.allclose(a.lightcurve["flux"], b.lightcurve["flux"], rtol=1e-6) for a, b in zip(resh, res))
+from photometry_tpu_torch.parallel.mesh import ShardedCube, make_mesh
+ctxm = SectorContext.from_arrays(
+    images=images, images_err=np.ones_like(images), backgrounds=np.zeros_like(images),
+    pixelflags=np.zeros(images.shape, np.uint8), sumimage=images.mean(0),
+    time=1325.0 + np.arange(T) / 48, timecorr=np.zeros(T, np.float32),
+    cadenceno=np.arange(T), quality=np.zeros(T, np.int32), catalog_path=path, wcs=wcs,
+    sector=1, camera=1, ccd=1, mesh=make_mesh(4, 1, ["cpu"] * 4), device="cpu")
+assert isinstance(ctxm.images, ShardedCube) and ctxm.images.shape[0] == 8 and ctxm.n_times == T
+resm = extract_aperture_batch(ctxm, [1, 2, 3, 4])
+assert [r.status for r in resm] == [r.status for r in res]
+assert all(np.array_equal(a.lightcurve["flux"], b.lightcurve["flux"], equal_nan=True)
+           for a, b in zip(resm, res))
 from photometry_tpu_torch.core.engine import TpfContext
 tpf = TpfContext(SIM_DIR, TPF_STARID, device="cpu")
 got = extract_aperture_batch(tpf, [TPF_STARID])[0]
@@ -241,6 +261,7 @@ def test_slice_runs_with_jax_blocked(tmp_path):
             "photometry_tpu_torch.sim.simulator", "photometry_tpu_torch.tools.fuzz_e2e",
             "photometry_tpu_torch.cli.catalog_cmd", "photometry_tpu_torch.parallel.scheduler",
             "photometry_tpu_torch.parallel.multihost", "photometry_tpu_torch.cli.scheduler_cmd",
+            "photometry_tpu_torch.parallel.mesh", "photometry_tpu_torch.parallel.sharded",
             "photometry_tpu_torch.diagnostics", "photometry_tpu_torch.cli.movie_cmd",
             *FIGURE_MODULES} <= set(modules)
     script = (f"MODULES = {modules!r}\nFIGURE_MODULES = {FIGURE_MODULES!r}\n"
@@ -250,6 +271,89 @@ def test_slice_runs_with_jax_blocked(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "OK 4 4 6" in proc.stdout
+
+
+#: ``sitecustomize`` of the mesh CLI's subprocess: the JAX stack and the
+#: JAX package refused (h5py allowed: the drain reads a cube file).
+_SITE_MESH = r'''
+import importlib.abc, sys
+
+class _Blocked(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "photometry_tpu"):
+            raise ImportError(f"{name} is blocked")
+        return None
+
+sys.meta_path.insert(0, _Blocked())
+'''
+
+_MESH_SCRIPT = r'''
+import sqlite3, sys
+from photometry_tpu_torch.cli import photometry_cmd
+assert photometry_cmd.main(["-q", "--all", "--version", "1", "--mesh", "time=2",
+                            "--device", "cpu", FOLDER]) == 0
+with sqlite3.connect(FOLDER + "/todo.sqlite") as conn:
+    left = conn.execute("SELECT COUNT(*) FROM todolist WHERE status IS NULL").fetchone()[0]
+    done = conn.execute("SELECT COUNT(*) FROM diagnostics").fetchone()[0]
+assert left == 0 and done > 0, (left, done)
+assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "photometry_tpu")]
+print("MESH OK", done)
+'''
+
+
+def test_mesh_cli_runs_with_jax_blocked(tmp_path):
+    """``photometry_cmd --mesh time=2 --device cpu`` drains a prepared sector
+    (T = 7, padded to 8) in a subprocess that refuses jax, jaxlib and
+    photometry_tpu."""
+    from photometry_tpu.cli import prepare_cmd, todo_cmd
+    from photometry_tpu.sim.simulator import SimConfig, simulate_sector
+    d = tmp_path / "sector"
+    sim = simulate_sector(SimConfig(shape=(48, 48), n_times=7, n_stars=8, seed=6))
+    sim.write_ffis(str(d))
+    sim.write_catalog(str(d))
+    assert prepare_cmd.main(["-q", str(d)]) == 0 and todo_cmd.main(["-q", str(d)]) == 0
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_SITE_MESH)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([str(site), ROOT, os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", f"FOLDER = {str(d)!r}\n" + _MESH_SCRIPT],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "MESH OK" in proc.stdout
+
+
+def test_mesh_entry_points_exist():
+    """Every entry point that takes a mesh in the JAX package takes one in
+    the port, and none of them, nor any function of parallel/mesh.py,
+    parallel/sharded.py or multihost's mesh layer, raises
+    NotImplementedError."""
+    import inspect
+    from photometry_tpu_torch.cli import photometry_cmd, scheduler_cmd
+    from photometry_tpu_torch.core import dispatcher, drain, engine
+    from photometry_tpu_torch.parallel import mesh, multihost, scheduler, sharded
+    takes = {engine.SectorContext.__init__: "mesh", engine.SectorContext.from_arrays: "mesh",
+             dispatcher.open_context: "mesh", dispatcher.ContextCache.__init__: "mesh",
+             drain.run_drain: "mesh", scheduler.run_distributed: "mesh_spec",
+             scheduler.worker_loop: "mesh_spec", scheduler.worker_remote: "mesh_spec"}
+    for fn, arg in takes.items():
+        assert arg in inspect.signature(fn).parameters, fn.__qualname__
+    names = {mesh: ["make_mesh", "parse_mesh_spec", "ShardedCube", "shard_cube"],
+             sharded: ["pad_to_multiple", "sharded_time_smooth", "sharded_sumimage",
+                       "sharded_extract_flux", "sharded_band_extract", "prepare_step",
+                       "extraction_step", "sharded_psf_fit", "sharded_linpsf_fit",
+                       "sharded_halo_weights"],
+             multihost: ["initialize", "shutdown", "is_initialized", "global_mesh",
+                         "local_data_slice", "process_shard", "_order_devices"],
+             engine: ["_extract_flux_sharded", "context_from_jax"]}
+    for mod, fns in names.items():
+        for name in fns:
+            assert "NotImplementedError" not in inspect.getsource(getattr(mod, name)), name
+    for mod in (engine, dispatcher, drain, scheduler, photometry_cmd, scheduler_cmd,
+                mesh, sharded, multihost):
+        assert "raise NotImplementedError" not in inspect.getsource(mod), mod.__name__
+    for cmd in (photometry_cmd, scheduler_cmd):
+        assert '"--mesh"' in inspect.getsource(cmd.main)
 
 
 def _py_files():
@@ -267,7 +371,8 @@ def test_no_module_imports_jax():
     paths = list(_py_files())
     assert {os.path.join(PKG, *f.split("/")) for f in (
         "tools/fuzz_e2e.py", "todolist.py", "sim/simulator.py", "parallel/__init__.py",
-        "parallel/scheduler.py", "parallel/multihost.py", "plots.py", "diagnostics.py",
+        "parallel/scheduler.py", "parallel/multihost.py", "parallel/mesh.py",
+        "parallel/sharded.py", "plots.py", "diagnostics.py",
         "movie.py", "cli/scheduler_cmd.py", "cli/movie_cmd.py")} <= set(paths)
     for path in paths:
         with open(path) as fh:
@@ -366,6 +471,110 @@ def test_streamed_band_sums_equal_device_path_on_card():
             torch.cuda.synchronize()
             assert kernel.launches == before + 3
             assert got.is_cuda and torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _mesh_band_inputs(T, rng):
+    H, W, N, h = 256, 384, 200, 33
+    imgs = rng.normal(100, 5, (T, H, W)).astype(np.float32)
+    imgs[11, 10:40, 10:40] = np.nan
+    imgs[3] = 0.0
+    errs = (np.sqrt(np.abs(imgs)) + 1.0).astype(np.float32)
+    bkgs = rng.normal(20, 1, (T, H, W)).astype(np.float32)
+    flags = (rng.uniform(size=(T, H, W)) < 0.01).astype(np.uint8) * 4
+    r0s = rng.integers(0, H - h + 1, N).astype(np.int32)
+    c0s = rng.integers(0, W - h + 1, N).astype(np.int32)
+    masks = rng.uniform(size=(N, h, h)) < 0.4
+    windows = np.zeros_like(masks)
+    windows[:, 2:30, 1:31] = True
+    return [imgs, errs, bkgs, flags], [masks, r0s, c0s, windows], h
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.cuda
+def test_band_kernel_on_mesh_shards_on_card():
+    """The band kernel on the shards of a mesh of one card (``["cuda:0"] *
+    4``, T = 37 in shards of 10): three views that start mid-cube (frames
+    0, 10 and 20: the cube's own storage) and a padded last shard (7
+    frames and 3 NaN ones, a copy).  Each shard's launch against the plain
+    version on the same shard; ``sharded_band_extract`` (4 launches) and the
+    (time=2, targets=2) ``sharded_extract_flux`` (4 launches) joined and cut
+    to T == the single-device extraction bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from photometry_tpu_torch.ops import bandext
+    from photometry_tpu_torch.ops._kernels import BAND_EXTRACT
+    from photometry_tpu_torch.parallel.mesh import make_mesh, shard_cube
+    from photometry_tpu_torch.parallel.sharded import sharded_band_extract, sharded_extract_flux
+    T = 37
+    planes, targets, h = _mesh_band_inputs(T, np.random.default_rng(4))
+    planes = [torch.as_tensor(a, device="cuda") for a in planes]
+    masks, r0s, c0s, win = (torch.as_tensor(a, device="cuda") for a in targets)
+    mesh = make_mesh(4, 1, ["cuda:0"] * 4)
+    cubes = [shard_cube(x, mesh, fill=0 if x.dtype == torch.uint8 else float("nan"))
+             for x in planes]
+    for i in range(3):
+        assert all(c.shards[i].data_ptr() == x[10 * i].data_ptr() for c, x in zip(cubes, planes))
+    assert cubes[0].shards[3].data_ptr() != planes[0][30].data_ptr()
+    for i in range(4):
+        shard = [c.shards[i] for c in cubes]
+        before = BAND_EXTRACT.launches
+        got = bandext.band_sums_cuda(*shard, masks, r0s, c0s, windows=win)
+        torch.cuda.synchronize()
+        assert BAND_EXTRACT.launches == before + 1
+        want = bandext.band_sums_plain(*shard, masks, r0s, c0s, windows=win)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-3)
+    single = bandext.band_extract_flux_batch(*planes, masks, r0s, c0s, h, h, windows=win)
+    for run, m in ((sharded_band_extract, mesh),
+                   (sharded_extract_flux, make_mesh(2, 2, ["cuda:0"] * 4))):
+        cubes_m = [shard_cube(x, m, fill=0 if x.dtype == torch.uint8 else float("nan"))
+                   for x in planes]
+        before = BAND_EXTRACT.launches
+        got = run(*cubes_m, masks, r0s, c0s, m, h, h, windows=win)
+        torch.cuda.synchronize()
+        assert BAND_EXTRACT.launches == before + 4, run.__name__
+        for a, b in zip(got, single):
+            assert torch.equal(_bits(a[:, :T].contiguous()), _bits(b)), run.__name__
+
+
+@pytest.mark.cuda
+def test_sharded_psf_fit_matches_single_on_card(tmp_path):
+    """sharded_psf_fit over a mesh of one card (11 targets on 4 entries,
+    padded to 12) runs psf_warm_fit once a shard and phase, and gives the
+    single-device kernel fit's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from chip_smoke import psf_instances, table_prf
+    from photometry_tpu_torch.models import psf_fit
+    from photometry_tpu_torch.models.prf import PRF
+    from photometry_tpu_torch.ops._kernels import PSF_WARM_FIT
+    from photometry_tpu_torch.parallel.mesh import make_mesh
+    from photometry_tpu_torch.parallel.sharded import sharded_psf_fit
+    prf = table_prf(PRF, str(tmp_path), 3, "cuda")
+    N, T, S, side = 11, 6, 5, 15
+    imgs, bkg, p0, valid, mini, _ = psf_instances(np.random.default_rng(5), prf, N * T, S,
+                                                  side, side, n_cfg=N, nan_frac=0.01)
+
+    def per_target(a):                      # instance t*N + n is target n's cadence t
+        return a.reshape((T, N) + a.shape[1:]).swapaxes(0, 1)
+    args = [torch.as_tensor(np.ascontiguousarray(a), device="cuda") for a in
+            (per_target(imgs), per_target(bkg), p0[:N], valid[:N], mini[:N],
+             np.zeros(N, np.int32))]
+    before = PSF_WARM_FIT.launches
+    single = psf_fit.fit_psf_timeseries_batch(args[0], args[1], 1.0, *args[2:], prf,
+                                              (side, side), S)
+    torch.cuda.synchronize()
+    assert PSF_WARM_FIT.launches == before + 2
+    before = PSF_WARM_FIT.launches
+    got = sharded_psf_fit(*args[:2], 1.0, *args[2:], prf, (side, side), S,
+                          make_mesh(4, 1, ["cuda:0"] * 4))
+    torch.cuda.synchronize()
+    assert PSF_WARM_FIT.launches == before + 8
+    for k in single:
+        assert got[k].shape == single[k].shape
+        assert torch.equal(got[k].view(torch.int32), single[k].view(torch.int32)), k
 
 
 @pytest.mark.cuda

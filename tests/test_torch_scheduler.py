@@ -14,7 +14,9 @@
 - A ``KernelError`` in a worker's photometry (a TCP worker started here
   through :func:`kernel_error_worker`) kills the worker: no ERROR rows, the
   lease back in the queue, ``drained`` False.
-- ``mesh_spec`` / ``--mesh`` refused with ``NotImplementedError``;
+- a malformed ``mesh_spec`` / ``--mesh`` refused with ``ValueError``
+  before any worker starts or any task is leased (the workers build a
+  well-formed one themselves: tests/test_torch_mesh_production.py);
   ``scheduler_cmd``'s exit codes.
 
 The workers are spawned processes; they run torch on one thread each.
@@ -171,12 +173,13 @@ def test_kernel_error_returns_the_lease(folder):
 
 
 def test_mesh_refused(folder):
-    with pytest.raises(NotImplementedError):
-        run_distributed(folder, n_workers=1, device="cpu", mesh_spec="time=2")
-    with pytest.raises(NotImplementedError):
-        scheduler_cmd.main(["-q", "--version", "1", "--device", "cpu", "--mesh", "auto", folder])
-    with pytest.raises(NotImplementedError):
-        worker_remote(("127.0.0.1", 1), folder, device="cpu", mesh_spec="auto")
+    with pytest.raises(ValueError, match="mesh axis"):
+        run_distributed(folder, n_workers=1, device="cpu", mesh_spec="rows=2")
+    with pytest.raises(ValueError, match="positive integer"):
+        scheduler_cmd.main(["-q", "--version", "1", "--device", "cpu", "--mesh", "time=0",
+                            folder])
+    with pytest.raises(ValueError, match="empty"):
+        worker_remote(("127.0.0.1", 1), folder, device="cpu", mesh_spec=" ")
     assert _count(folder, "SELECT COUNT(*) FROM todolist WHERE status IS NOT NULL") == 0
 
 
