@@ -9,7 +9,7 @@ is found by path.  It imports ``torch`` and never ``jax`` nor any module of
 ``todo_merge``, ``sim``, ``io.fits``, ``io.settings``, ``io.discovery``,
 ``io.tess``, ``io.loader``, ...).
 
-Ported so far, each TPU kernel as a hand-written Hopper kernel under
+Ported, each TPU kernel as a hand-written Hopper kernel under
 ``ops/csrc/``:
 
 - the FFI aperture slice: K2P2 masks, banded extraction
@@ -26,7 +26,15 @@ Ported so far, each TPU kernel as a hand-written Hopper kernel under
   ``prepare`` CLI;
 - the work queue's host code (numpy and sqlite): catalogs from a TIC
   extract, the todo list, the merge of a corrections todo, with their CLIs;
-  the simulator and the end-to-end fuzz harness (``tools/fuzz_e2e.py``).
+  the simulator and the end-to-end fuzz harness (``tools/fuzz_e2e.py``);
+- the task-pull scheduler, the diagnostics and movies, and the multi-card
+  layer (meshes, sharded programs, multihost);
+- the rest: the worker cache and download helpers (``download_cache``,
+  ``utils/downloads``, ``catalog.download_catalogs``) and the tools
+  (``tools/``: ``profile_psf``, ``profile_k2p2``, ``tiebreak_corpus_scale``,
+  ``validate_prf``, ``validate_ecc``, ``make_ephemeris``), so every public
+  name of ``photometry_tpu`` has a counterpart here or a stated reason why
+  not (``tests/test_torch_import.py``).
 """
 
 from . import device  # noqa: F401  (sets the float32 precision policy)

@@ -10,15 +10,15 @@ which builds a catalog from plain arrays — fed by the simulator in tests and
 by any external TIC extract in production.
 
 The port's own copy of ``photometry_tpu/catalog.py``, file-compatible
-with the JAX package's, without ``download_catalogs`` (it fetches from
-outside the repository): catalogs come from :func:`make_catalog` on a
-local TIC extract, or from the simulator.  Reads return columnar numpy
-arrays.
+with the JAX package's: catalogs come from :func:`make_catalog` on a local
+TIC extract, from the simulator, or prebuilt from a configured URL through
+:func:`download_catalogs`.  Reads return columnar numpy arrays.
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
 import os
 import sqlite3
 from dataclasses import dataclass
@@ -26,10 +26,14 @@ from typing import Optional
 
 import numpy as np
 
+from .io.settings import load_settings
+from .utils.downloads import download_file
 from .utils.mathutils import add_proper_motion
 
+logger = logging.getLogger(__name__)
+
 __all__ = ["StarCatalog", "make_catalog", "make_catalog_from_arrays", "catalog_filename",
-           "query_footprint"]
+           "query_footprint", "download_catalogs"]
 
 
 def catalog_filename(sector: int, camera: int, ccd: int) -> str:
@@ -169,6 +173,34 @@ def query_footprint(cursor, footprint: np.ndarray, columns: str = "*",
         cursor.execute(query, {"ra_min": ra_min - buffer_deg, "ra_max": ra_max + buffer_deg,
                                "dec_min": dec_min, "dec_max": dec_max})
     return cursor.fetchall()
+
+
+def download_catalogs(input_folder: str, sector: int, camera=None, ccd=None) -> list:
+    """Fetch prebuilt catalog SQLite files that are not present yet.
+
+    Counterpart of reference catalog.py:338-388 (the tasoc.dk fetch): the
+    URL template comes from ``PHOTOMETRY_TPU_CATALOG_URL`` or the
+    ``[catalog] url`` settings key, with the placeholders ``{sector}``,
+    ``{camera}`` and ``{ccd}``.  Without a source, present files are
+    returned and missing ones are reported in the log.  Returns the paths of
+    the catalogs present afterwards, camera by camera, CCD by CCD.
+    """
+    cameras = [1, 2, 3, 4] if camera is None else list(np.atleast_1d(camera))
+    ccds = [1, 2, 3, 4] if ccd is None else list(np.atleast_1d(ccd))
+    url_tpl = (os.environ.get("PHOTOMETRY_TPU_CATALOG_URL")
+               or load_settings().get("catalog", "url", fallback="").strip() or None)
+    out = []
+    for cam in cameras:
+        for c in ccds:
+            path = os.path.join(input_folder, catalog_filename(sector, cam, c))
+            if os.path.exists(path):
+                out.append(path)
+            elif url_tpl:
+                out.append(download_file(url_tpl.format(sector=sector, camera=cam, ccd=c), path))
+            else:
+                logger.info("No catalog for sector=%d camera=%d ccd=%d and no "
+                            "download source configured.", sector, cam, c)
+    return out
 
 
 def make_catalog(input_folder: str, sector: int, camera: int, ccd: int,

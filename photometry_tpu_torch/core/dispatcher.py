@@ -53,13 +53,15 @@ _PROPAGATE = (NotImplementedError, KernelError, torch.OutOfMemoryError)
 
 @functools.lru_cache(maxsize=1)
 def default_time_corrector():
-    """Shared TimeCorrector from the cached spacecraft ephemeris (synthesized
-    and cached when absent; never downloaded).  None when disabled in
-    settings ([timecorr] pertarget), as in the reference (dispatcher.py:43-63)."""
+    """Shared TimeCorrector from the cached spacecraft ephemeris
+    (``download_cache.load_cached_ephemeris``: fetched from a configured
+    URL, else synthesized, when absent).  None when disabled in settings
+    ([timecorr] pertarget), as in the reference (dispatcher.py:43-63)."""
     settings = load_settings()
     if not settings.getboolean("timecorr", "pertarget", fallback=True):
         return None
-    from .timecorr import TimeCorrector, load_cached_ephemeris
+    from ..download_cache import load_cached_ephemeris
+    from .timecorr import TimeCorrector
     return TimeCorrector(load_cached_ephemeris())
 
 

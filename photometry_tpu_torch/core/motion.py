@@ -184,6 +184,11 @@ class MotionModel:
                                   torch.as_tensor(rows, dtype=torch.float32))
         return out.numpy().astype(np.float64)
 
+    def jitter(self, time, column, row) -> np.ndarray:
+        """Jitter (dcol, drow) of one star at every time, (T, 2) float64
+        (reference image_motion.py:403-421): :meth:`jitter_batch` with N = 1."""
+        return self.jitter_batch(time, [column], [row])[:, 0, :]
+
     def _interp_index(self, eval_times):
         """Bracketing series indices and linear weight of each time, clamped
         to the first/last kernel (a one-kernel series is constant)."""

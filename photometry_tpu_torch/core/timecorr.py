@@ -12,14 +12,12 @@ Einstein terms, and the rest of the reference's TESS_SPICE interface
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 
-__all__ = ["SpacecraftEphemeris", "TimeCorrector", "ephemeris_path",
-           "load_cached_ephemeris"]
+__all__ = ["SpacecraftEphemeris", "TimeCorrector"]
 
 C_KM_PER_DAY = 299792.458 * 86400.0  #: speed of light [km/day]
 GM_SUN_C3_DAYS = 4.92549094764e-6 / 86400.0  #: GM_sun/c^3 [days] (Shapiro scale)
@@ -157,23 +155,3 @@ class TimeCorrector:
         if np.ndim(ra) == 0:
             return corr[0]
         return corr
-
-
-def ephemeris_path() -> str:
-    """The shared ephemeris cache file (photometry_tpu.download_cache.ephemeris_path)."""
-    d = os.environ.get("PHOTOMETRY_TPU_CACHE",
-                       os.path.join(os.path.expanduser("~"), ".photometry_tpu"))
-    os.makedirs(d, exist_ok=True)
-    return os.path.join(d, "spacecraft_ephemeris.npz")
-
-
-def load_cached_ephemeris() -> SpacecraftEphemeris:
-    """The cached ephemeris; if absent, a synthetic one over the mission is
-    generated and cached, as ``photometry_tpu.download_cache`` does offline.
-    Never downloads."""
-    path = ephemeris_path()
-    if not os.path.exists(path):
-        from ..io.settings import sector_info
-        refs = [s.reference_time for s in sector_info().values()]
-        SpacecraftEphemeris.synthetic(min(refs) - 30, max(refs) + 30, step_days=0.25).save(path)
-    return SpacecraftEphemeris.load(path)

@@ -2,11 +2,12 @@
 K2P2 pixel-mask construction for a batch of target stamps, on torch tensors.
 
 Port of ``photometry_tpu/models/k2p2.py:build_masks_batch`` and its
-helpers.  The reference writes each stage for one (h, w) stamp and
-``vmap``s it; here the batch is a leading dimension written out, except the
-fixed-point labeling stages, which run batch-last (h, w, N) through
-``ops.labeling`` as in the reference.  Masks, ``found_mask``, ``no_flux``
-and ``in_mask`` are bit-identical to the JAX package on the parity corpus
+helpers; :func:`build_mask`, the single-stamp form, is the batch of one.
+The reference writes each stage for one (h, w) stamp and ``vmap``s it; here
+the batch is a leading dimension written out, except the fixed-point
+labeling stages, which run batch-last (h, w, N) through ``ops.labeling`` as
+in the reference. Masks, ``found_mask``, ``no_flux`` and ``in_mask`` are
+bit-identical to the JAX package on the parity corpus
 (tests/test_torch_k2p2.py).
 
 Stages (reference k2p2v2.py line numbers as in the JAX module):
@@ -26,7 +27,7 @@ from ..ops.filters import gaussian_blur2d
 from ..ops.labeling import dbscan_labels, label_components, watershed_segment
 from ..utils.mathutils import nanmax, nanmedian, nanmin, nanquantile
 
-__all__ = ["K2P2Params", "build_masks_batch"]
+__all__ = ["K2P2Params", "build_mask", "build_masks_batch"]
 
 SATURATION_LIMIT = 7.0  #: Tmag above which (fainter) overflow extension is disabled.
 
@@ -368,3 +369,24 @@ def build_masks_batch(sumimages, cat_col, cat_row, cat_tmag, cat_starid,
     if debug:
         out.update(above=above, labels=labels, seg=seg, blurred=blurred)
     return out
+
+
+def build_mask(sumimage, cat_col, cat_row, cat_tmag, cat_starid, cat_valid,
+               target_row, target_col, target_tmag, collected=None,
+               params: K2P2Params = K2P2Params(), debug: bool = False) -> dict:
+    """K2P2 mask of one (h, w) stamp (``k2p2.build_mask``): cat_* are (K,),
+    target_* scalars, on ``sumimage``'s device.  :func:`build_masks_batch`
+    with N = 1; returns its keys with the batch axis dropped (``edge`` (4,),
+    ``in_mask`` (K,), 0-d tensors for the scalars, and with ``debug`` the
+    (h, w) intermediate images)."""
+    sumimage = torch.as_tensor(sumimage)
+    dev = sumimage.device
+
+    def one(x):
+        return torch.as_tensor(x, device=dev)[None]
+
+    out = build_masks_batch(sumimage[None], one(cat_col), one(cat_row), one(cat_tmag),
+                            one(cat_starid), one(cat_valid), one(target_row), one(target_col),
+                            one(target_tmag), None if collected is None else one(collected),
+                            params=params, debug=debug)
+    return {k: v[0] for k, v in out.items()}

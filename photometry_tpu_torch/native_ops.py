@@ -1,10 +1,11 @@
 """
 ctypes binding to the native host runtime, ``native/fastio.cpp``.
 
-The port's own copy of the parts of ``photometry_tpu/native_ops.py`` that
-its ``io/fits.py`` uses: GIL-free whole-buffer gunzip of ``.gz`` reads, a
-threaded byteswap of big-endian float32 images, and libdeflate gzip of
-``.gz`` products (MTIME 0, so a product's bytes depend on its content
+The port's own copy of ``photometry_tpu/native_ops.py``: GIL-free
+whole-buffer gunzip of ``.gz`` reads, a threaded byteswap of big-endian
+float32 images (whole, or cropped to a window as it is swapped), a
+NaN-ignoring centred moving median along the time axis, and libdeflate gzip
+of ``.gz`` products (MTIME 0, so a product's bytes depend on its content
 only).
 
 The unchanged source is compiled with g++ at first use, with
@@ -37,7 +38,8 @@ import numpy as np
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["native_available", "libdeflate_linked", "bswap_f32", "gunzip", "gzip_compress"]
+__all__ = ["native_available", "libdeflate_linked", "bswap_f32", "bswap_crop_f32",
+           "moving_median_f32", "gunzip", "gzip_compress"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(os.path.dirname(_PKG), "native", "fastio.cpp")
@@ -105,6 +107,10 @@ def _load():
         except OSError:
             return None
         lib.pt_bswap_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+        lib.pt_bswap_crop_f32.argtypes = [ctypes.c_void_p] + [ctypes.c_int64] * 6 + [
+            ctypes.c_void_p]
+        lib.pt_moving_median_f32.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                                             ctypes.c_int, ctypes.c_void_p]
         lib.pt_gunzip.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
                                   ctypes.c_int64]
         lib.pt_gunzip.restype = ctypes.c_int64
@@ -139,6 +145,37 @@ def bswap_f32(raw: bytes) -> np.ndarray:
     buf = np.frombuffer(raw, dtype=np.uint8)
     lib.pt_bswap_f32(buf.ctypes.data, out.ctypes.data, n)
     return out
+
+
+def bswap_crop_f32(raw: bytes, H: int, W: int, r0: int, r1: int,
+                   c0: int, c1: int) -> np.ndarray:
+    """Fused byteswap + crop of a big-endian (H, W) float32 image buffer:
+    rows ``r0:r1``, columns ``c0:c1`` in native order."""
+    lib = _load()
+    if lib is None:
+        img = np.frombuffer(raw, dtype=">f4").reshape(H, W)
+        return img[r0:r1, c0:c1].astype("<f4")
+    out = np.empty((r1 - r0, c1 - c0), dtype="<f4")
+    buf = np.frombuffer(raw, dtype=np.uint8)
+    lib.pt_bswap_crop_f32(buf.ctypes.data, H, W, r0, r1, c0, c1, out.ctypes.data)
+    return out
+
+
+def moving_median_f32(x: np.ndarray, window: int) -> np.ndarray:
+    """Centred moving median along axis 0, NaN-ignoring, with the window
+    shrinking at the ends (``utils.mathutils.np_moving_median_central``)."""
+    x = np.ascontiguousarray(x, dtype=np.float32)
+    shape = x.shape
+    lib = _load()
+    if lib is None:
+        from .utils.mathutils import np_moving_median_central
+        return np_moving_median_central(x, window, axis=0).astype(np.float32)
+    T = shape[0]
+    P = int(np.prod(shape[1:])) if x.ndim > 1 else 1
+    flat = x.reshape(T, P)
+    out = np.empty_like(flat)
+    lib.pt_moving_median_f32(flat.ctypes.data, T, P, window, out.ctypes.data)
+    return out.reshape(shape)
 
 
 def gzip_compress(data: bytes, level: int = 2) -> bytes:

@@ -18,6 +18,10 @@ Port of ``photometry_tpu/ops/filters.py``:
   background time smoothing by running sums.
 - :func:`scharr`: the Scharr gradient magnitude of the registration's
   preprocessing (``ops/registration.py``).
+- :func:`binary_dilation`, :func:`binary_erosion` and :func:`fill_holes`:
+  binary morphology of bool masks by shifted ORs and ANDs over the cross
+  (connectivity 1) or the 3 x 3 box (2), pixels outside the image False,
+  as the JAX package's "SAME" convolutions with zero padding.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ from ..utils.mathutils import nanmedian
 from .median15 import _symmetric_pad, median_filter
 
 __all__ = ["gaussian_blur2d", "median_filter2d", "median_filter2d_chunked",
-           "time_moving_nanmean", "time_moving_nanmean_blocked", "scharr"]
+           "time_moving_nanmean", "time_moving_nanmean_blocked", "scharr",
+           "binary_dilation", "binary_erosion", "fill_holes"]
 
 
 @functools.lru_cache(maxsize=64)
@@ -165,3 +170,53 @@ def scharr(img: torch.Tensor) -> torch.Tensor:
             gx = tx if gx is None else gx + tx
             gy = ty if gy is None else gy + ty
     return torch.sqrt(gx ** 2 + gy ** 2).reshape(lead + (H, W))
+
+
+_CROSS = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1))
+_BOX = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+
+
+def _neighbours(mask: torch.Tensor, connectivity: int):
+    """The (..., H, W) mask shifted by each offset of the structuring
+    element, False where the shift reaches outside the image."""
+    H, W = mask.shape[-2:]
+    p = torch.zeros(mask.shape[:-2] + (H + 2, W + 2), dtype=torch.bool, device=mask.device)
+    p[..., 1:-1, 1:-1] = mask
+    for dy, dx in (_CROSS if connectivity == 1 else _BOX):
+        yield p[..., 1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+
+
+def _morphology(mask, connectivity: int, iterations: int, combine) -> torch.Tensor:
+    out = torch.as_tensor(mask).to(torch.bool)
+    for _ in range(iterations):
+        out = functools.reduce(combine, _neighbours(out, connectivity))
+    return out
+
+
+def binary_dilation(mask, connectivity: int = 1, iterations: int = 1) -> torch.Tensor:
+    """Binary dilation of (..., H, W) masks with the cross (connectivity=1)
+    or the box (=2)."""
+    return _morphology(mask, connectivity, iterations, torch.logical_or)
+
+
+def binary_erosion(mask, connectivity: int = 1, iterations: int = 1) -> torch.Tensor:
+    """Binary erosion of (..., H, W) masks: a pixel stays where the whole
+    structuring element lies in the mask (outside the image counts as out)."""
+    return _morphology(mask, connectivity, iterations, torch.logical_and)
+
+
+def fill_holes(mask, max_iters: int = 256) -> torch.Tensor:
+    """Fill the holes of (..., H, W) masks: the pixels not reached by a
+    4-connected flood from the border through the pixels outside the mask,
+    grown at most ``max_iters`` steps (``filters.fill_holes``)."""
+    mask = torch.as_tensor(mask).to(torch.bool)
+    border = torch.zeros_like(mask)
+    border[..., 0, :] = border[..., -1, :] = True
+    border[..., :, 0] = border[..., :, -1] = True
+    outside = border & ~mask
+    for _ in range(max_iters):
+        grown = binary_dilation(outside, connectivity=1) & ~mask
+        if torch.equal(grown, outside):
+            break
+        outside = grown
+    return mask | ~outside

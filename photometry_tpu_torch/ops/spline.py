@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["CRM", "bicubic_eval", "natural_cubic_coeffs", "make_natural_spline",
+__all__ = ["CRM", "bicubic_coeffs", "bicubic_eval", "natural_cubic_coeffs", "make_natural_spline",
            "eval_natural_spline"]
 
 #: Catmull-Rom basis matrix: weights = [1, t, t^2, t^3] @ CRM.
@@ -28,6 +28,12 @@ CRM = np.array([[0, 2, 0, 0],
                 [-1, 0, 1, 0],
                 [2, -5, 4, -1],
                 [-1, 3, -3, 1]], dtype=np.float32) * 0.5
+
+
+def bicubic_coeffs(grid) -> torch.Tensor:
+    """Identity packing for Catmull-Rom interpolation: the grid as float32
+    (``spline.bicubic_coeffs``; :func:`bicubic_eval` reads the grid itself)."""
+    return torch.as_tensor(grid, dtype=torch.float32)
 
 
 def _basis(t: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,7 @@ leading ones; the JAX package ``vmap``s the same code over frames.
   ``bincount`` on the CPU.  The Gaussian smoothing is ``conv1d`` (the
   kernel is symmetric, so correlation and convolution agree), and
   ``argmax`` takes the first of equal maxima, as ``jnp.argmax`` does.
+  :func:`kde_mode` is the same math on one sample.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from .. import device  # noqa: F401  (no TF32 in conv1d)
 from ..utils.mathutils import nanmax, nanmedian, nanmin
 from .seghist import segment_histogram
 
-__all__ = ["masked_median", "sigma_clip_mask", "sextractor_mode", "segment_kde_mode"]
+__all__ = ["masked_median", "sigma_clip_mask", "sextractor_mode", "kde_mode",
+           "segment_kde_mode"]
 
 _INT_MAX = 2 ** 31 - 1
 _INT_MIN = -(2 ** 31)
@@ -160,6 +162,42 @@ def _gauss_kernel(sigma_buckets: float, radius: int) -> np.ndarray:
     return (k / k.sum(dtype=np.float32)).astype(np.float32)
 
 
+def _kde_modes(values, seg, good, lo, hi, n_segments: int, n_buckets: int,
+               smooth_sigma_frac: float, plain: bool):
+    """(F, n_segments) smoothed-histogram modes of (F, N) ``values`` over
+    each frame's [lo, hi] (F, 1), and the (F, n_segments) sample counts."""
+    span = torch.clamp(hi - lo, min=1e-30)
+    b = torch.clamp(((values - lo) / span * n_buckets).to(torch.int32), 0, n_buckets - 1)
+    hist = segment_histogram(seg, b, good, n_segments, n_buckets, plain=plain)
+    radius = max(int(3 * smooth_sigma_frac * n_buckets), 2)
+    kern = torch.from_numpy(_gauss_kernel(smooth_sigma_frac * n_buckets, radius)).to(values.device)
+    nf = hist.shape[0]
+    sm = F.conv1d(hist.reshape(nf * n_segments, 1, n_buckets), kern.view(1, 1, -1),
+                  padding=radius).reshape(nf, n_segments, n_buckets)
+    pos = _refine_parabolic(sm, torch.argmax(sm, dim=-1))
+    return lo + (pos + 0.5) / n_buckets * span, hist.sum(dim=-1)
+
+
+def kde_mode(x: torch.Tensor, mask=None, n_buckets: int = 512, smooth_sigma_frac: float = 0.01,
+             lo=None, hi=None) -> torch.Tensor:
+    """Mode of one sample (every element of ``x``) by its smoothed histogram
+    with parabolic refinement (``stats.kde_mode``, replacing statsmodels'
+    FFT KDE mode, reference backgrounds.py:21-33): :func:`segment_kde_mode`'s
+    math with one segment, over [``lo``, ``hi``] (default the good values'
+    range).  ``mask`` True excludes a sample.  A 0-d tensor, NaN when no
+    sample is good."""
+    x = x.reshape(1, -1)
+    good = torch.isfinite(x)
+    if mask is not None:
+        good = good & ~torch.as_tensor(mask, device=x.device).reshape(1, -1)
+    vg = torch.where(good, x, torch.nan)
+    lo = nanmin(vg, dim=-1)[:, None] if lo is None else torch.full((1, 1), float(lo), device=x.device)
+    hi = nanmax(vg, dim=-1)[:, None] if hi is None else torch.full((1, 1), float(hi), device=x.device)
+    seg = torch.zeros(x.shape[1], dtype=torch.int32, device=x.device)
+    modes, _ = _kde_modes(x, seg, good, lo, hi, 1, n_buckets, smooth_sigma_frac, plain=False)
+    return torch.where(good.any(), modes[0, 0], torch.nan)
+
+
 def segment_kde_mode(values: torch.Tensor, seg_ids: torch.Tensor, n_segments: int, mask=None,
                      n_buckets: int = 512, smooth_sigma_frac: float = 0.01,
                      min_count: int = 1, plain: bool = False) -> torch.Tensor:
@@ -181,18 +219,8 @@ def segment_kde_mode(values: torch.Tensor, seg_ids: torch.Tensor, n_segments: in
     if mask is not None:
         good = good & ~mask
     vg = torch.where(good, values, torch.nan)
-    lo = nanmin(vg, dim=-1)[:, None]
-    hi = nanmax(vg, dim=-1)[:, None]
-    span = torch.clamp(hi - lo, min=1e-30)
-    b = torch.clamp(((values - lo) / span * n_buckets).to(torch.int32), 0, n_buckets - 1)
-    hist = segment_histogram(seg, b, good, n_segments, n_buckets, plain=plain)
-    counts = hist.sum(dim=-1)
-    radius = max(int(3 * smooth_sigma_frac * n_buckets), 2)
-    kern = torch.from_numpy(_gauss_kernel(smooth_sigma_frac * n_buckets, radius)).to(values.device)
-    nf = hist.shape[0]
-    sm = F.conv1d(hist.reshape(nf * n_segments, 1, n_buckets), kern.view(1, 1, -1),
-                  padding=radius).reshape(nf, n_segments, n_buckets)
-    pos = _refine_parabolic(sm, torch.argmax(sm, dim=-1))
-    modes = lo + (pos + 0.5) / n_buckets * span
+    modes, counts = _kde_modes(values, seg, good, nanmin(vg, dim=-1)[:, None],
+                               nanmax(vg, dim=-1)[:, None], n_segments, n_buckets,
+                               smooth_sigma_frac, plain)
     out = torch.where(counts >= min_count, modes, torch.nan)
     return out[0] if squeeze else out

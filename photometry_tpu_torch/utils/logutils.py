@@ -11,11 +11,12 @@ from __future__ import annotations
 import logging
 from contextlib import contextmanager
 
-__all__ = ["capture_warnings"]
+__all__ = ["ListHandler", "capture_warnings"]
 
 
-class _ListHandler(logging.Handler):
-    """Append formatted records to a list (not thread-safe, like the reference's)."""
+class ListHandler(logging.Handler):
+    """A logging handler that appends formatted records to a list (not
+    thread-safe, like the reference's: each worker process owns its queue)."""
 
     def __init__(self, message_queue: list, level=logging.WARNING):
         super().__init__(level)
@@ -30,7 +31,7 @@ class _ListHandler(logging.Handler):
 def capture_warnings(logger_name: str = "photometry_tpu_torch", level=logging.WARNING):
     """Collect WARNING+ messages logged under ``logger_name`` into a list."""
     queue: list = []
-    handler = _ListHandler(queue, level=level)
+    handler = ListHandler(queue, level=level)
     lg = logging.getLogger(logger_name)
     lg.addHandler(handler)
     try:

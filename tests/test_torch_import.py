@@ -30,6 +30,10 @@ agree with their plain versions.
   port, and none of the mesh layer raises ``NotImplementedError``.
 - No module of ``photometry_tpu_torch``, and not ``chip_smoke.py``, has an
   import statement naming ``jax``, ``jaxlib`` or ``photometry_tpu``.
+- Every public name of ``photometry_tpu`` (each top-level function and
+  class of a file, and each method of a class) has one of the same name in
+  the port's file of the same path, or stands in ``NO_COUNTERPART`` with its
+  counterpart of another name or the reason the port has none.
 - The ``*_on_card`` tests need a CUDA card (marker ``cuda``) and skip
   without one.  Run them on the card with
   ``python -m pytest --noconftest -m cuda tests/test_torch_import.py``
@@ -40,6 +44,7 @@ agree with their plain versions.
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -370,7 +375,10 @@ def test_no_module_imports_jax():
     offenders = []
     paths = list(_py_files())
     assert {os.path.join(PKG, *f.split("/")) for f in (
-        "tools/fuzz_e2e.py", "todolist.py", "sim/simulator.py", "parallel/__init__.py",
+        "tools/fuzz_e2e.py", "tools/profile_psf.py", "tools/profile_k2p2.py",
+        "tools/tiebreak_corpus_scale.py", "tools/validate_prf.py", "tools/validate_ecc.py",
+        "tools/make_ephemeris.py", "download_cache.py", "utils/downloads.py",
+        "cli/download_cache_cmd.py", "todolist.py", "sim/simulator.py", "parallel/__init__.py",
         "parallel/scheduler.py", "parallel/multihost.py", "parallel/mesh.py",
         "parallel/sharded.py", "plots.py", "diagnostics.py",
         "movie.py", "cli/scheduler_cmd.py", "cli/movie_cmd.py")} <= set(paths)
@@ -384,6 +392,94 @@ def test_no_module_imports_jax():
             if any(n.split(".")[0] in ("jax", "jaxlib", "photometry_tpu") for n in names):
                 offenders.append(f"{os.path.relpath(path, ROOT)}:{node.lineno}")
     assert not offenders, offenders
+
+
+#: JAX names without a counterpart of the same name and path in the port:
+#: ``"file"`` (all of it) or ``"file:name"`` -> the counterpart
+#: (``"port file:name"``) or the reason there is none.
+NO_COUNTERPART = {
+    "utils/aot.py": "ahead-of-time compilation of XLA programs; PyTorch runs eagerly and each "
+                    "CUDA kernel is built once per process",
+    "utils/fetch.py": "overlapped device->host copies of JAX arrays; the port's host copies "
+                      "are grouped where they are made",
+    "models/psf_fit.py:prefetch_psf_programs": "AOT prefetch of the XLA fit programs; nothing "
+                                               "is compiled ahead in the port",
+    "models/linpsf.py:prefetch_linpsf_programs": "AOT prefetch of the XLA linPSF programs",
+    "cli/common.py:enable_compile_cache": "the persistent XLA compile cache; the port's "
+                                          "--device replaces the JAX platform flag",
+    "parallel/mesh.py:cube_sharding": "a JAX NamedSharding; the port shards with ShardedCube "
+                                      "and shard_cube",
+    "parallel/mesh.py:replicated": "a JAX NamedSharding; a replicated tensor is one the port "
+                                   "copies to each mesh entry",
+    "parallel/mesh.py:targets_sharding": "a JAX NamedSharding; the port splits targets in "
+                                         "_extract_flux_sharded",
+    "ops/bandext.py:bands_supported": "the TPU's 64x128 band layout; band_extract.cu takes "
+                                      "every shape, TPF stamps included",
+    "ops/bandext.py:build_piece_patches": "the TPU's 64x128 band layout (pieces of cells)",
+    "ops/bandext.py:use_banded": "the TPU's 64x128 band layout gate",
+    "models/psf_pallas.py:fused_ok": "models/psf_fused.py:fused_ok",
+    "models/psf_pallas.py:fused_warm_fit": "models/psf_fused.py:fused_warm_fit",
+    "ops/median_pallas.py:median15_tpu": "ops/median15.py:median15_cuda",
+    "ops/median_pallas.py:median_pallas_supported": "median15.cu takes every frame shape; "
+                                                    "median_filter picks kernel or plain "
+                                                    "by the tensor's device",
+    "ops/hist_pallas.py:segment_histogram_tpu": "ops/seghist.py:segment_histogram_cuda",
+    "ops/hist_pallas.py:pallas_supported": "segment_histogram picks kernel or plain by the "
+                                           "tensor's device",
+}
+
+
+def _public_names(path):
+    """Top-level functions and classes of a file not starting with ``_``,
+    and the methods of its classes (defined or assigned in the class body)
+    as ``Class.method``."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    out = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            if not node.name.startswith("_"):
+                out.add(node.name)
+        if isinstance(node, ast.ClassDef):
+            for sub in node.body:
+                names = ([sub.name] if isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef))
+                         else [t.id for t in sub.targets if isinstance(t, ast.Name)
+                               and isinstance(sub.value, ast.Attribute)]
+                         if isinstance(sub, ast.Assign) else [])
+                out.update(f"{node.name}.{m}" for m in names if not m.startswith("_"))
+    return out
+
+
+def test_every_public_name_has_a_counterpart():
+    """The port does all that the JAX package does: a JAX public name the
+    port lacks fails here unless NO_COUNTERPART maps it to a counterpart
+    that exists or gives the reason it has none."""
+    jax_pkg = os.path.join(ROOT, "photometry_tpu")
+    missing, used = [], set()
+    for dirpath, dirs, files in os.walk(jax_pkg):
+        dirs[:] = sorted(d for d in dirs if d not in _IGNORED)
+        for f in sorted(files):
+            if not f.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(dirpath, f), jax_pkg).replace(os.sep, "/")
+            names = _public_names(os.path.join(dirpath, f))
+            if rel in NO_COUNTERPART:
+                used.add(rel)
+                continue
+            port = os.path.join(PKG, *rel.split("/"))
+            have = _public_names(port) if os.path.exists(port) else set()
+            for name in sorted(names - have):
+                key = f"{rel}:{name}"
+                if key not in NO_COUNTERPART:
+                    missing.append(key)
+                    continue
+                used.add(key)
+                target = NO_COUNTERPART[key]
+                if re.fullmatch(r"[\w/]+\.py:\w+", target):          # a counterpart, not a reason
+                    tfile, tname = target.split(":")
+                    assert tname in _public_names(os.path.join(PKG, *tfile.split("/"))), target
+    assert not missing, missing
+    assert used == set(NO_COUNTERPART), sorted(set(NO_COUNTERPART) - used)
 
 
 def test_psf_bound_counts_the_same_work():
@@ -1024,3 +1120,39 @@ def test_tpf_extraction_on_card(tmp_path):
         np.testing.assert_allclose(g.lightcurve["pos_corr"], w.lightcurve["pos_corr"], atol=2e-5)
     card.close()
     cpu.close()
+
+
+@pytest.mark.cuda
+def test_profile_psf_fused_route_on_card():
+    """``tools/profile_psf`` at a small size on the card takes the fused
+    route: each ``full`` call one group (two kernel launches), phase 2 one
+    launch over all N*T instances, and the fluxes equal the plain fitter's
+    within phase 4's bounds (99% within rtol 2e-2) on the targets whose
+    fits are well-posed (``chip_smoke.psf_stable_share``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from photometry_tpu_torch.models import psf_fit, psf_fused
+    from photometry_tpu_torch.ops._kernels import PSF_WARM_FIT
+    from photometry_tpu_torch.tools import profile_psf
+    sizes = []
+    real = psf_fused.fused_warm_fit_cuda
+
+    def recording(images, *a, **kw):
+        sizes.append(images.shape[0])
+        return real(images, *a, **kw)
+
+    psf_fit.ROUTES.update(fused=0, plain=0)
+    before = PSF_WARM_FIT.launches
+    psf_fused.fused_warm_fit_cuda = recording
+    try:
+        summary, full, inp = profile_psf.profile(["--chunk", "8", "--T", "40", "--reps", "1"])
+    finally:
+        psf_fused.fused_warm_fit_cuda = real
+    torch.cuda.synchronize()
+    assert summary["config"]["backend"].startswith("cuda")
+    assert psf_fit.ROUTES == {"fused": 2, "plain": 0}
+    assert PSF_WARM_FIT.launches - before == 6 and sorted(set(sizes)) == [8, 320]
+    assert torch.isfinite(full["flux"]).all()
+    from chip_smoke import psf_stable_share
+    held = psf_stable_share(full["flux"], inp, 8, 40)
+    assert 0 in held["posed"] and len(held["posed"]) >= 4 and held["share"] >= 0.99, held

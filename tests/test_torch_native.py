@@ -1,8 +1,8 @@
 """The port's binding to the native host runtime, ``photometry_tpu_torch.native_ops``.
 
-Case for case as tests/test_native.py holds the JAX binding (the binding
-has no ``bswap_crop_f32`` or ``moving_median_f32``: no caller of the port
-needs them): it builds ``native/fastio.cpp`` into
+Case for case as tests/test_native.py holds the JAX binding (its
+``bswap_crop_f32`` and ``moving_median_f32`` cases are in
+tests/test_torch_tools.py): it builds ``native/fastio.cpp`` into
 ``photometry_tpu_torch/_build/`` and loads it, nothing new in ``native/``;
 byteswap; gunzip, multi-member streams and trailing garbage; the gzip round
 trip and determinism.  Beside them:
