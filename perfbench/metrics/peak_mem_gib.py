@@ -1,0 +1,7 @@
+"""The card memory's high-water mark over set-up and window
+(``torch.cuda.max_memory_allocated``), in GiB."""
+
+
+def read(run):
+    peak = run.get("memory_peak_bytes")
+    return peak / 2 ** 30 if peak else None
