@@ -3283,7 +3283,9 @@ def prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result,
     fps1 = T / (walls["backgrounds_fit"] + walls["backgrounds_smooth"])
     fps3 = T / walls["shenanigans"]
     print(f"phase 5 slice: prepare_cube of {T} frames (stages 1-5) in {wall:.2f} s ({card}); "
-          "stage walls " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+          "stage walls " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()
+                                     if k != "fits_bytes")
+          + f"; {walls['fits_bytes'] / 1e9:.2f} GB of FITS data read"
           + f"; stage 1 {fps1:.2f} frames/s, stage 3 {fps3:.2f} frames/s; device busy "
           f"{busy:.1f} ms = {100 * busy / (wall * 1e3):.1f}% of the wall (torch.profiler on); "
           f"launches median15 {MEDIAN15.launches}, segment_hist {SEGMENT_HIST.launches}; "
@@ -3314,7 +3316,8 @@ def prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result,
     mem = ("" if dev.type != "cuda" else
            f"; peak {(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB above the "
            f"{base / 1e9:.2f} GB held")
-    check(set(walls6) == {"movement"}, f"the resumed prepare_cube ran {sorted(walls6)}")
+    check(set(walls6) - {"fits_bytes"} == {"movement"},
+          f"the resumed prepare_cube ran {sorted(walls6)}")
     check(cube.stages == set(prep.STAGES) | {"movement"}, f"stage markers {sorted(cube.stages)}")
     walls.update(walls6)
     kern, ref6 = cube.movement_kernel, cube.movement_attrs["ref_frame"]

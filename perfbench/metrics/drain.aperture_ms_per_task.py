@@ -1,0 +1,10 @@
+"""Milliseconds of the drains' ``aperture`` span per task done: every
+aperture extraction of ``run_drain`` (``core.dispatcher._run_method``),
+inside its ``photometry`` phase (``run_drain(timers=)``)."""
+
+
+def read(run):
+    t = run.get("timers") or {}
+    if not t.get("n_done") or "aperture" not in t:
+        return None
+    return 1e3 * t["aperture"] / t["n_done"]

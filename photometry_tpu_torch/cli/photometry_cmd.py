@@ -8,7 +8,10 @@ halo; without it each task runs its own method (aperture with the automatic
 halo and linPSF switches by default).  ``--plot`` renders each target's
 diagnostic figures.  ``--mesh SPEC`` shards each FFI sector's cubes over
 a device mesh (``time=4,targets=2``, a bare count, or ``auto``: every card
-of ``--device``'s type; ``parallel/mesh.parse_mesh_spec``).
+of ``--device``'s type; ``parallel/mesh.parse_mesh_spec``).  With
+``PHOTOMETRY_TPU_TRACE_DIR`` set, the drain runs under
+``utils.profiling.device_trace``: a Chrome trace of it, the program's
+spans among the kernels, is written there.
 
 Usage:
     python -m photometry_tpu_torch.cli.photometry_cmd --version 1 [options] [input_folder]
@@ -68,15 +71,17 @@ def main(argv=None) -> int:
         logging.getLogger(__name__).info("Device mesh: %s", mesh)
 
     from ..core.drain import run_drain
-    run_drain(
-        input_folder, args.version,
-        output_folder=output_folder,
-        # None keeps the reference's default product layout under the input:
-        products_folder=None if args.output is None else output_folder,
-        all_tasks=args.all, random_task=args.random,
-        batch_size=args.batch_size, method=args.method,
-        constraints=constraints, plot=args.plot, device=args.device, mesh=mesh,
-        summary=os.path.join(output_folder, "summary.json") if args.all else None)
+    from ..utils.profiling import device_trace
+    with device_trace():
+        run_drain(
+            input_folder, args.version,
+            output_folder=output_folder,
+            # None keeps the reference's default product layout under the input:
+            products_folder=None if args.output is None else output_folder,
+            all_tasks=args.all, random_task=args.random,
+            batch_size=args.batch_size, method=args.method,
+            constraints=constraints, plot=args.plot, device=args.device, mesh=mesh,
+            summary=os.path.join(output_folder, "summary.json") if args.all else None)
     return 0
 
 

@@ -4,7 +4,9 @@ CLI: prepare FFIs into image cubes on the port.
 Port of ``photometry_tpu/cli/prepare_cmd.py`` (reference
 run_prepare_photometry.py).  ``--device`` picks the torch device of the
 background fit, the median filter and, with ``--movement-kernel``, the ECC
-registration of the movement kernels (default: cuda).
+registration of the movement kernels (default: cuda).  With
+``PHOTOMETRY_TPU_TRACE_DIR`` set, the run is traced into it
+(``utils.profiling.device_trace``, the program's spans among the kernels).
 
 Usage:
     python -m photometry_tpu_torch.cli.prepare_cmd [options] [input_folder]
@@ -40,10 +42,13 @@ def main(argv=None) -> int:
     input_folder = resolve_input_folder(args.input_folder)
 
     from ..prepare import prepare_photometry
-    paths = prepare_photometry(input_folder, output_folder=args.output, sectors=args.sector,
-                               cameras=args.camera, ccds=args.ccd,
-                               process_id=args.process_id, process_count=args.num_processes,
-                               device=args.device, calc_movement_kernel=args.movement_kernel)
+    from ..utils.profiling import device_trace
+    with device_trace():
+        paths = prepare_photometry(input_folder, output_folder=args.output,
+                                   sectors=args.sector, cameras=args.camera, ccds=args.ccd,
+                                   process_id=args.process_id,
+                                   process_count=args.num_processes, device=args.device,
+                                   calc_movement_kernel=args.movement_kernel)
     for p in paths:
         print(p)
     return 0

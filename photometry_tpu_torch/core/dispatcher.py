@@ -24,7 +24,6 @@ import functools
 import logging
 import os
 import traceback
-from timeit import default_timer as _timer
 from typing import Optional
 
 import torch
@@ -34,6 +33,7 @@ from ..io.settings import load_settings
 from ..ops._kernels import KernelError
 from ..utils.logutils import capture_warnings
 from ..utils.mathutils import mag2flux
+from ..utils.profiling import count, span
 from .engine import SectorContext, TargetResult, TpfContext, extract_aperture_batch
 from .status import STATUS
 
@@ -169,18 +169,21 @@ def _needs_deblend_switch(res: TargetResult, settings) -> bool:
 
 
 def _run_method(ctx, starids, method: str, keep_diag: bool = False, **kw) -> list:
+    """The method's extraction of ``starids``, timed in the span of its name."""
     if method == "aperture":
-        return extract_aperture_batch(ctx, starids, **kw)
-    if method == "halo":
-        from ..models.halo import extract_halo_batch
-        return extract_halo_batch(ctx, starids, **kw)
-    if method == "psf":
+        extract = extract_aperture_batch
+    elif method == "halo":
+        from ..models.halo import extract_halo_batch as extract
+    elif method == "psf":
         from ..models.psf_fit import extract_psf_batch
-        return extract_psf_batch(ctx, starids, keep_diag=keep_diag, **kw)
-    if method == "linpsf":
+        extract = functools.partial(extract_psf_batch, keep_diag=keep_diag)
+    elif method == "linpsf":
         from ..models.linpsf import extract_linpsf_batch
-        return extract_linpsf_batch(ctx, starids, keep_diag=keep_diag, **kw)
-    raise ValueError(f"Invalid method: '{method}'")
+        extract = functools.partial(extract_linpsf_batch, keep_diag=keep_diag)
+    else:
+        raise ValueError(f"Invalid method: '{method}'")
+    with span(method):
+        return extract(ctx, starids, **kw)
 
 
 def _decorate(res, task):
@@ -224,16 +227,17 @@ class HaloSwitchQueue:
     default 32, as in the JAX package), when the drain moves
     to another CCD (the queue pins its SectorContext: flush BEFORE the
     ContextCache evicts it), or at the drain's end (``flush(force=True)``).
+    A flush times its rerun in the span ``photometry`` and its products in
+    ``save`` (``utils.profiling``).
     """
 
-    def __init__(self, min_flush: Optional[int] = None, timers: Optional[dict] = None):
+    def __init__(self, min_flush: Optional[int] = None):
         if min_flush is None:
             min_flush = load_settings().getint("haloswitch", "min_batch", fallback=32)
         self.min_flush = max(int(min_flush), 1)
         self._ctx = None
         self._items = []      # (task, aperture TargetResult)
         self._save_args = {}
-        self._timers = timers
 
     @property
     def pending(self) -> int:
@@ -271,18 +275,15 @@ class HaloSwitchQueue:
         items, ctx = self._items, self._ctx
         self._items, self._ctx = [], None
         tasks = [t for t, _ in items]
-        tic = _timer()
-        out = _run_halo_switch(ctx, tasks, {int(t["starid"]): r for t, r in items})
-        if self._timers is not None:
-            self._timers["photometry"] += _timer() - tic
+        with span("photometry"):
+            out = _run_halo_switch(ctx, tasks, {int(t["starid"]): r for t, r in items})
         if out is None:
             out = [r for _, r in items]
             for r in out:
                 r.details.pop("halo_switch_deferred", None)
         sa = self._save_args
         if sa.get("save", True):
-            _save_results_parallel(ctx, out, sa.get("output_folder"), sa.get("version"),
-                                   timers=self._timers)
+            _save_results_parallel(ctx, out, sa.get("output_folder"), sa.get("version"))
         if sa.get("plot_folder"):
             _plot_results(ctx, out, sa["plot_folder"])
         return list(zip(tasks, out))
@@ -291,8 +292,7 @@ class HaloSwitchQueue:
 def photometry_batch(ctx, tasks: list, output_folder: Optional[str] = None,
                      version: Optional[int] = None, save: bool = True,
                      plot_folder: Optional[str] = None,
-                     halo_queue: Optional[HaloSwitchQueue] = None,
-                     timers: Optional[dict] = None) -> list:
+                     halo_queue: Optional[HaloSwitchQueue] = None) -> list:
     """Run photometry for a batch of compatible tasks on one context.
 
     Tasks without an explicit method run aperture photometry; of those,
@@ -307,8 +307,9 @@ def photometry_batch(ctx, tasks: list, output_folder: Optional[str] = None,
     batched rerun instead of rerunning inline; their interim results come
     back flagged ``details["halo_switch_deferred"]`` and must be withheld
     from save_result until :meth:`HaloSwitchQueue.flush` resolves them.
-    ``timers`` (a core.drain.new_timers dict) accumulates the wall of the
-    photometry and product-save phases.
+    The photometry phase, each method's extraction and the product writer
+    add their spans into the open recorder (``utils.profiling``), such as
+    ``run_drain``'s.
     """
     settings = load_settings()
     tmag_limit = settings.getfloat("haloswitch", "tmag_limit", fallback=6.0)
@@ -320,10 +321,9 @@ def photometry_batch(ctx, tasks: list, output_folder: Optional[str] = None,
     keep_diag = plot_folder is not None
     results = {}
     for method, group in by_method.items():
-        tic = _timer()
         # Warnings logged during the photometry are persisted into the
         # diagnostics errors column (BasePhotometry.py:171-179, 1409-1414):
-        with capture_warnings() as log_messages:
+        with span("photometry"), capture_warnings() as log_messages:
             try:
                 got = _run_method(ctx, [int(t["starid"]) for t in group], method,
                                   keep_diag=keep_diag)
@@ -333,8 +333,6 @@ def photometry_batch(ctx, tasks: list, output_folder: Optional[str] = None,
                 tb = traceback.format_exc().strip()
                 logger.exception("Method %s failed for batch", method)
                 got = [_error_result(t, ctx, tb) for t in group]
-        if timers is not None:
-            timers["photometry"] += _timer() - tic
         for task, res in zip(group, got):
             if log_messages:
                 res.details.setdefault("errors", []).extend(log_messages)
@@ -354,10 +352,8 @@ def photometry_batch(ctx, tasks: list, output_folder: Optional[str] = None,
                            version=version, plot_folder=plot_folder)
             res.details["halo_switch_deferred"] = True
     elif switch:
-        tic = _timer()
-        out = _run_halo_switch(ctx, switch, results)
-        if timers is not None:
-            timers["photometry"] += _timer() - tic
+        with span("photometry"):
+            out = _run_halo_switch(ctx, switch, results)
         if out is not None:
             for t, res in zip(switch, out):
                 results[int(t["starid"])] = res
@@ -372,37 +368,35 @@ def photometry_batch(ctx, tasks: list, output_folder: Optional[str] = None,
                and _needs_deblend_switch(results[int(t["starid"])], settings)]
     if deblend:
         logger.warning("Auto-switching %d blended target(s) to linPSF photometry", len(deblend))
-        tic = _timer()
-        try:
-            with capture_warnings() as lin_messages:
-                out = _run_method(ctx, [int(t["starid"]) for t in deblend], "linpsf",
-                                  keep_diag=keep_diag)
-        except _PROPAGATE:
-            raise
-        except Exception:
-            logger.exception("Deblend switch failed; keeping aperture results")
-            out = []
-        for t, res in zip(deblend, out):
-            if res.status not in (STATUS.OK, STATUS.WARNING):
-                continue  # keep the aperture result on linPSF failure
-            prev = results[int(t["starid"])]
-            res.details["completeness"] = prev.details.get("completeness")
-            for key in ("nearest_neighbour_px", "nearest_significant_neighbour_px"):
-                if prev.details.get(key) is not None:
-                    res.details[key] = prev.details[key]
-            res.details.setdefault("errors", []).append(
-                "Automatically switched to linPSF photometry (aperture mask completeness "
-                f"{100 * prev.details.get('completeness', float('nan')):.0f}%)")
-            if lin_messages:
-                res.details["errors"].extend(lin_messages)
-            _decorate(res, t)
-            results[int(t["starid"])] = res
-        if timers is not None:
-            timers["photometry"] += _timer() - tic
+        with span("photometry"):
+            try:
+                with capture_warnings() as lin_messages:
+                    out = _run_method(ctx, [int(t["starid"]) for t in deblend], "linpsf",
+                                      keep_diag=keep_diag)
+            except _PROPAGATE:
+                raise
+            except Exception:
+                logger.exception("Deblend switch failed; keeping aperture results")
+                out = []
+            for t, res in zip(deblend, out):
+                if res.status not in (STATUS.OK, STATUS.WARNING):
+                    continue  # keep the aperture result on linPSF failure
+                prev = results[int(t["starid"])]
+                res.details["completeness"] = prev.details.get("completeness")
+                for key in ("nearest_neighbour_px", "nearest_significant_neighbour_px"):
+                    if prev.details.get(key) is not None:
+                        res.details[key] = prev.details[key]
+                res.details.setdefault("errors", []).append(
+                    "Automatically switched to linPSF photometry (aperture mask completeness "
+                    f"{100 * prev.details.get('completeness', float('nan')):.0f}%)")
+                if lin_messages:
+                    res.details["errors"].extend(lin_messages)
+                _decorate(res, t)
+                results[int(t["starid"])] = res
 
     out = [results[int(t["starid"])] for t in tasks]
     if save:
-        _save_results_parallel(ctx, out, output_folder, version, timers=timers)
+        _save_results_parallel(ctx, out, output_folder, version)
     if plot_folder is not None:
         _plot_results(ctx, out, plot_folder)
     return out
@@ -418,13 +412,12 @@ def _plot_results(ctx, results: list, plot_folder: str):
             plot_target_diagnostics(res, ctx, plot_folder)
 
 
-def _save_results_parallel(ctx, results: list, output_folder, version,
-                           timers: Optional[dict] = None):
+def _save_results_parallel(ctx, results: list, output_folder, version):
     """Write light-curve products for OK/WARNING results on a small thread
-    pool (zlib releases the GIL).  A failed write demotes that target to
-    STATUS.ERROR with the traceback (BasePhotometry.py:1417-1728).  Deferred
-    halo-switch candidates are written by their queue's flush."""
-    tic = _timer()
+    pool (zlib releases the GIL), in the span ``save``.  A failed write
+    demotes that target to STATUS.ERROR with the traceback
+    (BasePhotometry.py:1417-1728).  Deferred halo-switch candidates are
+    written by their queue's flush."""
     jobs = []
     for res in results:
         if res.status not in (STATUS.OK, STATUS.WARNING) or res.details.get("halo_switch_deferred"):
@@ -445,16 +438,15 @@ def _save_results_parallel(ctx, results: list, output_folder, version,
             res.details.setdefault("errors", []).append(traceback.format_exc().strip())
 
     workers = load_settings().getint("products", "writer_threads", fallback=4)
-    if workers <= 0 or len(jobs) == 1:
-        for res, outdir in jobs:
-            _write(res, outdir)
-    else:
-        from concurrent.futures import ThreadPoolExecutor
-        with ThreadPoolExecutor(max_workers=min(workers, len(jobs))) as pool:
-            list(pool.map(lambda j: _write(*j), jobs))
-    if timers is not None:
-        timers["save"] += _timer() - tic
-        timers["n_products"] = timers.get("n_products", 0) + len(jobs)
+    with span("save"):
+        if workers <= 0 or len(jobs) == 1:
+            for res, outdir in jobs:
+                _write(res, outdir)
+        else:
+            from concurrent.futures import ThreadPoolExecutor
+            with ThreadPoolExecutor(max_workers=min(workers, len(jobs))) as pool:
+                list(pool.map(lambda j: _write(*j), jobs))
+    count("n_products", len(jobs))
 
 
 def photometry_single(starid: int, input_folder: str, method: Optional[str] = None,

@@ -7,7 +7,9 @@ and the per-task unit of run_tessphot_mpi.py:148-196): batches are leased
 per (sector, camera, ccd, datasource, cadence) so one device context serves
 hundreds of targets, and halo-switch candidates accumulate across leases in
 a ``HaloSwitchQueue``.  The optional ``timers`` dict decomposes the wall
-into the pipeline's phases.
+into the pipeline's phases: ``run_drain`` opens the process's recorder
+(``utils.profiling``) on it, and the spans and counters of every layer
+below add into it.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from timeit import default_timer
 from typing import Optional
 
 from ..taskmanager import TaskManager
+from ..utils.profiling import StageTimer, count, span
 from .dispatcher import ContextCache, HaloSwitchQueue, photometry_batch
 
 __all__ = ["run_drain", "task_to_result", "new_timers"]
@@ -39,9 +42,22 @@ def task_to_result(task, res, elaptime, worker_wait_time=None) -> dict:
 
 
 def new_timers() -> dict:
-    """Fresh accumulator for run_drain's wall decomposition (seconds)."""
+    """Fresh accumulator for run_drain's wall decomposition (seconds) and
+    its counters.  Every key is present, at 0 where its path never ran.
+
+    Phases of the drain loop: ``lease``, ``context``, ``photometry``,
+    ``save``, ``sqlite``, ``wall``.  Inside them: ``aperture``, ``halo``,
+    ``linpsf``, ``psf`` (each method's extraction, forced or chosen by a
+    switch; their sum is at most ``photometry``), ``context.read`` (a TPF
+    read from its file) and ``context.upload`` (a context's planes copied
+    to the device), ``save.compress`` (gzip in the product writer's
+    threads, summed over them).  Counters: ``n_done``, ``n_batches``, ``n_products``
+    and ``fits_bytes`` (HDU data bytes decoded by ``io.fits.read_fits``).
+    """
     return {"lease": 0.0, "context": 0.0, "photometry": 0.0, "save": 0.0,
-            "sqlite": 0.0, "wall": 0.0, "n_done": 0, "n_batches": 0}
+            "sqlite": 0.0, "wall": 0.0, "n_done": 0, "n_batches": 0, "n_products": 0,
+            "aperture": 0.0, "halo": 0.0, "linpsf": 0.0, "psf": 0.0, "context.read": 0.0,
+            "context.upload": 0.0, "save.compress": 0.0, "fits_bytes": 0}
 
 
 def run_drain(input_folder: str, version: int,
@@ -64,15 +80,14 @@ def run_drain(input_folder: str, version: int,
     """
     constraints = dict(constraints or {})
     output_folder = output_folder or input_folder
-    t = timers if timers is not None else new_timers()
-    tic_wall = default_timer()
-
-    with TaskManager(input_folder, cleanup=all_tasks, summary=summary) as tm, \
+    recorder = StageTimer(timers if timers is not None else new_timers())
+    with recorder.recording(), span("wall"), \
+            TaskManager(input_folder, cleanup=all_tasks, summary=summary) as tm, \
             ContextCache(device=device, mesh=mesh) as ctx_cache:
         n_done = 0
         # Halo-switch candidates accumulate across lease batches and rerun
         # as one halo batch; single-task modes keep the inline switch:
-        halo_queue = HaloSwitchQueue(timers=t) if all_tasks and not method else None
+        halo_queue = HaloSwitchQueue() if all_tasks and not method else None
 
         def flush_halo(force=False):
             nonlocal n_done
@@ -83,40 +98,36 @@ def run_drain(input_folder: str, version: int,
             if not flushed:
                 return
             elap = (default_timer() - tic) / len(flushed)
-            tic = default_timer()
-            tm.save_results([task_to_result(tk, res, elap) for tk, res in flushed])
-            t["sqlite"] += default_timer() - tic
+            with span("sqlite"):
+                tm.save_results([task_to_result(tk, res, elap) for tk, res in flushed])
             for tk, res in flushed:
                 n_done += 1
                 logger.info("Priority %d: TIC %d -> %s (halo flush)", tk["priority"],
                             tk["starid"], res.status.name)
 
         while True:
-            tic = default_timer()
-            if random_task and not all_tasks:
-                batch = [tm.get_random_task()]
-                if batch[0] is None:
-                    batch = []
-            elif all_tasks:
-                batch = tm.get_task_batch(batch_size=batch_size, **constraints)
-            else:
-                task = tm.get_task(**constraints)
-                batch = [task] if task else []
-            t["lease"] += default_timer() - tic
+            with span("lease"):
+                if random_task and not all_tasks:
+                    batch = [tm.get_random_task()]
+                    if batch[0] is None:
+                        batch = []
+                elif all_tasks:
+                    batch = tm.get_task_batch(batch_size=batch_size, **constraints)
+                else:
+                    task = tm.get_task(**constraints)
+                    batch = [task] if task else []
             if not batch:
                 break
             # The queue pins its SectorContext: resolve it before the
             # ContextCache evicts that context for a different CCD.
             if halo_queue is not None and not halo_queue.matches(batch[0]):
                 flush_halo(force=True)
-            tic = default_timer()
-            tm.start_tasks([tk["priority"] for tk in batch])
-            t["sqlite"] += default_timer() - tic
+            with span("sqlite"):
+                tm.start_tasks([tk["priority"] for tk in batch])
 
             tic_batch = default_timer()
-            tic = default_timer()
-            ctx, cached = ctx_cache.get(input_folder, batch[0])
-            t["context"] += default_timer() - tic
+            with span("context"):
+                ctx, cached = ctx_cache.get(input_folder, batch[0])
             try:
                 if method:
                     for tk in batch:
@@ -124,17 +135,16 @@ def run_drain(input_folder: str, version: int,
                 results = photometry_batch(ctx, batch, output_folder=products_folder,
                                            version=version,
                                            plot_folder=output_folder if plot else None,
-                                           halo_queue=halo_queue, timers=t)
+                                           halo_queue=halo_queue)
             finally:
                 ctx_cache.release(ctx, cached)
             elaptime = (default_timer() - tic_batch) / max(len(batch), 1)
             # Deferred halo-switch candidates stay leased until their flush:
             ready = [(tk, res) for tk, res in zip(batch, results)
                      if not res.details.get("halo_switch_deferred")]
-            tic = default_timer()
-            tm.save_results([task_to_result(tk, res, elaptime) for tk, res in ready])
-            t["sqlite"] += default_timer() - tic
-            t["n_batches"] += 1
+            with span("sqlite"):
+                tm.save_results([task_to_result(tk, res, elaptime) for tk, res in ready])
+            count("n_batches")
             for tk, res in ready:
                 n_done += 1
                 logger.info("Priority %d: TIC %d -> %s", tk["priority"], tk["starid"],
@@ -145,6 +155,5 @@ def run_drain(input_folder: str, version: int,
                 break
         flush_halo(force=True)
         logger.info("%d task(s) processed.", n_done)
-        t["wall"] += default_timer() - tic_wall
-        t["n_done"] += n_done
+        count("n_done", n_done)
     return n_done

@@ -48,6 +48,7 @@ from ..parallel.mesh import TARGET_AXIS, TIME_AXIS, make_mesh, shard_cube
 from ..parallel.sharded import pad_to_multiple, sharded_band_extract, sharded_extract_flux
 from ..quality import TESSQualityFlags
 from ..utils.mathutils import mag2flux
+from ..utils.profiling import span
 from .metrics import compute_metrics_batch, crowding_metrics_batch
 from .motion import MotionModel
 from .status import STATUS
@@ -143,16 +144,18 @@ def _to_bfloat16(x: torch.Tensor) -> torch.Tensor:
 
 def _on_device(x, dtype, dev) -> torch.Tensor:
     """numpy or tensor -> contiguous tensor of ``dtype`` on ``dev`` (no copy
-    if already so).  Another dtype is cast on ``dev``, ``_CAST_FRAMES``
-    frames at a time, so no second full-size copy is made on the way."""
+    if already so), in the span ``context.upload``.  Another dtype is cast
+    on ``dev``, ``_CAST_FRAMES`` frames at a time, so no second full-size
+    copy is made on the way."""
     t = _as_tensor(x)
-    if t.dtype == dtype:
-        return t.to(dev).contiguous()
-    cast = _to_bfloat16 if dtype == torch.bfloat16 else (lambda b: b)
-    out = torch.empty(t.shape, dtype=dtype, device=dev)
-    for a in range(0, t.shape[0], _CAST_FRAMES):
-        out[a:a + _CAST_FRAMES].copy_(cast(t[a:a + _CAST_FRAMES].to(dev)))
-    return out
+    with span("context.upload"):
+        if t.dtype == dtype:
+            return t.to(dev).contiguous()
+        cast = _to_bfloat16 if dtype == torch.bfloat16 else (lambda b: b)
+        out = torch.empty(t.shape, dtype=dtype, device=dev)
+        for a in range(0, t.shape[0], _CAST_FRAMES):
+            out[a:a + _CAST_FRAMES].copy_(cast(t[a:a + _CAST_FRAMES].to(dev)))
+        return out
 
 
 def _on_host(x, dtype=None) -> torch.Tensor:
@@ -424,7 +427,8 @@ class TpfContext:
             raise FileNotFoundError("Target Pixel File not found")
         if len(files) > 1:
             raise FileNotFoundError("Multiple Target Pixel Files found matching pattern")
-        tpf = read_tpf(files[0])
+        with span("context.read"):
+            tpf = read_tpf(files[0])
         self.tpf = tpf
         self.input_folder = input_folder
         self.sector, self.camera, self.ccd = tpf.sector, tpf.camera, tpf.ccd

@@ -30,6 +30,7 @@ import io as _io
 import numpy as np
 
 from ..native_ops import bswap_f32, gunzip, gzip_compress
+from ..utils.profiling import count, span
 
 BLOCK = 2880
 
@@ -412,14 +413,22 @@ def _strip_scaling(hdr: Header) -> None:
             del hdr[key]
 
 
+def _data_bytes(hdr: Header) -> int:
+    """Bytes of an HDU's data array (its heap and padding not counted)."""
+    naxis = int(hdr.get("NAXIS", 0))
+    if naxis == 0:
+        return 0
+    shape = [int(hdr[f"NAXIS{i}"]) for i in range(naxis, 0, -1)]
+    return int(np.prod(shape)) * (abs(int(hdr["BITPIX"])) // 8)
+
+
 def _read_data(fh, hdr: Header):
     naxis = int(hdr.get("NAXIS", 0))
     if naxis == 0:
         return None, "image"
     xtension = str(hdr.get("XTENSION", "")).strip().upper()
     shape = [int(hdr[f"NAXIS{i}"]) for i in range(naxis, 0, -1)]
-    nbytes_per_elem = abs(int(hdr["BITPIX"])) // 8
-    total = int(np.prod(shape)) * nbytes_per_elem
+    total = _data_bytes(hdr)
     raw = fh.read(total)
     if len(raw) < total:
         raise EOFError("Truncated FITS data")
@@ -521,7 +530,10 @@ def _read_data(fh, hdr: Header):
 
 
 def read_fits(path) -> list:
-    """Read all HDUs of a FITS file (optionally gzipped). Returns [HDU, ...]."""
+    """Read all HDUs of a FITS file (optionally gzipped). Returns [HDU, ...].
+
+    Adds the bytes of HDU data decoded (after inflation) to the counter
+    ``fits_bytes`` of the open recorder (``utils.profiling``)."""
     hdus = []
     with _open_maybe_gzip(path, "rb") as fh:
         while True:
@@ -535,6 +547,7 @@ def read_fits(path) -> list:
             hdus.append(HDU(data=data, header=hdr, kind=kind))
     if not hdus:
         raise OSError(f"Not a FITS file: {path}")
+    count("fits_bytes", sum(_data_bytes(h.header) for h in hdus))
     return hdus
 
 
@@ -695,7 +708,8 @@ def write_fits(path, hdus: list, overwrite: bool = True, checksum: bool = True,
         # One-shot gzip with MTIME 0 (libdeflate where linked, GIL-free):
         # the product writer threads overlap here, and a product's bytes
         # depend on its content only.
-        blob = gzip_compress(payload, level=gzip_level)
+        with span("save.compress"):
+            blob = gzip_compress(payload, level=gzip_level)
         with open(path, "wb") as fh:
             fh.write(blob)
     else:

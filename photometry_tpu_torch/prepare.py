@@ -37,7 +37,6 @@ import contextlib
 import logging
 import os
 import sqlite3
-from time import perf_counter
 from typing import Optional
 
 import numpy as np
@@ -55,6 +54,7 @@ from .ops.background import estimate_background, radial_coordinates
 from .ops.filters import time_moving_nanmean
 from .quality import PixelQualityFlags, TESSQualityFlags
 from .utils.mathutils import nanmedian
+from .utils.profiling import StageTimer, span
 
 logger = logging.getLogger(__name__)
 
@@ -228,122 +228,124 @@ def prepare_cube(cube, files, input_folder: str, sector: int, camera: int, ccd: 
     cube (or a stand-in with its methods).
 
     ``files`` are the sector-CCD's FFIs in time order.  Returns the wall
-    seconds of each stage this call ran.
+    seconds of each stage this call ran (``backgrounds_fit``,
+    ``backgrounds_smooth``, ``images``, ``shenanigans``, ``quality_tpf``,
+    ``movement``), the seconds stages 1 and 2 waited on the frame loader
+    (``frames.read``) and the bytes of HDU data read from FITS files
+    (``fits_bytes``): the spans and counters (``utils.profiling``) of the
+    recorder this call opens on the dict it returns.
     """
     dev = resolve_device(device)
     T = len(files)
     cadence = sector_info(sector).ffi_cadence
     time_smooth = {1800: 3, 600: 9, 200: 27}.get(cadence, 3)
-    first = read_ffi(files[0])
-    H, W = first.data.shape
     walls = {}
+    with StageTimer(walls).recording():
+        first = read_ffi(files[0])
+        H, W = first.data.shape
 
-    radius_image = None
-    if camera is not None and ccd is not None:
-        # Flight frames carry the +44 column offset; simulated/cropped ones
-        # are in science coordinates.  Sub-CCD frames get the corner-ring
-        # fallback of estimate_background.
-        radius_image = radial_coordinates((H, W), camera, ccd,
-                                          col_offset=44 if first.is_tess else 0)
-    if tile is None:
-        # 64 px tiles on full CCDs; at least ~6x6 tiles on smaller frames.
-        tile = int(min(64, max(8, min(H, W) // 6)))
-    source_mask = _catalog_source_mask(
-        input_folder, sector, camera, ccd, (H, W),
-        first.wcs if _wcs_roundtrip_ok(first.wcs, (H, W)) else None)
-    if source_mask is not None:
-        logger.info("Masking %.1f%% of pixels as catalog sources for the background fit.",
-                    100.0 * source_mask.mean())
-        source_mask = torch.from_numpy(source_mask).to(dev)
+        radius_image = None
+        if camera is not None and ccd is not None:
+            # Flight frames carry the +44 column offset; simulated/cropped ones
+            # are in science coordinates.  Sub-CCD frames get the corner-ring
+            # fallback of estimate_background.
+            radius_image = radial_coordinates((H, W), camera, ccd,
+                                              col_offset=44 if first.is_tess else 0)
+        if tile is None:
+            # 64 px tiles on full CCDs; at least ~6x6 tiles on smaller frames.
+            tile = int(min(64, max(8, min(H, W) // 6)))
+        source_mask = _catalog_source_mask(
+            input_folder, sector, camera, ccd, (H, W),
+            first.wcs if _wcs_roundtrip_ok(first.wcs, (H, W)) else None)
+        if source_mask is not None:
+            logger.info("Masking %.1f%% of pixels as catalog sources for the background fit.",
+                        100.0 * source_mask.mean())
+            source_mask = torch.from_numpy(source_mask).to(dev)
 
-    # -- Stage 1: backgrounds and NotUsedForBackground / ManualExclude flags --
-    if not cube.is_done("backgrounds"):
-        tic = perf_counter()
-        logger.info("Fitting backgrounds for %d frames...", T)
-        frames = iter_frames(files)
-        for t0 in range(0, T, chunk):
-            t1 = min(t0 + chunk, T)
-            stack = np.empty((t1 - t0, H, W), np.float32)
-            manex = np.zeros((t1 - t0, H, W), bool)
-            for i in range(t1 - t0):
-                frame = next(frames)
-                stack[i] = frame.data
-                manex[i] = manual_exclude_mask(frame.data, frame.header, frame.is_tess)
-            bkg, flags = background_flags(
-                torch.from_numpy(stack).to(dev), torch.from_numpy(manex).to(dev), source_mask,
-                radius_image=radius_image, tile=tile, flux_cutoff=flux_cutoff,
-                hist_stride=hist_stride)
-            cube.write_block("backgrounds", t0, bkg.cpu().numpy())
-            cube.write_block("pixelflags", t0, flags.cpu().numpy())
-        walls["backgrounds_fit"] = perf_counter() - tic
-        tic = perf_counter()
-        logger.info("Smoothing backgrounds in time (window %d)...", time_smooth)
-        smooth_backgrounds(cube, time_smooth, chunk, dev)
-        cube.attrs["time_smooth"] = time_smooth
-        cube.attrs["bkgshe_threshold"] = bkgshe_threshold
-        cube.mark_done("backgrounds")
-        walls["backgrounds_smooth"] = perf_counter() - tic
+        # -- Stage 1: backgrounds and NotUsedForBackground / ManualExclude flags --
+        if not cube.is_done("backgrounds"):
+            logger.info("Fitting backgrounds for %d frames...", T)
+            with span("backgrounds_fit"):
+                frames = iter_frames(files)
+                for t0 in range(0, T, chunk):
+                    t1 = min(t0 + chunk, T)
+                    stack = np.empty((t1 - t0, H, W), np.float32)
+                    manex = np.zeros((t1 - t0, H, W), bool)
+                    for i in range(t1 - t0):
+                        with span("frames.read"):
+                            frame = next(frames)
+                        stack[i] = frame.data
+                        manex[i] = manual_exclude_mask(frame.data, frame.header, frame.is_tess)
+                    bkg, flags = background_flags(
+                        torch.from_numpy(stack).to(dev), torch.from_numpy(manex).to(dev),
+                        source_mask, radius_image=radius_image, tile=tile,
+                        flux_cutoff=flux_cutoff, hist_stride=hist_stride)
+                    cube.write_block("backgrounds", t0, bkg.cpu().numpy())
+                    cube.write_block("pixelflags", t0, flags.cpu().numpy())
+            logger.info("Smoothing backgrounds in time (window %d)...", time_smooth)
+            with span("backgrounds_smooth"):
+                smooth_backgrounds(cube, time_smooth, chunk, dev)
+                cube.attrs["time_smooth"] = time_smooth
+                cube.attrs["bkgshe_threshold"] = bkgshe_threshold
+                cube.mark_done("backgrounds")
 
-    # -- Stage 2: images, vectors, WCS, sumimage --------------------------------
-    if not cube.is_done("images"):
-        tic = perf_counter()
-        logger.info("Processing individual images...")
-        _images_stage(cube, files, first, sector, camera, ccd, chunk,
-                      backgrounds_pixels_threshold)
-        walls["images"] = perf_counter() - tic
+        # -- Stage 2: images, vectors, WCS, sumimage ----------------------------
+        if not cube.is_done("images"):
+            logger.info("Processing individual images...")
+            with span("images"):
+                _images_stage(cube, files, first, sector, camera, ccd, chunk,
+                              backgrounds_pixels_threshold)
 
-    # -- Stage 3: Background Shenanigans ------------------------------------------
-    if not cube.is_done("shenanigans"):
-        tic = perf_counter()
-        logger.info("Detecting background shenanigans...")
-        _shenanigans_stage(cube, chunk, bkgshe_threshold, dev)
-        walls["shenanigans"] = perf_counter() - tic
+        # -- Stage 3: Background Shenanigans ------------------------------------
+        if not cube.is_done("shenanigans"):
+            logger.info("Detecting background shenanigans...")
+            with span("shenanigans"):
+                _shenanigans_stage(cube, chunk, bkgshe_threshold, dev)
 
-    # -- Stage 4: quality transfer from TPFs --------------------------------------
-    if not cube.is_done("quality_tpf"):
-        tic = perf_counter()
-        tpffiles = discovery.find_tpf_files(input_folder, sector=sector, camera=camera,
-                                            ccd=ccd, findmax=5)
-        if tpffiles:
-            quality = cube.quality.copy()
-            timecorr = cube.timecorr
-            time_start, time_stop = cube.time_bounds()
-            q_tpf = np.zeros(T, np.int32)
-            for f in tpffiles:
-                q_tpf |= quality_from_tpf(f, time_start - timecorr, time_stop - timecorr)
-            cube.write_vectors(quality=quality | q_tpf)
-        else:
-            logger.warning("No TPF files found; quality flags not propagated.")
-        cube.mark_done("quality_tpf")
-        walls["quality_tpf"] = perf_counter() - tic
+        # -- Stage 4: quality transfer from TPFs --------------------------------
+        if not cube.is_done("quality_tpf"):
+            with span("quality_tpf"):
+                tpffiles = discovery.find_tpf_files(input_folder, sector=sector,
+                                                    camera=camera, ccd=ccd, findmax=5)
+                if tpffiles:
+                    quality = cube.quality.copy()
+                    timecorr = cube.timecorr
+                    time_start, time_stop = cube.time_bounds()
+                    q_tpf = np.zeros(T, np.int32)
+                    for f in tpffiles:
+                        q_tpf |= quality_from_tpf(f, time_start - timecorr,
+                                                  time_stop - timecorr)
+                    cube.write_vectors(quality=quality | q_tpf)
+                else:
+                    logger.warning("No TPF files found; quality flags not propagated.")
+                cube.mark_done("quality_tpf")
 
-    # -- Stage 5: WCS reference frame -------------------------------------------
-    if not cube.is_done("wcs_ref"):
-        ref_tjd = sector_info(sector).reference_time - 2457000
-        time = cube.time
-        wcs_ok = np.array([bool(s.strip()) for s in cube.wcs_strings()])
-        good = (cube.quality == 0) & wcs_ok
-        if not np.any(good):
-            raise RuntimeError("No good frames for WCS reference")
-        cand = np.where(good)[0]
-        cube.attrs["WCS_REF_FRAME"] = int(cand[np.argmin(np.abs(time[cand] - ref_tjd))])
-        cube.mark_done("wcs_ref")
+        # -- Stage 5: WCS reference frame ---------------------------------------
+        if not cube.is_done("wcs_ref"):
+            ref_tjd = sector_info(sector).reference_time - 2457000
+            time = cube.time
+            wcs_ok = np.array([bool(s.strip()) for s in cube.wcs_strings()])
+            good = (cube.quality == 0) & wcs_ok
+            if not np.any(good):
+                raise RuntimeError("No good frames for WCS reference")
+            cand = np.where(good)[0]
+            cube.attrs["WCS_REF_FRAME"] = int(cand[np.argmin(np.abs(time[cand] - ref_tjd))])
+            cube.mark_done("wcs_ref")
 
-    # -- Stage 6: movement kernels (optional) -------------------------------------
-    if calc_movement_kernel and not cube.is_done("movement"):
-        tic = perf_counter()
-        logger.info("Calculating image movement kernels (batched ECC)...")
-        refindx = int(cube.attrs["WCS_REF_FRAME"])
-        ref_img = np.nan_to_num(cube.images(refindx, refindx + 1)[0])
-        mm = MotionModel(warpmode="translation", image_ref=ref_img)
-        kernels = np.empty((T, mm.n_params), np.float64)
-        for t0 in range(0, T, chunk):
-            t1 = min(t0 + chunk, T)
-            imgs = np.nan_to_num(cube.images(t0, t1), copy=False)
-            kernels[t0:t1] = mm.calc_kernels_batch(imgs, device=dev)
-        cube.write_movement_kernel(kernels, "translation", refindx)
-        cube.mark_done("movement")
-        walls["movement"] = perf_counter() - tic
+        # -- Stage 6: movement kernels (optional) -------------------------------
+        if calc_movement_kernel and not cube.is_done("movement"):
+            logger.info("Calculating image movement kernels (batched ECC)...")
+            with span("movement"):
+                refindx = int(cube.attrs["WCS_REF_FRAME"])
+                ref_img = np.nan_to_num(cube.images(refindx, refindx + 1)[0])
+                mm = MotionModel(warpmode="translation", image_ref=ref_img)
+                kernels = np.empty((T, mm.n_params), np.float64)
+                for t0 in range(0, T, chunk):
+                    t1 = min(t0 + chunk, T)
+                    imgs = np.nan_to_num(cube.images(t0, t1), copy=False)
+                    kernels[t0:t1] = mm.calc_kernels_batch(imgs, device=dev)
+                cube.write_movement_kernel(kernels, "translation", refindx)
+                cube.mark_done("movement")
     return walls
 
 
@@ -371,7 +373,8 @@ def _images_stage(cube, files, first, sector, camera, ccd, chunk,
         flux_blk = np.empty((t1 - t0, H, W), np.float32)
         err_blk = np.empty((t1 - t0, H, W), np.float32)
         for i, k in enumerate(range(t0, t1)):
-            frame = next(frames)
+            with span("frames.read"):
+                frame = next(frames)
             hdr = frame.header
             time_start[k] = hdr["TSTART"]
             time_stop[k] = hdr["TSTOP"]
