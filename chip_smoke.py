@@ -3284,7 +3284,7 @@ def prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result,
     fps3 = T / walls["shenanigans"]
     print(f"phase 5 slice: prepare_cube of {T} frames (stages 1-5) in {wall:.2f} s ({card}); "
           "stage walls " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()
-                                     if k != "fits_bytes")
+                                     if k not in ("fits_bytes", "fits_table_bytes"))
           + f"; {walls['fits_bytes'] / 1e9:.2f} GB of FITS data read"
           + f"; stage 1 {fps1:.2f} frames/s, stage 3 {fps3:.2f} frames/s; device busy "
           f"{busy:.1f} ms = {100 * busy / (wall * 1e3):.1f}% of the wall (torch.profiler on); "

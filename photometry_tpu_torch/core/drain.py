@@ -51,13 +51,15 @@ def new_timers() -> dict:
     switch; their sum is at most ``photometry``), ``context.read`` (a TPF
     read from its file) and ``context.upload`` (a context's planes copied
     to the device), ``save.compress`` (gzip in the product writer's
-    threads, summed over them).  Counters: ``n_done``, ``n_batches``, ``n_products``
-    and ``fits_bytes`` (HDU data bytes decoded by ``io.fits.read_fits``).
+    threads, summed over them).  Counters: ``n_done``, ``n_batches``, ``n_products``,
+    ``fits_bytes`` (HDU data bytes decoded by ``io.fits.read_fits``) and
+    ``fits_table_bytes`` (those of them in numeric table columns).
     """
     return {"lease": 0.0, "context": 0.0, "photometry": 0.0, "save": 0.0,
             "sqlite": 0.0, "wall": 0.0, "n_done": 0, "n_batches": 0, "n_products": 0,
             "aperture": 0.0, "halo": 0.0, "linpsf": 0.0, "psf": 0.0, "context.read": 0.0,
-            "context.upload": 0.0, "save.compress": 0.0, "fits_bytes": 0}
+            "context.upload": 0.0, "save.compress": 0.0, "fits_bytes": 0,
+            "fits_table_bytes": 0}
 
 
 def run_drain(input_folder: str, version: int,

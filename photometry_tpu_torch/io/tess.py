@@ -185,9 +185,10 @@ def read_tpf(path) -> TargetPixelFile:
     tab = pixels.data
     # Drop cadences with undefined timestamps (seen in sector-1 files):
     good = np.isfinite(tab["TIME"])
+    every = bool(good.all())
     def col(name, default=None):
         if name in tab:
-            return np.asarray(tab[name])[good]
+            return np.asarray(tab[name]) if every else np.asarray(tab[name])[good]
         return default
 
     ap_hdr = aperture.header if aperture is not None else Header()

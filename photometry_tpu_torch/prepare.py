@@ -232,7 +232,8 @@ def prepare_cube(cube, files, input_folder: str, sector: int, camera: int, ccd: 
     ``backgrounds_smooth``, ``images``, ``shenanigans``, ``quality_tpf``,
     ``movement``), the seconds stages 1 and 2 waited on the frame loader
     (``frames.read``) and the bytes of HDU data read from FITS files
-    (``fits_bytes``): the spans and counters (``utils.profiling``) of the
+    (``fits_bytes``; ``fits_table_bytes`` those of numeric table columns,
+    stage 4's TPF): the spans and counters (``utils.profiling``) of the
     recorder this call opens on the dict it returns.
     """
     dev = resolve_device(device)

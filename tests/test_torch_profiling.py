@@ -37,7 +37,7 @@ from photometry_tpu_torch.utils.profiling import StageTimer, count, span
 OLD_KEYS = {"lease", "context", "photometry", "save", "sqlite", "wall", "n_done", "n_batches",
             "n_products"}
 NEW_KEYS = {"aperture", "halo", "linpsf", "psf", "context.read", "context.upload",
-            "save.compress", "fits_bytes"}
+            "save.compress", "fits_bytes", "fits_table_bytes"}
 
 
 def test_span_and_count_add_into_the_open_recorders_only():
