@@ -333,6 +333,8 @@ from unittest import mock
 
 import numpy as np
 
+from perfbench import psf_work
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 RTOL, ATOL = 1e-4, 1e-3        # float32 sums in another order (tests/test_bandext.py:41)
 H = W = 2048
@@ -985,34 +987,10 @@ def psf_fit_check(got, want, valid, S, tier, what):
     return worst
 
 
-def psf_flops(B, S, K, h, w, n_iters):
-    """Floating-point operations of psf_warm_fit on B instances, counted
-    from the first kernel's code (an FMA is 2), as (normal equations, rest):
-    per iteration and for the final pass, per pixel, the 3S(3S+1)/2 + 3S
-    normal-equation FMAs (with the weight products); the rest is the
-    weights once, per iteration and for the final pass the axis tables
-    (Catmull-Rom weights and K-term taps, values and derivatives, per star
-    and row/column), per pixel and star the cutoff, the K-term render and
-    the Jacobian row, then the damped Cholesky and two triangular solves
-    and the update, and at the end the covariance Cholesky and the S
-    inverse columns.  The same count of the same work whatever implements
-    it."""
-    P3 = 3 * S
-    npix = h * w
-    normal = B * (n_iters + 1) * npix * (P3 * (P3 + 1) + 3 * P3)
-    axis = S * (h + w) * (64 + 16 * K + 4)
-    pixel = npix * (S * (10 + 6 * K) + 1)
-    chol = 2 * P3 ** 3 // 3 + 3 * P3
-    step = axis + pixel + chol + 2 * P3 ** 2 + 10 * S
-    final = axis + pixel + 2 * npix + chol + S * P3 ** 2
-    return normal, B * (5 * npix + n_iters * step + final)
-
-
-def psf_bytes(B, S, h, w):
-    """Bytes psf_warm_fit must move: images and backgrounds (f32) and the
-    MOMF mask (u8) per pixel, p0, valid (u8) and onehot per star, and
-    params, flux_ap and fluxvar out."""
-    return B * (9 * h * w + 12 * S + S + 4 * S + 12 * S + 8)
+#: Operations (normal equations, rest) and bytes of psf_warm_fit launches:
+#: the benchmark's counts (``perfbench/psf_work.py``), the same work whatever
+#: implements it.
+psf_flops, psf_bytes = psf_work.flops, psf_work.nbytes
 
 
 def ptxas_summary(log):

@@ -48,18 +48,24 @@ def new_timers() -> dict:
     Phases of the drain loop: ``lease``, ``context``, ``photometry``,
     ``save``, ``sqlite``, ``wall``.  Inside them: ``aperture``, ``halo``,
     ``linpsf``, ``psf`` (each method's extraction, forced or chosen by a
-    switch; their sum is at most ``photometry``), ``context.read`` (a TPF
+    switch; their sum is at most ``photometry``), ``psf.setup``,
+    ``psf.gather``, ``psf.fit`` and ``psf.results`` (the steps of a PSF
+    extraction, inside ``psf``), ``context.read`` (a TPF
     read from its file) and ``context.upload`` (a context's planes copied
     to the device), ``save.compress`` (gzip in the product writer's
     threads, summed over them).  Counters: ``n_done``, ``n_batches``, ``n_products``,
-    ``fits_bytes`` (HDU data bytes decoded by ``io.fits.read_fits``) and
-    ``fits_table_bytes`` (those of them in numeric table columns).
+    ``fits_bytes`` (HDU data bytes decoded by ``io.fits.read_fits``),
+    ``fits_table_bytes`` (those of them in numeric table columns),
+    ``psf_instances`` (PSF fit instances, one target at one cadence, as
+    handed to the fitter) and ``psf_fused_instances`` (those of them that
+    the fused kernel fitted).
     """
     return {"lease": 0.0, "context": 0.0, "photometry": 0.0, "save": 0.0,
             "sqlite": 0.0, "wall": 0.0, "n_done": 0, "n_batches": 0, "n_products": 0,
             "aperture": 0.0, "halo": 0.0, "linpsf": 0.0, "psf": 0.0, "context.read": 0.0,
             "context.upload": 0.0, "save.compress": 0.0, "fits_bytes": 0,
-            "fits_table_bytes": 0}
+            "fits_table_bytes": 0, "psf.setup": 0.0, "psf.gather": 0.0, "psf.fit": 0.0,
+            "psf.results": 0.0, "psf_instances": 0, "psf_fused_instances": 0}
 
 
 def run_drain(input_folder: str, version: int,

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..core.engine import default_stamp_size
-from ..io.settings import data_dir
+from ..io.settings import data_dir, load_settings
 from ..parallel.mesh import ShardedCube, map_time
 from ..utils.mathutils import mag2flux
 from .prf import PRF
@@ -36,8 +36,14 @@ DUMMY_POS = -1000.0
 
 
 def context_prf(ctx, prf: Optional[PRF] = None) -> PRF:
-    """The PRF of a context: the calibrated table when ``data/psf`` holds
-    one, else an integrated Gaussian (sigma from the PSFSIGMA header).
+    """The PRF of a context: the calibrated table for its camera and CCD in
+    the folder that ``[psf] prf_dir`` of the settings names (laid out as the
+    reference's ``data/psf``: ``start_s0001/`` and ``start_s0004/``).  With
+    the setting empty, the table in the package's own ``data/psf`` where
+    one is there, else an integrated Gaussian (sigma from the PSFSIGMA
+    header).  A named folder without a table for the CCD raises
+    FileNotFoundError: a deployment that names its PRF is never fitted
+    with another.
 
     Memoized on the context as ``ctx._context_prf``, so every consumer of
     one context sees the same object; setting that attribute gives a
@@ -49,14 +55,17 @@ def context_prf(ctx, prf: Optional[PRF] = None) -> PRF:
     if cached is not None:
         return cached
     built = None
-    psf_dir = os.path.join(data_dir(), "psf")
-    if os.path.isdir(psf_dir):
+    named = os.path.expanduser(load_settings().get("psf", "prf_dir", fallback="").strip())
+    psf_dir = named or os.path.join(data_dir(), "psf")
+    if named or os.path.isdir(psf_dir):
+        h, w = ctx.shape
         try:
-            h, w = ctx.shape
             built = PRF.from_mat(psf_dir, max(ctx.sector, 1), ctx.camera, ctx.ccd,
                                  (0, h, 0, w), device=ctx.device)
-        except FileNotFoundError:
-            pass
+        except FileNotFoundError as err:
+            if named:
+                raise FileNotFoundError(f"[psf] prf_dir {named!r} holds no PRF table for "
+                                        f"camera {ctx.camera}, CCD {ctx.ccd}") from err
     if built is None:
         sigma = float(ctx.header.get("PSFSIGMA", 1.25)) if hasattr(ctx, "header") else 1.25
         built = PRF.gaussian(sigma=sigma, device=ctx.device)

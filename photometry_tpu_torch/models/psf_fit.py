@@ -21,7 +21,11 @@ Two routes, chosen by the same static rule as the JAX package:
 Nothing is compiled ahead of time in the port (PyTorch runs eagerly and the
 kernel is built once per process), so the JAX package's AOT prefetch has no
 counterpart here, and nothing catches a kernel failure to re-run the
-fitter.  ``ROUTES`` counts the target groups each route fitted.
+fitter.  ``ROUTES`` counts the target groups each route fitted; the open
+recorder (``utils.profiling``) counts the instances each fit was handed,
+``psf_instances``, and those the fused route fitted, ``psf_fused_instances``,
+and times ``extract_psf_batch``'s steps: ``psf.setup``, ``psf.gather``,
+``psf.fit`` and ``psf.results``.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from ..core.engine import TargetResult, _full_catalog_positions, _host, aperture
 from ..core.metrics import compute_metrics_batch
 from ..core.status import STATUS
 from ..ops.smallsolve import solve_spd_small, spd_inverse_diag_small
+from ..utils.profiling import count, span
 from .psf_common import (CUTOFF_RADIUS, bucket_psf_groups, context_prf, gather_stamp_stack,
                          logical_stamp_mask, minimum_aperture_mask, setup_psf_target)
 from .psf_fused import fused_ok, fused_warm_fit
@@ -264,8 +269,11 @@ def fit_psf_timeseries_batch(images, backgrounds, var_const, p0, valid, mini_ap,
     """
     if fused is None:
         fused = images.is_cuda
+    N, T = images.shape[:2]
+    count("psf_instances", N * (T + 1))          # the first cadences, then every cadence
     if fused and fused_ok(prf, shape, S, lhood_stat):
         ROUTES["fused"] += 1
+        count("psf_fused_instances", N * (T + 1))
         return _fit_fused_batch(images, backgrounds, var_const, p0, valid, mini_ap,
                                 target_idx, prf, shape, S)
     ROUTES["plain"] += 1
@@ -304,133 +312,143 @@ def extract_psf_batch(ctx, starids, lhood_stat: str = "Gaussian_d", prf=None,
     Targets are grouped into padded stamp buckets and each group is fitted
     in one :func:`fit_psf_timeseries_batch` call; pixels outside a target's
     logical stamp are NaN (zero weight in the fit), so bucketing does not
-    change the numbers.  ``fused`` is passed through.
+    change the numbers.  A background that is not finite counts as zero in
+    its pixel's Gaussian_d weight, as it does in FLUX_BKG's sum: the pixel
+    stays in the fit and in the residual sum rather than spoiling its
+    cadence.  ``fused`` is passed through.
     """
-    prf = context_prf(ctx, prf)
-    cat_all = _full_catalog_positions(ctx)
-    var_const = ctx.n_readout * ctx.readnoise ** 2 / ctx.gain ** 2
-    T = ctx.n_times
-    t_nc = ctx.time - ctx.timecorr
-    dev = ctx.device
-
-    setups = [setup_psf_target(ctx, int(sid), cat_all) for sid in starids]
-    groups = bucket_psf_groups(ctx, setups)
+    with span("psf.setup"):
+        prf = context_prf(ctx, prf)
+        cat_all = _full_catalog_positions(ctx)
+        var_const = ctx.n_readout * ctx.readnoise ** 2 / ctx.gain ** 2
+        T = ctx.n_times
+        t_nc = ctx.time - ctx.timecorr
+        dev = ctx.device
+        setups = [setup_psf_target(ctx, int(sid), cat_all) for sid in starids]
+        groups = bucket_psf_groups(ctx, setups)
 
     results = {}
     for (bh, bw), full_group in groups.items():
         for group, N in _group_chunks(full_group, T, bh, bw):
-            S = len(group[0][0].valid)
-            r0s = np.array([g[1] for g in group], np.int32)
-            c0s = np.array([g[2] for g in group], np.int32)
-            imgs = gather_stamp_stack(ctx.images, r0s, c0s, bh, bw, dev)
-            bkgs = gather_stamp_stack(ctx.backgrounds, r0s, c0s, bh, bw, dev)
-            logical = np.stack([logical_stamp_mask(st.stamp, r0, c0, bh, bw)
-                                for st, r0, c0 in group])
-            imgs = torch.where(torch.as_tensor(logical, device=dev)[:, None], imgs, torch.nan)
+            with span("psf.setup"):
+                S = len(group[0][0].valid)
+                r0s = np.array([g[1] for g in group], np.int32)
+                c0s = np.array([g[2] for g in group], np.int32)
+                logical = np.stack([logical_stamp_mask(st.stamp, r0, c0, bh, bw)
+                                    for st, r0, c0 in group])
+                # Star positions in bucket coords; jitter-shift to the first
+                # cadence for all N*S stars in one motion-model call:
+                valid = np.stack([st.valid for st, _, _ in group])          # (N, S)
+                rows0 = np.stack([st.rows0 + (st.stamp[0] - r0) for st, r0, _ in group])
+                cols0 = np.stack([st.cols0 + (st.stamp[2] - c0) for st, _, c0 in group])
+                rows_ccd = np.where(valid, rows0 + r0s[:, None], 0.0)
+                cols_ccd = np.where(valid, cols0 + c0s[:, None], 0.0)
+                jit_all = ctx.motion.jitter_batch(t_nc, cols_ccd.ravel(), rows_ccd.ravel()
+                                                  ).reshape(T, len(group), S, 2)
+                rows_t0 = rows0 + np.where(valid, jit_all[0, :, :, 1], 0.0)
+                cols_t0 = cols0 + np.where(valid, jit_all[0, :, :, 0], 0.0)
+                fluxes0 = np.stack([st.fluxes0 for st, _, _ in group])
+                p0 = np.concatenate([rows_t0, cols_t0, fluxes0], axis=1)    # (N, 3S)
 
-            # Star positions in bucket coords; jitter-shift to the first
-            # cadence for all N*S stars in one motion-model call:
-            valid = np.stack([st.valid for st, _, _ in group])          # (N, S)
-            rows0 = np.stack([st.rows0 + (st.stamp[0] - r0) for st, r0, _ in group])
-            cols0 = np.stack([st.cols0 + (st.stamp[2] - c0) for st, _, c0 in group])
-            rows_ccd = np.where(valid, rows0 + r0s[:, None], 0.0)
-            cols_ccd = np.where(valid, cols0 + c0s[:, None], 0.0)
-            jit_all = ctx.motion.jitter_batch(t_nc, cols_ccd.ravel(), rows_ccd.ravel()
-                                              ).reshape(T, len(group), S, 2)
-            rows_t0 = rows0 + np.where(valid, jit_all[0, :, :, 1], 0.0)
-            cols_t0 = cols0 + np.where(valid, jit_all[0, :, :, 0], 0.0)
-            fluxes0 = np.stack([st.fluxes0 for st, _, _ in group])
-            p0 = np.concatenate([rows_t0, cols_t0, fluxes0], axis=1)    # (N, 3S)
+                tr_b = np.array([st.target_row + (st.stamp[0] - r0) for st, r0, _ in group])
+                tc_b = np.array([st.target_col + (st.stamp[2] - c0) for st, _, c0 in group])
+                mini = np.stack([minimum_aperture_mask((bh, bw), tr, tcol)
+                                 for tr, tcol in zip(tr_b, tc_b)])
+                target_idx = np.array([st.target_idx for st, _, _ in group], np.int64)
 
-            tr_b = np.array([st.target_row + (st.stamp[0] - r0) for st, r0, _ in group])
-            tc_b = np.array([st.target_col + (st.stamp[2] - c0) for st, _, c0 in group])
-            mini = np.stack([minimum_aperture_mask((bh, bw), tr, tcol)
-                             for tr, tcol in zip(tr_b, tc_b)])
-            target_idx = np.array([st.target_idx for st, _, _ in group], np.int64)
+            with span("psf.gather"):
+                imgs = gather_stamp_stack(ctx.images, r0s, c0s, bh, bw, dev)
+                bkgs = gather_stamp_stack(ctx.backgrounds, r0s, c0s, bh, bw, dev)
+                imgs = torch.where(torch.as_tensor(logical, device=dev)[:, None], imgs,
+                                   torch.nan)
+                mini_d = torch.as_tensor(mini, device=dev)
+                fbkg_d = torch.nansum(torch.where(mini_d[:, None], bkgs,
+                                                  torch.zeros((), device=dev)), dim=(2, 3))
 
-            mini_d = torch.as_tensor(mini, device=dev)
-            out = fit_psf_timeseries_batch(
-                imgs, bkgs, float(np.float32(var_const)),
-                torch.as_tensor(p0, dtype=torch.float32, device=dev),
-                torch.as_tensor(valid, device=dev), mini_d,
-                torch.as_tensor(target_idx, device=dev), prf, (bh, bw), S, lhood_stat,
-                fused=fused)
-            fbkg_d = torch.nansum(torch.where(mini_d[:, None], bkgs,
-                                              torch.zeros((), device=dev)), dim=(2, 3))
-            flux, flux_err, pos, fbkg = (_host(x).astype(np.float64) for x in
-                                         (out["flux"], out["flux_err"], out["pos"], fbkg_d))
-            # centroid in 1-based CCD coords (MOM_CENTR convention):
-            cent = np.stack([pos[:, :, 1] + c0s[:, None] + 1,
-                             pos[:, :, 0] + r0s[:, None] + 1], axis=2)
+            with span("psf.fit"):
+                out = fit_psf_timeseries_batch(
+                    imgs, torch.nan_to_num(bkgs, nan=0.0), float(np.float32(var_const)),
+                    torch.as_tensor(p0, dtype=torch.float32, device=dev),
+                    torch.as_tensor(valid, device=dev), mini_d,
+                    torch.as_tensor(target_idx, device=dev), prf, (bh, bw), S, lhood_stat,
+                    fused=fused)
+                flux, flux_err, pos, fbkg = (_host(x).astype(np.float64) for x in
+                                             (out["flux"], out["flux_err"], out["pos"], fbkg_d))
 
-            metrics = compute_metrics_batch(
-                torch.as_tensor(ctx.time, dtype=torch.float32, device=dev),
-                torch.as_tensor(flux, dtype=torch.float32, device=dev),
-                torch.as_tensor(flux_err, dtype=torch.float32, device=dev),
-                torch.as_tensor(ctx.quality, device=dev),
-                torch.as_tensor(cent, dtype=torch.float32, device=dev))
-            metrics = {k: _host(v) for k, v in metrics.items()}
+            with span("psf.results"):
+                # centroid in 1-based CCD coords (MOM_CENTR convention):
+                cent = np.stack([pos[:, :, 1] + c0s[:, None] + 1,
+                                 pos[:, :, 0] + r0s[:, None] + 1], axis=2)
 
-            diag_models = diag_data = diag_mid = None
-            if keep_diag:
-                # Best-fit model images at the middle cadence, for the fit /
-                # residual diagnostic figure (psf_photometry.py:178-185).
-                diag_mid = T // 2
-                p_mid = out["params"][:, diag_mid]                        # (N, 3S)
-                pm = torch.stack([p_mid[:, :S], p_mid[:, S:2 * S], p_mid[:, 2 * S:]], dim=2)
-                diag_models = _host(prf.render_batch(pm, (bh, bw), CUTOFF_RADIUS))
-                diag_data = _host(imgs[:, diag_mid])
+                metrics = compute_metrics_batch(
+                    torch.as_tensor(ctx.time, dtype=torch.float32, device=dev),
+                    torch.as_tensor(flux, dtype=torch.float32, device=dev),
+                    torch.as_tensor(flux_err, dtype=torch.float32, device=dev),
+                    torch.as_tensor(ctx.quality, device=dev),
+                    torch.as_tensor(cent, dtype=torch.float32, device=dev))
+                metrics = {k: _host(v) for k, v in metrics.items()}
 
-            for i, (setup, r0, c0) in enumerate(group[:N]):
-                s = setup.stamp
-                nh, nw = s[1] - s[0], s[3] - s[2]
-                mask_stamp = minimum_aperture_mask((nh, nw), setup.target_row, setup.target_col)
-                sum_stamp = ctx.sumimage[s[0]:s[1], s[2]:s[3]]
-                aperture = aperture_image(ctx, s, mask_stamp)
-
-                status = STATUS.OK
-                details = {
-                    "mean_flux": float(metrics["mean_flux"][i]),
-                    "variance": float(metrics["variance"][i]),
-                    "rms_hour": float(metrics["rms_hour"][i]),
-                    "ptp": float(metrics["ptp"][i]),
-                    "variability": float(metrics["variability"][i]),
-                    "pos_centroid": metrics["pos_centroid"][i].tolist(),
-                    "mask_size": int(mask_stamp.sum()),
-                    "stamp": tuple(s),
-                    "stamp_resizes": 0,
-                    "n_stars_fit": int(setup.valid.sum()),
-                }
-                if np.all(~np.isfinite(flux[i])):
-                    status = STATUS.ERROR
-                    details["errors"] = ["Final lightcurve fluxes are all NaNs"]
+                diag_models = diag_data = diag_mid = None
                 if keep_diag:
-                    details["diag_fit"] = {"data": diag_data[i], "model": diag_models[i],
-                                           "cadence": diag_mid,
-                                           "mini_aperture": np.asarray(mini[i])}
+                    # Best-fit model images at the middle cadence, for the fit /
+                    # residual diagnostic figure (psf_photometry.py:178-185).
+                    diag_mid = T // 2
+                    p_mid = out["params"][:, diag_mid]                        # (N, 3S)
+                    pm = torch.stack([p_mid[:, :S], p_mid[:, S:2 * S], p_mid[:, 2 * S:]], dim=2)
+                    diag_models = _host(prf.render_batch(pm, (bh, bw), CUTOFF_RADIUS))
+                    diag_data = _host(imgs[:, diag_mid])
 
-                t_i, tc_i = ctx.corrected_time(setup.target["ra"], setup.target["decl"])
-                lc = {
-                    "time": t_i, "timecorr": tc_i,
-                    "cadenceno": ctx.cadenceno, "quality": ctx.quality,
-                    "flux": flux[i], "flux_err": flux_err[i],
-                    "flux_background": fbkg[i],
-                    "pos_centroid": cent[i],
-                    "pos_corr": jit_all[:, i, setup.target_idx, :],
-                }
-                stamp_wcs = None
-                if ctx.wcs is not None:
-                    stamp_wcs = ctx.wcs.copy()
-                    if ctx.datasource == "ffi":      # a TPF's WCS is the stamp's already
-                        stamp_wcs.crpix = stamp_wcs.crpix - np.array([s[2], s[0]])
+                for i, (setup, r0, c0) in enumerate(group[:N]):
+                    s = setup.stamp
+                    nh, nw = s[1] - s[0], s[3] - s[2]
+                    mask_stamp = minimum_aperture_mask((nh, nw), setup.target_row,
+                                                       setup.target_col)
+                    sum_stamp = ctx.sumimage[s[0]:s[1], s[2]:s[3]]
+                    aperture = aperture_image(ctx, s, mask_stamp)
 
-                results[setup.starid] = TargetResult(
-                    starid=setup.starid, method="psf", status=status,
-                    sector=ctx.sector, camera=ctx.camera, ccd=ctx.ccd,
-                    cadence=ctx.cadence, data_rel=ctx.data_rel,
-                    target=setup.target, lightcurve=lc, mask=mask_stamp,
-                    aperture_image=aperture, sumimage_stamp=sum_stamp,
-                    stamp=tuple(s), details=details, num_frm=ctx.num_frm,
-                    n_readout=ctx.n_readout, ticver=ctx.catalog.settings.ticver,
-                    stamp_wcs=stamp_wcs)
+                    status = STATUS.OK
+                    details = {
+                        "mean_flux": float(metrics["mean_flux"][i]),
+                        "variance": float(metrics["variance"][i]),
+                        "rms_hour": float(metrics["rms_hour"][i]),
+                        "ptp": float(metrics["ptp"][i]),
+                        "variability": float(metrics["variability"][i]),
+                        "pos_centroid": metrics["pos_centroid"][i].tolist(),
+                        "mask_size": int(mask_stamp.sum()),
+                        "stamp": tuple(s),
+                        "stamp_resizes": 0,
+                        "n_stars_fit": int(setup.valid.sum()),
+                    }
+                    if np.all(~np.isfinite(flux[i])):
+                        status = STATUS.ERROR
+                        details["errors"] = ["Final lightcurve fluxes are all NaNs"]
+                    if keep_diag:
+                        details["diag_fit"] = {"data": diag_data[i], "model": diag_models[i],
+                                               "cadence": diag_mid,
+                                               "mini_aperture": np.asarray(mini[i])}
+
+                    t_i, tc_i = ctx.corrected_time(setup.target["ra"], setup.target["decl"])
+                    lc = {
+                        "time": t_i, "timecorr": tc_i,
+                        "cadenceno": ctx.cadenceno, "quality": ctx.quality,
+                        "flux": flux[i], "flux_err": flux_err[i],
+                        "flux_background": fbkg[i],
+                        "pos_centroid": cent[i],
+                        "pos_corr": jit_all[:, i, setup.target_idx, :],
+                    }
+                    stamp_wcs = None
+                    if ctx.wcs is not None:
+                        stamp_wcs = ctx.wcs.copy()
+                        if ctx.datasource == "ffi":      # a TPF's WCS is the stamp's already
+                            stamp_wcs.crpix = stamp_wcs.crpix - np.array([s[2], s[0]])
+
+                    results[setup.starid] = TargetResult(
+                        starid=setup.starid, method="psf", status=status,
+                        sector=ctx.sector, camera=ctx.camera, ccd=ctx.ccd,
+                        cadence=ctx.cadence, data_rel=ctx.data_rel,
+                        target=setup.target, lightcurve=lc, mask=mask_stamp,
+                        aperture_image=aperture, sumimage_stamp=sum_stamp,
+                        stamp=tuple(s), details=details, num_frm=ctx.num_frm,
+                        n_readout=ctx.n_readout, ticver=ctx.catalog.settings.ticver,
+                        stamp_wcs=stamp_wcs)
     return [results[int(sid)] for sid in starids]

@@ -7,7 +7,9 @@
   torch op run inside it: both are on ``time.time_ns()``'s clock.
 - ``run_drain`` on a small simulated sector (halo and linPSF switches, a
   TPF) reports every key of ``new_timers`` and the spans of each method
-  sum to at most ``photometry``.
+  sum to at most ``photometry``; with ``method="psf"`` the four steps of
+  the PSF extraction sum to at most ``psf``, and ``psf_instances`` is the
+  instances the fitter was handed.
 - ``prepare_cube`` counts the HDU data bytes of every FFI read in stages 1
   and 2, and the first FFI once more.
 - ``device_trace`` writes the program's spans into its Chrome trace, on
@@ -38,6 +40,8 @@ OLD_KEYS = {"lease", "context", "photometry", "save", "sqlite", "wall", "n_done"
             "n_products"}
 NEW_KEYS = {"aperture", "halo", "linpsf", "psf", "context.read", "context.upload",
             "save.compress", "fits_bytes", "fits_table_bytes"}
+PSF_KEYS = {"psf.setup", "psf.gather", "psf.fit", "psf.results", "psf_instances",
+            "psf_fused_instances"}
 
 
 def test_span_and_count_add_into_the_open_recorders_only():
@@ -144,16 +148,47 @@ def test_run_drain_reports_every_span_and_counter(sector, monkeypatch):
     monkeypatch.setattr(dispatcher, "default_time_corrector",
                         lambda: TimeCorrector(SpacecraftEphemeris.synthetic(t0 - 5, t0 + 10)))
     timers = new_timers()
-    assert set(timers) == OLD_KEYS | NEW_KEYS
+    assert set(timers) == OLD_KEYS | NEW_KEYS | PSF_KEYS
     n_done = run_drain(d, 1, batch_size=8, device="cpu", timers=timers)
-    assert set(timers) == OLD_KEYS | NEW_KEYS and timers["n_done"] == n_done > 0
+    assert set(timers) == OLD_KEYS | NEW_KEYS | PSF_KEYS and timers["n_done"] == n_done > 0
     assert all(timers[k] > 0 for k in OLD_KEYS | NEW_KEYS - {"psf"}), timers
-    assert timers["psf"] == 0
+    assert timers["psf"] == 0 and not any(timers[k] for k in PSF_KEYS)
     methods = sum(timers[k] for k in ("aperture", "halo", "linpsf", "psf"))
     assert methods <= timers["photometry"]
     assert timers["context.read"] + timers["context.upload"] <= timers["context"]
     assert timers["save.compress"] <= 4 * timers["save"]
     assert timers["wall"] >= timers["photometry"] + timers["save"] + timers["context"]
+
+
+def test_psf_drain_reports_its_steps_and_instances(sector, monkeypatch, tmp_path):
+    """``run_drain(method="psf")`` times the four steps of each PSF
+    extraction inside ``psf`` and counts the instances the fitter was
+    handed: each target's first cadence, then every cadence."""
+    import shutil
+    from photometry_tpu_torch.models import psf_fit
+    sim, src = sector
+    d = str(tmp_path / "sector")
+    shutil.copytree(src, d)
+    os.remove(os.path.join(d, "todo.sqlite"))
+    assert todo_cmd.main(["-q", d]) == 0
+    t0 = float(sim.time[0]) + 2457000.0
+    monkeypatch.setattr(dispatcher, "default_time_corrector",
+                        lambda: TimeCorrector(SpacecraftEphemeris.synthetic(t0 - 5, t0 + 10)))
+    handed, fit = [], psf_fit.fit_psf_timeseries_batch
+
+    def recorded(images, *a, **kw):
+        handed.append(images.shape[0] * (images.shape[1] + 1))
+        return fit(images, *a, **kw)
+    monkeypatch.setattr(psf_fit, "fit_psf_timeseries_batch", recorded)
+    timers = new_timers()
+    n_done = run_drain(d, 1, batch_size=8, method="psf", device="cpu", timers=timers)
+    assert n_done > 0 and handed
+    steps = ("psf.setup", "psf.gather", "psf.fit", "psf.results")
+    assert all(timers[k] > 0 for k in steps), timers
+    assert sum(timers[k] for k in steps) <= timers["psf"] <= timers["photometry"]
+    assert timers["psf_instances"] == sum(handed)
+    assert timers["psf_fused_instances"] == 0            # the CPU takes the plain route
+    assert timers["aperture"] == timers["halo"] == timers["linpsf"] == 0
 
 
 def _data_bytes(path):
