@@ -8,8 +8,9 @@ Port of ``photometry_tpu/prepare.py`` (reference photometry/prepare.py:79-706):
    segment-histogram kernel on a card) and flagged NotUsedForBackground /
    ManualExclude; the backgrounds are then smoothed in time by a moving
    nanmean, streamed through the cube with halos (prepare.py:309-338);
-2. images: background-subtracted flux and errors, time vectors, per-frame
-   WCS (round-trip validated), the sum image of quality-good frames;
+2. images: background-subtracted flux and errors, computed on the device a
+   chunk at a time from pinned staging planes, time vectors, per-frame WCS
+   (round-trip validated), the sum image of quality-good frames;
 3. Background Shenanigans: every frame's residual against the sum image is
    15 x 15 median filtered (the median kernel on a card) into a scratch
    stack, compared with a robust mean image (the mean of medians over
@@ -54,7 +55,7 @@ from .ops.background import estimate_background, radial_coordinates
 from .ops.filters import time_moving_nanmean
 from .quality import PixelQualityFlags, TESSQualityFlags
 from .utils.mathutils import nanmedian
-from .utils.profiling import StageTimer, span
+from .utils.profiling import StageTimer, count, span
 
 logger = logging.getLogger(__name__)
 
@@ -231,10 +232,12 @@ def prepare_cube(cube, files, input_folder: str, sector: int, camera: int, ccd: 
     seconds of each stage this call ran (``backgrounds_fit``,
     ``backgrounds_smooth``, ``images``, ``shenanigans``, ``quality_tpf``,
     ``movement``), the seconds stages 1 and 2 waited on the frame loader
-    (``frames.read``) and the bytes of HDU data read from FITS files
+    (``frames.read``), the bytes of HDU data read from FITS files
     (``fits_bytes``; ``fits_table_bytes`` those of numeric table columns,
-    stage 4's TPF): the spans and counters (``utils.profiling``) of the
-    recorder this call opens on the dict it returns.
+    stage 4's TPF) and the frames whose stage-2 arithmetic ran on the torch
+    device (``images_device_frames``): the spans and counters
+    (``utils.profiling``) of the recorder this call opens on the dict it
+    returns.
     """
     dev = resolve_device(device)
     T = len(files)
@@ -295,7 +298,7 @@ def prepare_cube(cube, files, input_folder: str, sector: int, camera: int, ccd: 
             logger.info("Processing individual images...")
             with span("images"):
                 _images_stage(cube, files, first, sector, camera, ccd, chunk,
-                              backgrounds_pixels_threshold)
+                              backgrounds_pixels_threshold, dev)
 
         # -- Stage 3: Background Shenanigans ------------------------------------
         if not cube.is_done("shenanigans"):
@@ -351,9 +354,19 @@ def prepare_cube(cube, files, input_folder: str, sector: int, camera: int, ccd: 
 
 
 def _images_stage(cube, files, first, sector, camera, ccd, chunk,
-                  backgrounds_pixels_threshold) -> None:
-    """Stage 2 (host): subtract the backgrounds, blank excluded pixels, store
-    the time vectors, WCS strings and the sum image of quality-good frames."""
+                  backgrounds_pixels_threshold, dev) -> None:
+    """Stage 2: subtract the backgrounds, blank excluded pixels, store the
+    time vectors, WCS strings and the sum image of quality-good frames.
+
+    As each frame arrives, its header's vectors and WCS string are taken and
+    its CAL and UNCERT copied into two staging planes of ``chunk`` frames
+    (pinned on a card), allocated once a call and reused by every chunk.
+    Each chunk is uploaded once and its arithmetic runs on ``dev`` in one
+    batch (:func:`_images_chunk`); its images and errors come back into the
+    same planes for ``cube.write_block``, which copies them.  The sum image,
+    the frame counts and the background-pixel counts stay on ``dev`` until
+    the end.
+    """
     T = len(files)
     H, W = first.data.shape
     time = np.empty(T, np.float64)
@@ -362,17 +375,18 @@ def _images_stage(cube, files, first, sector, camera, ccd, chunk,
     time_stop = np.empty(T, np.float64)
     cadenceno = np.empty(T, np.int32)
     quality = np.zeros(T, np.int32)
-    sumimage = np.zeros((H, W), np.float64)
-    n_img = np.zeros((H, W), np.int32)
-    used_in_bkg = np.zeros((H, W), np.int64)
+    sums = {"sumimage": torch.zeros((H, W), dtype=torch.float64, device=dev),
+            "n_img": torch.zeros((H, W), dtype=torch.int32, device=dev),
+            "used_in_bkg": torch.zeros((H, W), dtype=torch.int64, device=dev)}
+    staged = [torch.empty((min(chunk, T), H, W), dtype=torch.float32,
+                          pin_memory=dev.type == "cuda") for _ in range(2)]
+    flux_blk, err_blk = (s.numpy() for s in staged)
 
     frames = iter_frames(files)
     for t0 in range(0, T, chunk):
         t1 = min(t0 + chunk, T)
-        bkg = cube.backgrounds(t0, t1)
-        flags = cube.pixelflags(t0, t1)
-        flux_blk = np.empty((t1 - t0, H, W), np.float32)
-        err_blk = np.empty((t1 - t0, H, W), np.float32)
+        subtract = np.zeros(t1 - t0, bool)
+        good = np.zeros(t1 - t0, bool)
         for i, k in enumerate(range(t0, t1)):
             with span("frames.read"):
                 frame = next(frames)
@@ -388,31 +402,28 @@ def _images_stage(cube, files, first, sector, camera, ccd, chunk,
                 raise RuntimeError("Could not determine CADENCENO for TESS data")
             else:
                 cadenceno[k] = k + 1
+            subtract[i] = not hdr.get("BACKAPP", False)
+            good[i] = TESSQualityFlags.filter(quality[k])
 
-            flux = frame.data.astype(np.float32)
-            err = (frame.uncertainty if frame.uncertainty is not None
-                   else np.sqrt(np.abs(flux))).astype(np.float32)
-            if not hdr.get("BACKAPP", False):
-                flux = flux - bkg[i]
-            excl = ~PixelQualityFlags.filter(flags[i])
-            flux[excl] = np.nan
-            err[excl] = np.nan
-            flux_blk[i] = flux
-            err_blk[i] = err
+            np.copyto(flux_blk[i], frame.data)
+            if frame.uncertainty is not None:
+                np.copyto(err_blk[i], frame.uncertainty)
+            else:
+                # no UNCERT HDU: sqrt(|CAL|), made as the plane is staged
+                np.sqrt(np.abs(flux_blk[i], out=err_blk[i]), out=err_blk[i])
 
             wcs_str = ""
             if frame.wcs is not None and _wcs_roundtrip_ok(frame.wcs, (H, W)):
                 wcs_str = frame.wcs.to_header().to_bytes().decode("ascii")
             cube.write_frame(k, wcs_str=wcs_str)
 
-            if TESSQualityFlags.filter(quality[k]):
-                finite = np.isfinite(flux)
-                n_img += finite
-                sumimage += np.where(finite, flux, 0.0)
-            used_in_bkg += (flags[i] & PixelQualityFlags.NotUsedForBackground) == 0
-        cube.write_block("images", t0, flux_blk)
-        cube.write_block("images_err", t0, err_blk)
+        _images_chunk(cube, t0, t1, [s[:t1 - t0] for s in staged], subtract, good, sums, dev)
+        count("images_device_frames", t1 - t0)
+        cube.write_block("images", t0, flux_blk[:t1 - t0])
+        cube.write_block("images_err", t0, err_blk[:t1 - t0])
 
+    sumimage, n_img, used_in_bkg = (sums[k].cpu().numpy()
+                                    for k in ("sumimage", "n_img", "used_in_bkg"))
     with np.errstate(invalid="ignore"):
         sumimage /= n_img
 
@@ -429,6 +440,37 @@ def _images_stage(cube, files, first, sector, camera, ccd, chunk,
     cube.write_time_bounds(time_start, time_stop)
     cube.write_sumimage(sumimage, pixels_used=(used_in_bkg / T > backgrounds_pixels_threshold))
     cube.mark_done("images")
+
+
+def _images_chunk(cube, t0, t1, staged, subtract, good, sums, dev) -> None:
+    """One chunk of stage 2 on ``dev``: ``staged`` (its CAL and UNCERT host
+    planes) becomes its images and errors, in place; the chunk's frames are
+    added into ``sums``.
+
+    Images are CAL less the backgrounds on the frames where ``subtract``
+    holds, errors UNCERT; both NaN where ManualExclude is set.  A NaN
+    operand of the subtraction is passed on with its bits, as the host's
+    float32 arithmetic passes it (a card's gives its own NaN).  The sum
+    image is added in float64 one frame at a time, in frame order, so each
+    addition is the one a frame-by-frame sum on the host makes.
+    """
+    flux, err = (s.to(dev, non_blocking=True) for s in staged)
+    bkg = torch.from_numpy(cube.backgrounds(t0, t1)).to(dev)
+    flags = torch.from_numpy(cube.pixelflags(t0, t1)).to(dev)
+    sub = torch.from_numpy(subtract).to(dev)[:, None, None]
+    diff = torch.where(torch.isnan(bkg), bkg, flux - bkg)
+    flux = torch.where(sub & ~torch.isnan(flux), diff, flux)
+    del diff, bkg
+    excl = ~PixelQualityFlags.filter(flags)
+    flux.masked_fill_(excl, np.nan)
+    err.masked_fill_(excl, np.nan)
+    for i in np.flatnonzero(good):
+        finite = torch.isfinite(flux[i])
+        sums["n_img"] += finite
+        sums["sumimage"] += torch.where(finite, flux[i], 0.0)
+    sums["used_in_bkg"] += ((flags & PixelQualityFlags.NotUsedForBackground) == 0).sum(dim=0)
+    for s, out in zip(staged, (flux, err)):
+        s.copy_(out)
 
 
 def _shenanigans_stage(cube, chunk: int, threshold: float, dev) -> None:

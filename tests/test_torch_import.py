@@ -1156,3 +1156,50 @@ def test_profile_psf_fused_route_on_card():
     from chip_smoke import psf_stable_share
     held = psf_stable_share(full["flux"], inp, 8, 40)
     assert 0 in held["posed"] and len(held["posed"]) >= 4 and held["share"] >= 0.99, held
+
+
+@pytest.mark.cuda
+def test_images_stage_on_card_equals_cpu_path_bit_for_bit(monkeypatch):
+    """Prepare's stage 2 on the card writes the bytes its CPU path writes
+    (which tests/test_torch_prepare.py holds to the frame-by-frame numpy
+    arithmetic): NaN CAL pixels and a NaN background keep their bits
+    through the subtraction, a frame has BACKAPP, one no UNCERT, one a
+    failing DQUALITY; T = 11 in chunks of 4 (a partial last chunk)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from chip_smoke import DictCube
+    from photometry_tpu_torch import prepare as prep
+    from photometry_tpu_torch.io.tess import FFIFrame
+    rng = np.random.default_rng(7)
+    T, H, W = 11, 96, 160
+    frames = []
+    for k in range(T):
+        data = rng.normal(200, 50, (H, W)).astype(np.float32)
+        data[rng.uniform(size=(H, W)) < 0.02] = np.nan
+        data[k, 3] = np.inf
+        data[5, 5] = np.nan                      # 0 / 0 in the sum image
+        data[0, 5] = (2.0 ** 57, 1, -2.0 ** 57, 1, 2.0 ** 55, 3, -2.0 ** 55, 1, 1, 1, 1)[k]
+        unc = None if k == 6 else np.sqrt(np.abs(data)).astype(np.float32) + 1
+        hdr = {"TSTART": 1325.3 + k / 48, "TSTOP": 1325.3 + (k + 1) / 48, "BARYCORR": 0.002,
+               "FFIINDEX": 4697 + k, "DQUALITY": 4 if k == 3 else 0, "BACKAPP": k == 8}
+        frames.append(FFIFrame(data=data, uncertainty=unc, header=hdr))
+    bkg = rng.normal(80, 5, (T, H, W)).astype(np.float32)
+    bkg[2, 7, 9] = np.nan
+    flags = (rng.uniform(size=(T, H, W)) < 0.3).astype(np.uint8)
+    flags |= (rng.uniform(size=(T, H, W)) < 0.05).astype(np.uint8) * 2
+    cubes = {}
+    for dev in ("cpu", "cuda"):
+        cubes[dev] = cube = DictCube(T, (H, W))
+        cube.write_block("backgrounds", 0, bkg)
+        cube.write_block("pixelflags", 0, flags)
+        monkeypatch.setattr(prep, "iter_frames", lambda files: iter(frames))
+        prep._images_stage(cube, [None] * T, frames[0], 1, 3, 2, 4, 0.5, torch.device(dev))
+    a, b = cubes["cpu"], cubes["cuda"]
+    assert np.isnan(a.arrays["images"]).any() and np.isnan(a.sumimage).any()
+    for k in ("images", "images_err"):
+        np.testing.assert_array_equal(b.arrays[k].view(np.uint32), a.arrays[k].view(np.uint32))
+    np.testing.assert_array_equal(b.sumimage.view(np.uint64), a.sumimage.view(np.uint64))
+    np.testing.assert_array_equal(b.pixels_used, a.pixels_used)
+    for k in ("time", "timecorr", "cadenceno", "quality", "time_start", "time_stop"):
+        np.testing.assert_array_equal(b.vectors[k], a.vectors[k], err_msg=k)
+    assert b.wcs_strings() == a.wcs_strings()

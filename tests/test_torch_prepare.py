@@ -52,7 +52,7 @@ from photometry_tpu_torch.core.engine import SectorContext
 from photometry_tpu_torch.core.status import STATUS
 from photometry_tpu_torch.io.cube import ImageCube
 from photometry_tpu_torch.ops.filters import time_moving_nanmean
-from photometry_tpu_torch.quality import PixelQualityFlags
+from photometry_tpu_torch.quality import PixelQualityFlags, TESSQualityFlags
 
 BKG_RTOL, BKG_ATOL = 1e-3, 0.05
 EPS_SHEN = 0.5          #: e-/s around the 40 e-/s shenanigans threshold
@@ -328,3 +328,137 @@ def test_prepare_one_without_ffis_raises(tmp_path):
     with pytest.raises(FileNotFoundError):
         prep.prepare_one(str(tmp_path), 1, 3, 2, device="cpu")
     shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+# -- Stage 2 against the frame-by-frame numpy arithmetic, bit for bit ---------
+
+#: Each case: the chunk size and what its frames carry.  The sim has 7 frames.
+IMAGE_CASES = {
+    "one_chunk": dict(chunk=7),
+    "partial_last_chunk": dict(chunk=3),
+    "backapp": dict(chunk=4, backapp=(2, 5)),
+    "no_uncert": dict(chunk=4, no_uncert=(1, 6)),
+    "bad_quality": dict(chunk=4, quality={1: 4, 3: 128, 4: 2048}),
+    "nan_and_manual_exclude": dict(chunk=3, nan=True),
+    "all_at_once": dict(chunk=2, backapp=(2,), no_uncert=(1, 6), quality={4: 4}, nan=True),
+}
+
+
+@pytest.fixture(scope="module")
+def image_files(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("images_stage"))
+    sim = simulate_sector(SimConfig(shape=(24, 32), n_times=7, n_stars=6, seed=3))
+    sim.write_ffis(d)
+    from photometry_tpu_torch.io.discovery import find_ffi_files
+    return find_ffi_files(d)
+
+
+def _image_inputs(files, case):
+    """The case's frames (read from the sim's files, then altered), and the
+    backgrounds and pixel flags stage 1 would have stored."""
+    from photometry_tpu_torch.io.tess import read_ffi
+    frames = [read_ffi(f) for f in files]
+    T, (H, W) = len(frames), frames[0].data.shape
+    rng = np.random.default_rng(len(case) + case["chunk"])
+    bkg = (80 + 5 * rng.standard_normal((T, H, W))).astype(np.float32)
+    flags = (rng.random((T, H, W)) < 0.3).astype(np.uint8) * PixelQualityFlags.NotUsedForBackground
+    flags |= (rng.random((T, H, W)) < 0.05).astype(np.uint8) * PixelQualityFlags.ManualExclude
+    # a pixel whose float64 sum depends on the order of its additions:
+    for k, f in enumerate(frames):
+        f.data[0, 5] = (2.0 ** 57, 1, -2.0 ** 57, 1, 2.0 ** 55, 3, -2.0 ** 55)[k]
+        flags[k, 0, 5] = 0
+    for k in case.get("backapp", ()):
+        frames[k].header["BACKAPP"] = True
+    for k in case.get("no_uncert", ()):
+        frames[k].uncertainty = None
+        frames[k].data[0, :4] = [-3.5, np.nan, -0.0, np.inf]     # sqrt(|x|) of each
+    for k, q in case.get("quality", {}).items():
+        frames[k].header["DQUALITY"] = q
+    if case.get("nan"):
+        for k, f in enumerate(frames):
+            f.data[rng.random((H, W)) < 0.05] = np.nan
+            f.data[k, 3] = np.inf
+        bkg[3, 5, 7] = np.nan                                    # a CAL pixel it is taken from
+        flags[2, :, :5] |= PixelQualityFlags.ManualExclude
+        flags[5] |= PixelQualityFlags.ManualExclude              # a whole frame
+    return frames, bkg, flags
+
+
+def _images_numpy(frames, bkg, flags, threshold):
+    """The stage's arithmetic as numpy did it, one frame at a time."""
+    T, (H, W) = len(frames), frames[0].data.shape
+    images, errors = np.empty((T, H, W), np.float32), np.empty((T, H, W), np.float32)
+    quality = np.zeros(T, np.int32)
+    sumimage, n_img = np.zeros((H, W), np.float64), np.zeros((H, W), np.int32)
+    used_in_bkg = np.zeros((H, W), np.int64)
+    wcs = []
+    for k, frame in enumerate(frames):
+        hdr = frame.header
+        quality[k] = hdr.get("DQUALITY", hdr.get("QUAL_BIT", 0))
+        flux = frame.data.astype(np.float32)
+        err = (frame.uncertainty if frame.uncertainty is not None
+               else np.sqrt(np.abs(flux))).astype(np.float32)
+        if not hdr.get("BACKAPP", False):
+            flux = flux - bkg[k]
+        excl = ~PixelQualityFlags.filter(flags[k])
+        flux[excl] = np.nan
+        err[excl] = np.nan
+        images[k], errors[k] = flux, err
+        ok = frame.wcs is not None and prep._wcs_roundtrip_ok(frame.wcs, (H, W))
+        wcs.append(frame.wcs.to_header().to_bytes().decode("ascii") if ok else "")
+        if TESSQualityFlags.filter(quality[k]):
+            finite = np.isfinite(flux)
+            n_img += finite
+            sumimage += np.where(finite, flux, 0.0)
+        used_in_bkg += (flags[k] & PixelQualityFlags.NotUsedForBackground) == 0
+    with np.errstate(invalid="ignore"):
+        sumimage /= n_img
+    hdrs = [f.header for f in frames]
+    return {"images": images, "images_err": errors, "sumimage": sumimage,
+            "pixels_used": (used_in_bkg / T > threshold).astype(np.uint8), "wcs": wcs,
+            "quality": quality,
+            "cadenceno": np.array([h["FFIINDEX"] for h in hdrs], np.int32),
+            "timecorr": np.array([h.get("BARYCORR", 0) for h in hdrs], np.float32),
+            "time_start": np.array([h["TSTART"] for h in hdrs], np.float64),
+            "time_stop": np.array([h["TSTOP"] for h in hdrs], np.float64),
+            "time": np.array([0.5 * (h["TSTART"] + h["TSTOP"]) for h in hdrs], np.float64)}
+
+
+def _bits(a):
+    a = np.ascontiguousarray(a)
+    return a.view({1: np.uint8, 4: np.uint32, 8: np.uint64}[a.dtype.itemsize])
+
+
+@pytest.mark.parametrize("case", list(IMAGE_CASES))
+def test_images_stage_equals_frame_by_frame_numpy_bit_for_bit(image_files, case, monkeypatch):
+    """Stage 2's chunked torch arithmetic writes the bytes the frame-by-frame
+    numpy formulation makes: images, errors (NaN in the same places, with
+    the same bits), the float64 sum image added in frame order, the pixels
+    used, the vectors and the WCS strings."""
+    spec = IMAGE_CASES[case]
+    frames, bkg, flags = _image_inputs(image_files, spec)
+    want = _images_numpy(frames, bkg, flags, 0.5)
+    T, (H, W) = len(frames), frames[0].data.shape
+    cube = DictCube(T, (H, W))
+    cube.write_block("backgrounds", 0, bkg)
+    cube.write_block("pixelflags", 0, flags)
+    monkeypatch.setattr(prep, "iter_frames", lambda files: iter(frames))
+    prep._images_stage(cube, image_files, frames[0], 1, 3, 2, spec["chunk"], 0.5,
+                       torch.device("cpu"))
+    for k in ("images", "images_err"):
+        np.testing.assert_array_equal(_bits(cube.arrays[k]), _bits(want[k]), err_msg=k)
+    np.testing.assert_array_equal(_bits(cube.sumimage), _bits(want["sumimage"]))
+    np.testing.assert_array_equal(cube.pixels_used, want["pixels_used"])
+    assert 0 < want["pixels_used"].sum() < H * W                # both answers occur
+    assert cube.wcs_strings() == want["wcs"] and all(want["wcs"])
+    start, stop = cube.time_bounds()
+    attrs = {"DATA_REL": 99, "PROCVER": frames[0].header.get("PROCVER"), "CAMERA": 3, "CCD": 2}
+    for k, got in (("quality", cube.quality), ("cadenceno", cube.cadenceno),
+                   ("timecorr", cube.timecorr), ("time_start", start), ("time_stop", stop),
+                   ("time", cube.time)):
+        ref = want[k]
+        if k.startswith("time") and k != "timecorr":
+            pos = {"time": "mid", "time_start": "start", "time_stop": "end"}[k]
+            ref = prep.time_offset(ref, attrs, datatype="ffi", timepos=pos)
+        np.testing.assert_array_equal(_bits(got), _bits(ref), err_msg=k)
+    assert "images" in cube.stages and "TIME_OFFSET_CORRECTED" in cube.attrs

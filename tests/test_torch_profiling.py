@@ -212,3 +212,20 @@ def test_prepare_cube_counts_each_read_of_each_frame(sector, tmp_path):
     assert 0 < walls["frames.read"] < walls["backgrounds_fit"] + walls["images"]
     assert {"backgrounds_fit", "backgrounds_smooth", "images", "shenanigans",
             "quality_tpf"} <= set(walls)
+
+
+@pytest.mark.parametrize("n_files,chunk", [(6, 4), (5, 5)])
+def test_prepare_cube_counts_the_frames_stage_2_ran_on_the_device(sector, tmp_path, n_files,
+                                                                   chunk):
+    """``images_device_frames`` counts every frame whose stage-2 arithmetic
+    ran on the torch device, a partial last chunk too; the loader's span
+    still covers the frames both stages read."""
+    from chip_smoke import DictCube
+    from photometry_tpu_torch.io.discovery import find_ffi_files
+    from photometry_tpu_torch.prepare import prepare_cube
+    sim, d = sector
+    files = find_ffi_files(d)[:n_files]
+    cube = DictCube(len(files), sim.config.shape, keep_frames=1)
+    walls = prepare_cube(cube, files, str(tmp_path), 1, 3, 2, device="cpu", chunk=chunk)
+    assert walls["images_device_frames"] == len(files)
+    assert 0 < walls["frames.read"] < walls["backgrounds_fit"] + walls["images"]
