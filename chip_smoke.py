@@ -291,7 +291,8 @@ two to one, and phase 5's FFIs from 96 to 80.
 12. the port's tools on the card, after phase 11e.  (a)
    ``tools/profile_psf`` at its defaults (BASELINE config 4: 96 targets x
    T = 1,312 cadences of 13x13, S = 4, the Gaussian table PRF): its JSON
-   line; the fused route taken by every ``full`` call (``ROUTES``), the PSF
+   line; the fused route taken by every ``full`` call (the recorder's
+   ``psf_fused_instances`` equal to its ``psf_instances``), the PSF
    kernel launched twice a call (96 first-cadence instances, then the
    125,952 warm ones) and once a ``phase2`` call over the 125,952; every
    flux finite; on the first 8 targets x 64 cadences ``full``'s fluxes
@@ -3854,6 +3855,7 @@ def tools_phase(dev, card):
     from photometry_tpu_torch.ops._kernels import PSF_WARM_FIT
     from photometry_tpu_torch.tools import (profile_k2p2, profile_psf, tiebreak_corpus_scale,
                                             validate_ecc)
+    from photometry_tpu_torch.utils.profiling import StageTimer
 
     # (a) profile_psf at its defaults: the fused route, the kernel at 96 x 1,312
     tic = time.perf_counter()
@@ -3866,15 +3868,17 @@ def tools_phase(dev, card):
         sizes.append(int(images.shape[0]))
         return launch(images, *a, **kw)
 
-    psf_fit.ROUTES.update(fused=0, plain=0)
     reset_counts()
-    with mock.patch.object(psf_fused, "fused_warm_fit_cuda", recording):
+    recorder = StageTimer()
+    with mock.patch.object(psf_fused, "fused_warm_fit_cuda", recording), recorder.recording():
         summary, full, inp = profile_psf.profile(["--device", str(dev)])
     torch.cuda.synchronize()
-    launches, routes = PSF_WARM_FIT.launches, dict(psf_fit.ROUTES)
+    launches, counts = PSF_WARM_FIT.launches, recorder.timings
+    fused, instances = counts.get("psf_fused_instances", 0), counts.get("psf_instances", 0)
     calls = 1 + args.reps
-    check(routes == {"fused": calls, "plain": 0},
-          f"phase 12(a): profile_psf's full calls did not all take the fused route: {routes}")
+    check(fused == instances > 0,
+          f"phase 12(a): profile_psf's full calls did not all take the fused route: "
+          f"{fused} of {instances} fit instances fused")
     check(launches == 3 * calls and sorted(set(sizes)) == [N, N * T_],
           f"phase 12(a): {launches} PSF kernel launches of sizes {sorted(set(sizes))}")
     check(bool(torch.isfinite(full["flux"]).all()), "phase 12(a): non-finite fluxes")
@@ -3895,7 +3899,8 @@ def tools_phase(dev, card):
           f"normal equations in 3xTF32, {f32_bound:.3f} ms all in float32 "
           f"({(ne_flops + rest_flops) / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB); render "
           f"{summary['render_all_s'] * 1e3:.3f} ms, lm_algebra "
-          f"{summary['lm_algebra_1iter_s'] * 1e3:.3f} ms; routes {routes}, "
+          f"{summary['lm_algebra_1iter_s'] * 1e3:.3f} ms; fit instances fused {fused} of "
+          f"{instances}, "
           f"{launches} launches (instances {sorted(set(sizes))}); fluxes of {n_t} x {n_c} within "
           f"rtol 2e-2 of the plain fitter: {held['share']:.4f} on the well-posed targets "
           f"{held['posed']}, {held['all']:.4f} of all; per target {held['kernel']}, the plain "
@@ -4487,6 +4492,7 @@ def main() -> int:
     from photometry_tpu_torch.ops._kernels import (BAND_EXTRACT, LIBRARIES, MEDIAN15,
                                                    PSF_WARM_FIT, SEGMENT_HIST, STAMP_FLUX,
                                                    build_all)
+    from photometry_tpu_torch.utils.profiling import StageTimer
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -4792,7 +4798,7 @@ def main() -> int:
     check(n_fused_groups > 0, f"no stamp bucket of the PSF slice takes the kernel: {list(groups)}")
     torch.cuda.synchronize()
     reset_counts()
-    psf_fit.ROUTES.update(fused=0, plain=0)
+    recorder = StageTimer()
     psf_calls = []                        # phase 11c's inputs: each fit call and its result
     run_fit = psf_fit.fit_psf_timeseries_batch
 
@@ -4802,19 +4808,25 @@ def main() -> int:
         return out
 
     tic = time.perf_counter()
-    with mock.patch.object(psf_fit, "fit_psf_timeseries_batch", recording_fit):
+    with mock.patch.object(psf_fit, "fit_psf_timeseries_batch", recording_fit), \
+            recorder.recording():
         res_psf = psf_fit.extract_psf_batch(ctx, psf_sids)
     torch.cuda.synchronize()
     wall = time.perf_counter() - tic
     walls["4"] = wall
-    routes = dict(psf_fit.ROUTES)
+    n_inst, n_fused = recorder.timings["psf_instances"], recorder.timings["psf_fused_instances"]
+    # A fit call is handed N targets x (T + 1) instances; those of a group
+    # the kernel takes are the fused route's:
+    want_fused = sum(a[0].shape[0] * (a[0].shape[1] + 1) for a, _ in psf_calls
+                     if fused_ok(*a[7:10], a[10] if len(a) > 10 else "Gaussian_d"))
     result["psf_warm_fit"]["launches"] = PSF_WARM_FIT.launches
     print(f"phase 4 slice: {N_PSF} PSF targets in {wall:.2f} s = {N_PSF / wall:.1f} targets/s "
           f"({card}); buckets {sorted(groups)}; PSF kernel launches {PSF_WARM_FIT.launches}; "
-          f"target groups fused {routes['fused']}, plain {routes['plain']}", flush=True)
+          f"fit instances fused {n_fused} of {n_inst}", flush=True)
     check(PSF_WARM_FIT.launches > 0, "the PSF slice did not launch the PSF kernel")
-    check(routes["plain"] == len(groups) - n_fused_groups,
-          f"a group the kernel takes went to the plain fitter: {routes}")
+    check(n_fused == want_fused,
+          f"a group the kernel takes went to the plain fitter: {n_fused} fused instances, "
+          f"{want_fused} in groups the kernel takes")
     good = [r for r in res_psf if r.status in (STATUS.OK, STATUS.WARNING)
             and np.isfinite(r.lightcurve["flux"]).mean() > 0.99
             and np.isfinite(r.lightcurve["flux_err"]).mean() > 0.99]

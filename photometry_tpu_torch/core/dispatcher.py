@@ -66,37 +66,35 @@ def default_time_corrector():
 
 
 class ContextCache:
-    """Reuse device-resident FFI contexts across task batches of one CCD.
-
-    TPF contexts are per target: never cached, and a TPF batch does not
-    evict the FFI context held (``get`` returns ``cached=False`` for them,
-    so the caller's ``release`` closes them).  ``mesh`` (a
-    ``parallel.mesh.Mesh``) shards every FFI context's cubes over it.
+    """Hold the device-resident FFI context of one CCD across its task
+    batches: a batch of another CCD closes it before opening its own, and
+    the halo queue's flush-before-evict (``HaloSwitchQueue.matches``) relies
+    on there being one.  TPF contexts are per target: never cached, and a
+    TPF batch does not evict the FFI context held (``get`` returns
+    ``cached=False`` for them, so the caller's ``release`` closes them).
+    ``mesh`` (a ``parallel.mesh.Mesh``) shards every FFI context's cubes
+    over it.
     """
 
-    def __init__(self, capacity: int = 1, device="cuda", mesh=None):
-        self.capacity = max(capacity, 1)
+    def __init__(self, device="cuda", mesh=None):
         self.device = device
         self.mesh = mesh
-        self._items: "dict[tuple, SectorContext]" = {}
+        self._key, self._ctx = None, None
 
     def get(self, input_folder: str, task: dict):
         if task["datasource"] != "ffi":
             return open_context(input_folder, task, device=self.device), False
         key = (input_folder, int(task["sector"]), int(task["camera"]), int(task["ccd"]))
-        ctx = self._items.pop(key, None)
-        if ctx is None:
-            ctx = open_context(input_folder, task, device=self.device, mesh=self.mesh)
-            while len(self._items) >= self.capacity:
-                # evict the least recently used context (hits re-insert):
-                self._items.pop(next(iter(self._items))).close()
-        self._items[key] = ctx
-        return ctx, True
+        if key != self._key:
+            self.close()
+            self._ctx = open_context(input_folder, task, device=self.device, mesh=self.mesh)
+            self._key = key
+        return self._ctx, True
 
     def close(self):
-        for ctx in self._items.values():
-            ctx.close()
-        self._items.clear()
+        if self._ctx is not None:
+            self._ctx.close()
+        self._key, self._ctx = None, None
 
     def release(self, ctx, cached: bool):
         """Close a context that did not come from the cache."""

@@ -6,10 +6,13 @@ Port of ``photometry_tpu/core/drain.py`` (reference run_tessphot.py:124-166
 and the per-task unit of run_tessphot_mpi.py:148-196): batches are leased
 per (sector, camera, ccd, datasource, cadence) so one device context serves
 hundreds of targets, and halo-switch candidates accumulate across leases in
-a ``HaloSwitchQueue``.  The optional ``timers`` dict decomposes the wall
-into the pipeline's phases: ``run_drain`` opens the process's recorder
-(``utils.profiling``) on it, and the spans and counters of every layer
-below add into it.
+a ``HaloSwitchQueue``.  :func:`drain_lease` is one lease's work, the
+same for ``run_drain`` and the scheduler's workers (``parallel.scheduler``),
+and :func:`task_to_result` builds every diagnostics row they store.  The
+optional ``timers`` dict decomposes the wall into the pipeline's phases:
+``run_drain`` opens the process's recorder (``utils.profiling``) on it, and
+the spans and counters of every layer below add into it.  A worker opens
+no recorder, so there they add nowhere.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from ..taskmanager import TaskManager
 from ..utils.profiling import StageTimer, count, span
 from .dispatcher import ContextCache, HaloSwitchQueue, photometry_batch
 
-__all__ = ["run_drain", "task_to_result", "new_timers"]
+__all__ = ["run_drain", "drain_lease", "flush_halo", "task_to_result", "new_timers"]
 
 logger = logging.getLogger(__name__)
 
@@ -31,6 +34,7 @@ def task_to_result(task, res, elaptime, worker_wait_time=None) -> dict:
     """Diagnostics row for TaskManager.save_result (taskmanager.py:435-603)."""
     details = dict(res.details)
     details["skip_targets"] = res.skip_targets
+    details.pop("halo_weightmap", None)  # bulk data, not a diagnostic
     return {
         "priority": task["priority"], "starid": task["starid"],
         "sector": task["sector"], "camera": task["camera"], "ccd": task["ccd"],
@@ -68,6 +72,46 @@ def new_timers() -> dict:
             "psf.results": 0.0, "psf_instances": 0, "psf_fused_instances": 0}
 
 
+def flush_halo(halo_queue: Optional[HaloSwitchQueue], force: bool = False) -> list:
+    """Resolve the queued halo-switch candidates (all of them with
+    ``force``, else once ``min_flush`` are queued) into rows ready to store."""
+    if halo_queue is None or not halo_queue.pending:
+        return []
+    tic = default_timer()
+    flushed = halo_queue.flush(force=force)
+    elap = (default_timer() - tic) / max(len(flushed), 1)
+    return [task_to_result(tk, res, elap) for tk, res in flushed]
+
+
+def drain_lease(ctx_cache: ContextCache, halo_queue: Optional[HaloSwitchQueue],
+                input_folder: str, batch: list, rows: list, *, worker_wait_time=None,
+                output_folder: Optional[str] = None, version: Optional[int] = None,
+                plot_folder: Optional[str] = None) -> list:
+    """One leased batch's work, for ``run_drain`` and the scheduler's workers:
+    flush ``halo_queue`` if the batch is of another CCD (before ``ctx_cache``
+    evicts the context it pins), ``photometry_batch`` with the products'
+    arguments, hold back the rows of deferred halo-switch candidates (leased
+    until their flush), and flush the queue once full.  Appends the rows
+    ready to store to ``rows`` as they come, so that a caller whose lease
+    fails keeps those of a flush before the failure; returns ``rows``."""
+    if halo_queue is not None and not halo_queue.matches(batch[0]):
+        rows += flush_halo(halo_queue, force=True)
+    tic = default_timer()
+    with span("context"):
+        ctx, cached = ctx_cache.get(input_folder, batch[0])
+    try:
+        results = photometry_batch(ctx, batch, output_folder=output_folder, version=version,
+                                   plot_folder=plot_folder, halo_queue=halo_queue)
+    finally:
+        ctx_cache.release(ctx, cached)
+    elap = (default_timer() - tic) / len(batch)
+    rows += [task_to_result(tk, res, elap, worker_wait_time) for tk, res in zip(batch, results)
+             if not res.details.get("halo_switch_deferred")]
+    if halo_queue is not None and halo_queue.should_flush():
+        rows += flush_halo(halo_queue)
+    return rows
+
+
 def run_drain(input_folder: str, version: int,
               output_folder: Optional[str] = None,
               products_folder: Optional[str] = None,
@@ -97,21 +141,14 @@ def run_drain(input_folder: str, version: int,
         # as one halo batch; single-task modes keep the inline switch:
         halo_queue = HaloSwitchQueue() if all_tasks and not method else None
 
-        def flush_halo(force=False):
+        def store(rows):
             nonlocal n_done
-            if halo_queue is None or not halo_queue.pending:
-                return
-            tic = default_timer()
-            flushed = halo_queue.flush(force=force)
-            if not flushed:
-                return
-            elap = (default_timer() - tic) / len(flushed)
             with span("sqlite"):
-                tm.save_results([task_to_result(tk, res, elap) for tk, res in flushed])
-            for tk, res in flushed:
-                n_done += 1
-                logger.info("Priority %d: TIC %d -> %s (halo flush)", tk["priority"],
-                            tk["starid"], res.status.name)
+                tm.save_results(rows)
+            n_done += len(rows)
+            for row in rows:
+                logger.info("Priority %d: TIC %d -> %s", row["priority"], row["starid"],
+                            row["status"].name)
 
         while True:
             with span("lease"):
@@ -126,42 +163,18 @@ def run_drain(input_folder: str, version: int,
                     batch = [task] if task else []
             if not batch:
                 break
-            # The queue pins its SectorContext: resolve it before the
-            # ContextCache evicts that context for a different CCD.
-            if halo_queue is not None and not halo_queue.matches(batch[0]):
-                flush_halo(force=True)
+            if method:
+                for tk in batch:
+                    tk["method"] = method
             with span("sqlite"):
                 tm.start_tasks([tk["priority"] for tk in batch])
-
-            tic_batch = default_timer()
-            with span("context"):
-                ctx, cached = ctx_cache.get(input_folder, batch[0])
-            try:
-                if method:
-                    for tk in batch:
-                        tk["method"] = method
-                results = photometry_batch(ctx, batch, output_folder=products_folder,
-                                           version=version,
-                                           plot_folder=output_folder if plot else None,
-                                           halo_queue=halo_queue)
-            finally:
-                ctx_cache.release(ctx, cached)
-            elaptime = (default_timer() - tic_batch) / max(len(batch), 1)
-            # Deferred halo-switch candidates stay leased until their flush:
-            ready = [(tk, res) for tk, res in zip(batch, results)
-                     if not res.details.get("halo_switch_deferred")]
-            with span("sqlite"):
-                tm.save_results([task_to_result(tk, res, elaptime) for tk, res in ready])
+            store(drain_lease(ctx_cache, halo_queue, input_folder, batch, [],
+                              output_folder=products_folder, version=version,
+                              plot_folder=output_folder if plot else None))
             count("n_batches")
-            for tk, res in ready:
-                n_done += 1
-                logger.info("Priority %d: TIC %d -> %s", tk["priority"], tk["starid"],
-                            res.status.name)
-            if halo_queue is not None and halo_queue.should_flush():
-                flush_halo()
             if not all_tasks:
                 break
-        flush_halo(force=True)
+        store(flush_halo(halo_queue, force=True))
         logger.info("%d task(s) processed.", n_done)
         count("n_done", n_done)
     return n_done

@@ -21,11 +21,10 @@ Two routes, chosen by the same static rule as the JAX package:
 Nothing is compiled ahead of time in the port (PyTorch runs eagerly and the
 kernel is built once per process), so the JAX package's AOT prefetch has no
 counterpart here, and nothing catches a kernel failure to re-run the
-fitter.  ``ROUTES`` counts the target groups each route fitted; the open
-recorder (``utils.profiling``) counts the instances each fit was handed,
-``psf_instances``, and those the fused route fitted, ``psf_fused_instances``,
-and times ``extract_psf_batch``'s steps: ``psf.setup``, ``psf.gather``,
-``psf.fit`` and ``psf.results``.
+fitter.  The open recorder (``utils.profiling``) counts the instances each
+fit was handed, ``psf_instances``, and those the fused route fitted,
+``psf_fused_instances``, and times ``extract_psf_batch``'s steps:
+``psf.setup``, ``psf.gather``, ``psf.fit`` and ``psf.results``.
 """
 
 from __future__ import annotations
@@ -46,17 +45,14 @@ from .psf_fused import fused_ok, fused_warm_fit
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["make_psf_fitter", "fit_psf_timeseries_batch", "extract_psf_batch", "ROUTES",
-           "LM_ITERS", "LM_ITERS_WARM"]
+__all__ = ["make_psf_fitter", "fit_psf_timeseries_batch", "extract_psf_batch", "LM_ITERS",
+           "LM_ITERS_WARM"]
 
 LM_ITERS = 12
 #: Iterations for warm-started cadences (phase 2): damped GN converges
 #: quadratically from the first-frame solution, so ~half suffices.
 LM_ITERS_WARM = 6
 LM_LAMBDA = 1e-3
-
-#: Target groups fitted by each route since the last reset.
-ROUTES = {"fused": 0, "plain": 0}
 
 
 def _unpack(p, S):
@@ -272,11 +268,9 @@ def fit_psf_timeseries_batch(images, backgrounds, var_const, p0, valid, mini_ap,
     N, T = images.shape[:2]
     count("psf_instances", N * (T + 1))          # the first cadences, then every cadence
     if fused and fused_ok(prf, shape, S, lhood_stat):
-        ROUTES["fused"] += 1
         count("psf_fused_instances", N * (T + 1))
         return _fit_fused_batch(images, backgrounds, var_const, p0, valid, mini_ap,
                                 target_idx, prf, shape, S)
-    ROUTES["plain"] += 1
     return _fit_plain_batch(images, backgrounds, var_const, p0, valid, mini_ap, target_idx,
                             prf, shape, S, lhood_stat)
 

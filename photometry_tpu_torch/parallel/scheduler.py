@@ -3,8 +3,9 @@ Master/worker task-pull scheduler on the port.
 
 Port of ``photometry_tpu/parallel/scheduler.py`` (reference
 run_tessphot_mpi.py): workers announce READY, the master leases a batch of
-compatible tasks (START), a worker runs ``photometry_batch`` on it, writes
-the light curves itself and returns small result dicts (DONE); when the
+compatible tasks (START), a worker runs ``run_drain``'s lease step
+(``core.drain.drain_lease``) on it, writes the light curves itself and
+returns the diagnostics rows, without the halo weight maps (DONE); when the
 queue is empty the master asks it to EXIT, and the worker, after flushing
 its deferred halo-switch candidates as one more DONE, answers BYE.  Only
 the master touches the todo list.  Two transports carry the messages:
@@ -76,28 +77,13 @@ def _check_mesh_spec(mesh_spec):
         mesh_axes(mesh_spec)
 
 
-def _result_to_dict(task, res, elaptime, worker_wait_time):
-    details = dict(res.details)
-    details["skip_targets"] = getattr(res, "skip_targets", [])
-    details.pop("halo_weightmap", None)  # bulk data stays on the worker
-    return {
-        "priority": task["priority"], "starid": task["starid"],
-        "sector": task["sector"], "camera": task["camera"], "ccd": task["ccd"],
-        "cadence": task["cadence"], "datasource": task["datasource"],
-        "tmag": task["tmag"], "status": res.status.value,
-        "method_used": res.method, "time": elaptime,
-        "worker_wait_time": worker_wait_time, "details": details,
-    }
-
-
 def worker_loop(conn, input_folder: str, output_folder: Optional[str], version: int,
                 device="cuda", mesh_spec: Optional[str] = None):
-    """Worker process: READY -> START batch -> photometry on ``device`` (FFI
-    cubes sharded over the mesh of ``mesh_spec``, built here) -> DONE ...
-    EXIT -> BYE."""
-    from ..core.dispatcher import _PROPAGATE, ContextCache, HaloSwitchQueue, photometry_batch
-    from ..core.status import STATUS
-    from ..utils.profiling import StageTimer
+    """Worker process: READY -> START batch -> ``core.drain.drain_lease`` on
+    ``device`` (FFI cubes sharded over the mesh of ``mesh_spec``, built
+    here) -> DONE ... EXIT -> BYE."""
+    from ..core.dispatcher import _PROPAGATE, ContextCache, HaloSwitchQueue, _error_result
+    from ..core.drain import drain_lease, flush_halo, task_to_result
 
     mesh = None
     if mesh_spec:
@@ -106,17 +92,6 @@ def worker_loop(conn, input_folder: str, output_folder: Optional[str], version: 
     ctx_cache = ContextCache(device=device, mesh=mesh)
     halo_queue = HaloSwitchQueue()
 
-    def _flush_halo(force=False):
-        """Resolve queued halo-switch candidates -> result dicts."""
-        if not halo_queue.pending:
-            return []
-        tic = default_timer()
-        flushed = halo_queue.flush(force=force)
-        if not flushed:
-            return []
-        elap = (default_timer() - tic) / len(flushed)
-        return [_result_to_dict(t, r, elap, None) for t, r in flushed]
-
     tic_wait = default_timer()
     conn.send((READY, None))
     while True:
@@ -124,7 +99,7 @@ def worker_loop(conn, input_folder: str, output_folder: Optional[str], version: 
         if tag == EXIT:
             # Deferred halo-switch work still pending: deliver it as one
             # more DONE; the master answers with EXIT again.
-            leftovers = _flush_halo(force=True)
+            leftovers = flush_halo(halo_queue, force=True)
             if leftovers:
                 conn.send((DONE, leftovers))
                 continue
@@ -143,51 +118,24 @@ def worker_loop(conn, input_folder: str, output_folder: Optional[str], version: 
             os._exit(17)
         worker_wait_time = default_timer() - tic_wait
         tic = default_timer()
-        results = []
-        ctx = None
-        cached = False
+        rows = []
         try:
-            # The halo queue pins its SectorContext: resolve it before the
-            # cache evicts that context for another CCD.
-            results = _flush_halo(force=True) if not halo_queue.matches(batch[0]) else []
-            timer = StageTimer()
-            with timer.stage("context"):
-                ctx, cached = ctx_cache.get(input_folder, batch[0])
-            with timer.stage("photometry"):
-                out = photometry_batch(ctx, batch, output_folder=output_folder,
-                                       version=version, halo_queue=halo_queue)
-            elap = (default_timer() - tic) / max(len(batch), 1)
-            # Deferred halo-switch candidates stay leased until a flush:
-            results += [_result_to_dict(t, r, elap, worker_wait_time)
-                        for t, r in zip(batch, out)
-                        if not r.details.get("halo_switch_deferred")]
-            if halo_queue.should_flush():
-                results += _flush_halo()
-            if results:
-                results[-1]["details"].update(timer.as_details())
+            drain_lease(ctx_cache, halo_queue, input_folder, batch, rows,
+                        worker_wait_time=worker_wait_time, output_folder=output_folder,
+                        version=version)
         except _PROPAGATE:
             # Not the tasks' failure: this worker cannot do the work.  It
             # dies; the master returns its leases to the queue.
             raise
         except Exception:
             tb = traceback.format_exc().strip()
-            elap = (default_timer() - tic) / max(len(batch), 1)
-            # += keeps halo results already flushed above: their queue
-            # entries are consumed.
-            results += [{
-                "priority": t["priority"], "starid": t["starid"],
-                "sector": t["sector"], "camera": t["camera"], "ccd": t["ccd"],
-                "cadence": t["cadence"], "datasource": t["datasource"],
-                "tmag": t["tmag"], "status": STATUS.ERROR.value,
-                "method_used": "error", "time": elap,
-                "worker_wait_time": worker_wait_time,
-                "details": {"errors": [tb]},
-            } for t in batch]
-        finally:
-            if ctx is not None:
-                ctx_cache.release(ctx, cached)
+            elap = (default_timer() - tic) / len(batch)
+            # += keeps the rows of a halo flush before the failure: their
+            # queue entries are consumed.
+            rows += [task_to_result(t, _error_result(t, None, tb), elap, worker_wait_time)
+                     for t in batch]
         tic_wait = default_timer()
-        conn.send((DONE, results))
+        conn.send((DONE, rows))
 
 
 def worker_remote(address, input_folder: str, output_folder: Optional[str] = None,

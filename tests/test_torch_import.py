@@ -1131,9 +1131,10 @@ def test_profile_psf_fused_route_on_card():
     fits are well-posed (``chip_smoke.psf_stable_share``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from photometry_tpu_torch.models import psf_fit, psf_fused
+    from photometry_tpu_torch.models import psf_fused
     from photometry_tpu_torch.ops._kernels import PSF_WARM_FIT
     from photometry_tpu_torch.tools import profile_psf
+    from photometry_tpu_torch.utils.profiling import StageTimer
     sizes = []
     real = psf_fused.fused_warm_fit_cuda
 
@@ -1141,16 +1142,19 @@ def test_profile_psf_fused_route_on_card():
         sizes.append(images.shape[0])
         return real(images, *a, **kw)
 
-    psf_fit.ROUTES.update(fused=0, plain=0)
     before = PSF_WARM_FIT.launches
     psf_fused.fused_warm_fit_cuda = recording
+    recorder = StageTimer()
     try:
-        summary, full, inp = profile_psf.profile(["--chunk", "8", "--T", "40", "--reps", "1"])
+        with recorder.recording():
+            summary, full, inp = profile_psf.profile(["--chunk", "8", "--T", "40",
+                                                      "--reps", "1"])
     finally:
         psf_fused.fused_warm_fit_cuda = real
     torch.cuda.synchronize()
     assert summary["config"]["backend"].startswith("cuda")
-    assert psf_fit.ROUTES == {"fused": 2, "plain": 0}
+    n = recorder.timings
+    assert n["psf_fused_instances"] == n["psf_instances"] > 0, n
     assert PSF_WARM_FIT.launches - before == 6 and sorted(set(sizes)) == [8, 320]
     assert torch.isfinite(full["flux"]).all()
     from chip_smoke import psf_stable_share

@@ -33,6 +33,7 @@ from photometry_tpu_torch.core.engine import SectorContext
 from photometry_tpu_torch.io.settings import load_settings
 from photometry_tpu_torch.io.wcs import TanWCS
 from photometry_tpu_torch.models import psf_common, psf_fit
+from photometry_tpu_torch.utils.profiling import StageTimer
 
 CFG = {"sector": 1, "camera": 1, "ccd": 1,
        "prf": {"terms": [[0.7, 1.1, 1.1], [0.3, 2.0, 2.0], [0.2, 1.6, 1.3]], "oversample": 9,
@@ -201,9 +202,10 @@ def test_run_drain_psf_matches_the_reference(field, use_settings, monkeypatch, t
 def test_fused_function_matches_the_reference(field, use_settings):
     use_settings(field["prf_dir"])
     ctx = SectorContext.from_arrays(**field["ctx_kw"])
-    fused = psf_fit.ROUTES["fused"]
-    out = psf_fit.extract_psf_batch(ctx, [int(s) for s in field["sids"]], fused=True)
-    assert psf_fit.ROUTES["fused"] > fused
+    recorder = StageTimer()
+    with recorder.recording():
+        out = psf_fit.extract_psf_batch(ctx, [int(s) for s in field["sids"]], fused=True)
+    assert recorder.timings["psf_fused_instances"] == recorder.timings["psf_instances"] > 0
     _held(field, [(res.starid, np.asarray(res.lightcurve["flux"], np.float64),
                     np.asarray(res.lightcurve["flux_background"], np.float64),
                     res.aperture_image, res.stamp[0], res.stamp[2]) for res in out])

@@ -11,6 +11,9 @@
   queue's ``min_batch`` set to 2 by a settings file the workers read):
   per task the same final status and method, the same products, fluxes
   within tests/test_torch_dispatch.py's drain tolerances.
+- One lease step: on the same sector, one worker of ``run_distributed``
+  and ``run_drain`` store the same todo rows (status, method, errors) and
+  write the same light-curve files, byte for byte.
 - A ``KernelError`` in a worker's photometry (a TCP worker started here
   through :func:`kernel_error_worker`) kills the worker: no ERROR rows, the
   lease back in the queue, ``drained`` False.
@@ -45,14 +48,14 @@ pytestmark = pytest.mark.mpi
 
 def kernel_error_worker(address, folder):
     """A TCP worker whose photometry raises ``KernelError`` on every lease."""
-    from photometry_tpu_torch.core import dispatcher
+    from photometry_tpu_torch.core import drain
     from photometry_tpu_torch.ops._kernels import KernelError
 
     def failing(*a, **kw):
         raise KernelError("injected kernel failure")
 
     from photometry_tpu_torch.parallel import scheduler
-    dispatcher.photometry_batch = failing
+    drain.photometry_batch = failing     # what the workers' lease step calls
     scheduler.worker_remote(address, folder, version=1, device="cpu")
 
 
@@ -219,15 +222,17 @@ def _products(d):
     return out
 
 
-def test_parity_with_jax_scheduler(tmp_path, monkeypatch):
+@pytest.fixture(scope="module")
+def bright_prepared(tmp_path_factory):
+    """tests/test_torch_dispatch.py's bright_sector, prepared by the JAX
+    package: two bright stars on the CCD's edges (halo switch), two fainter
+    isolated stars, three blends at 3.5-5.5 px (deblend switch); and a
+    settings file that sets the halo queue's ``min_batch`` to 2."""
     from photometry_tpu.cli import prepare_cmd, todo_cmd
-    from photometry_tpu.parallel.scheduler import run_distributed as jax_run_distributed
     from photometry_tpu.sim.simulator import SimConfig, simulate_sector
     from photometry_tpu_torch.io.settings import data_dir
-    # tests/test_torch_dispatch.py's bright_sector: two bright stars on the
-    # CCD's edges (halo switch), two fainter isolated stars, three blends
-    # at 3.5-5.5 px (deblend switch).
-    d = str(tmp_path / "sector")
+    root = tmp_path_factory.mktemp("torch_sched_bright")
+    d = str(root / "sector")
     os.makedirs(d)
     stars = [(30.0, 1.0, 4.8), (96.0, 126.0, 5.3), (64.0, 20.0, 9.5), (20.0, 100.0, 9.8)]
     for i, sep in enumerate([3.5, 4.5, 5.5]):
@@ -243,13 +248,32 @@ def test_parity_with_jax_scheduler(tmp_path, monkeypatch):
     with open(os.path.join(data_dir(), "settings.ini")) as fh:
         text = fh.read()
     assert "min_batch" not in text and "\n[haloswitch]\n" in text
-    settings = str(tmp_path / "settings.ini")
+    settings = str(root / "settings.ini")
     with open(settings, "w") as fh:
         fh.write(text.replace("\n[haloswitch]\n", "\n[haloswitch]\nmin_batch = 2\n"))
+    return d, settings
+
+
+@pytest.fixture
+def bright(bright_prepared, monkeypatch):
+    """The prepared bright sector, with its settings file in force here and
+    in the workers spawned from here."""
+    from photometry_tpu_torch.core import dispatcher
+    from photometry_tpu_torch.io.settings import load_settings
+    d, settings = bright_prepared
     monkeypatch.setenv("PHOTOMETRY_TPU_SETTINGS", settings)
+    load_settings.cache_clear()
+    dispatcher.default_time_corrector.cache_clear()
+    yield d
+    load_settings.cache_clear()
+    dispatcher.default_time_corrector.cache_clear()
+
+
+def test_parity_with_jax_scheduler(bright, tmp_path):
+    from photometry_tpu.parallel.scheduler import run_distributed as jax_run_distributed
     d_jax, d_torch = str(tmp_path / "jax"), str(tmp_path / "torch")
     for dst in (d_jax, d_torch):
-        shutil.copytree(d, dst)
+        shutil.copytree(bright, dst)
     want = jax_run_distributed(d_jax, n_workers=2, version=3, batch_size=5, platform="cpu")
     got = run_distributed(d_torch, n_workers=2, version=3, batch_size=5, device="cpu")
     assert got["drained"] is True and want["drained"] is True
@@ -270,3 +294,41 @@ def test_parity_with_jax_scheduler(tmp_path, monkeypatch):
         rtol, atol = tol[methods[int(name[4:15])]]
         for a, b in zip(arrays, p_want[name]):
             np.testing.assert_allclose(a, b, rtol=rtol, atol=atol, equal_nan=True, err_msg=name)
+
+
+def _errors(d):
+    with sqlite3.connect(os.path.join(d, "todo.sqlite")) as conn:
+        return conn.execute("SELECT priority, errors FROM diagnostics ORDER BY priority").fetchall()
+
+
+def _product_bytes(d):
+    out = {}
+    for path in glob.glob(os.path.join(d, "**", "*tasoc_lc.fits.gz"), recursive=True):
+        with open(path, "rb") as fh:
+            out[os.path.relpath(path, d)] = fh.read()
+    return out
+
+
+def test_scheduler_rows_and_products_equal_run_drain(bright, tmp_path):
+    """One worker of ``run_distributed`` and ``run_drain``, in batches of 5
+    on copies of the bright sector, run the same lease step: both switches
+    fire, the halo queue flushes mid-drain once its two candidates wait, and
+    the todo lists (status, method, errors) and the light-curve files, byte
+    for byte, come out the same."""
+    from photometry_tpu_torch.core.drain import run_drain
+    d_drain, d_sched = str(tmp_path / "drain"), str(tmp_path / "sched")
+    for dst in (d_drain, d_sched):
+        shutil.copytree(bright, dst)
+    n_done = run_drain(d_drain, 3, batch_size=5, device="cpu")
+    summary = run_distributed(d_sched, n_workers=1, version=3, batch_size=5, device="cpu")
+    assert summary["drained"] is True and summary["tasks_run"] == n_done > 0
+
+    rows = _rows(d_drain)
+    assert rows == _rows(d_sched)
+    assert _errors(d_drain) == _errors(d_sched)
+    methods = [m for _, _, _, m in rows]
+    assert methods.count("halo") == 2 and methods.count("linpsf") >= 4
+
+    products = _product_bytes(d_drain)
+    assert len(products) == len(rows)
+    assert products == _product_bytes(d_sched)
