@@ -22,7 +22,7 @@ primary TPFs from 128 to 48 and then 32, phase 7's profiled leases from
 two to one, and phase 5's FFIs from 96 to 80.
 
 0. imports: ``jax``, ``jaxlib``, ``h5py`` and ``photometry_tpu`` refused.
-1. device: the card's name and power limit; the five kernel sources are
+1. device: the card's name and power limit; the six kernel sources are
    built with nvcc for sm_90a from ``photometry_tpu_torch/ops/csrc/``, one
    nvcc each, started together (registers and spills of every kernel
    printed, the band kernel's float32 and bfloat16 instantiations apart).
@@ -65,7 +65,14 @@ two to one, and phase 5's FFIs from 96 to 80.
    rings x 512 buckets, on synthetic buckets and on real ones: phase 3's
    field on phase 5's sky, bucketed by segment_kde_mode's rule) with
    median times of kernel, plain version and the one-call torch
-   equivalent.
+   equivalent.  Then the tile-mode kernel against its plain version
+   (``ops/tilemode.compare_to_plain``: NaN pattern exact, values to 2e-6,
+   each tile outside that explained by a pixel within the kernel's stated
+   rounding bound of a clip cut, at most 1% of the tiles): a tile above
+   its shared-memory limit refused, 4 raw 2078x2136 frames (64-px tiles do
+   not divide them), then a 64-frame chunk of 2048^2 sky-like frames, two
+   runs bit-equal, with median times of kernel and plain version and the
+   bound by bytes (a float and a mask byte a pixel, read once).
 2d. the stamp-flux kernel vs its plain torch version on the card:
    adversarial inputs (NaN and ±inf pixels, an all-NaN cadence, an empty
    mask, stamps flush with and running past the bottom and right edges;
@@ -142,16 +149,19 @@ two to one, and phase 5's FFIs from 96 to 80.
    runs stages 1-5 on them into an in-memory store with the ``ImageCube``
    methods (one 64-frame chunk and a partial one), under ``torch.profiler``,
    then again with ``calc_movement_kernel=True``, which resumes and runs
-   stage 6 alone, profiler off.  Both kernels' launch counts must rise; the
-   markers, backgrounds, flags and movement kernels (every one below 0.05 px
-   on these motionless frames, below 0.005 px at the reference frame) are
-   checked; the first chunk's background fit and 8 frames' residuals are
-   re-run with the plain versions and must be equal; stage walls, frames
-   per second, the device busy share of stages 1-5, the median and
-   histogram kernels' device time per launch and stage 6's peak memory
-   (around its call) are printed, with the native host runtime's state
-   (the phase fails if it did not load: FITS reads gunzip and byteswap
-   through it).
+   stage 6 alone, profiler off.  The three kernels' launch counts must
+   rise; the markers, backgrounds, flags and movement kernels (every one
+   below 0.05 px on these motionless frames, below 0.005 px at the
+   reference frame) are checked; the first chunk's background fit and 8
+   frames' residuals are re-run with the plain versions and must be equal,
+   except that each fit pass holds the tile-mode kernel's grid to the plain
+   one on that pass's input tile by tile (as phase 2c does; it sums in
+   float64, so a clip near a cut may part) and passes the kernel's on;
+   stage walls, frames per second, the device busy share of stages 1-5,
+   the median and histogram kernels' device time per launch and stage 6's
+   peak memory (around its call) are printed, with the native host
+   runtime's state (the phase fails if it did not load: FITS reads gunzip
+   and byteswap through it).
 6. ECC registration at full size: 32 copies of phase 3's star field shifted
    on the card by a known drift plus jitter (up to 1.5 px, FFT phase ramps)
    with fresh noise, registered by ``MotionModel.calc_kernels_batch``
@@ -364,9 +374,12 @@ KERNELS = {
                      "photometry_tpu/ops/hist_pallas.py:44"),
     "stamp_flux": ("photometry_tpu_torch/ops/csrc/stamp_flux.cu",
                    "tools/pallas_extract_demo.py:51"),
+    "tile_mode": ("photometry_tpu_torch/ops/csrc/tile_mode.cu",
+                  "photometry_tpu/ops/background.py:184"),
 }
 MEDIAN_MAIN = (8, 2048, 2048)            # frames of the shenanigans stage per launch (cut from 64)
 HIST_MAIN = (64, 1 << 20, 512)           # a 64-frame chunk at hist_stride 2, 512 buckets
+TILE_MAIN = (64, 2048, 2048, 64)         # a 64-frame chunk of the background fit, 64-px tiles
 # Phase 5: sector 27 (600 s FFIs: time smoothing over 9 frames), camera 1
 # CCD 1 (the camera centre sits off its corner: ~40 rings beyond 2400 px).
 PREP = {"T": 80, "sector": 27, "camera": 1, "ccd": 1, "chunk": 64}
@@ -1220,6 +1233,74 @@ def hist_phase(dev, rng, card, result, img0):
         if what == "main shape":
             result["segment_hist"].update(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                                           bound_ms=bound, bound_by="bytes", library_ms=lib_ms)
+
+
+def tile_frames(dev, gen, nf, H, W):
+    """``nf`` sky-like (H, W) frames on the card and their exclusion mask:
+    a sky of 150 with a 20% slope and noise of 6, 0.2% of pixels lit by
+    stars up to +2,000, 5% of pixels masked, a 10 x 20 NaN patch."""
+    import torch
+    xx = torch.arange(W, device=dev, dtype=torch.float32) / W
+    img = 150.0 + 30.0 * xx + 6.0 * torch.randn(nf, H, W, device=dev, generator=gen)
+    lit = torch.rand(nf, H, W, device=dev, generator=gen) < 0.002
+    img = torch.where(lit, img + 2000.0 * torch.rand(nf, H, W, device=dev, generator=gen), img)
+    img[:, 100:110, 100:120] = float("nan")
+    mask = (torch.rand(nf, H, W, device=dev, generator=gen) < 0.05) | ~torch.isfinite(img)
+    return img.contiguous(), mask
+
+
+def tile_held(what, got, want, img, mask, tile):
+    """Fails unless the kernel's grid keeps to the plain one
+    (``tilemode.compare_to_plain``): NaN pattern exact, values to its RTOL,
+    every tile outside it explained by a pixel near a clip cut, at most 1%
+    of the tiles.  Returns (tiles compared, tiles outside RTOL)."""
+    from photometry_tpu_torch.ops import tilemode
+    agree = tilemode.compare_to_plain(got, want, img, mask, tile)
+    check(agree.same_nan, f"tile_mode {what}: the NaN pattern differs from the plain version's")
+    check(not agree.unexplained, f"tile_mode {what}: tiles off the plain version with no pixel "
+          f"near a clip cut (f, i, j, got, want, margin, bound): {agree.unexplained[:4]}")
+    check(agree.outside <= 0.01 * agree.compared,
+          f"tile_mode {what}: {agree.outside} of {agree.compared} tiles outside rtol")
+    return agree.compared, agree.outside
+
+
+def tile_phase(dev, gen, card, result):
+    import torch
+    from photometry_tpu_torch.ops import tilemode
+    nf, H, W, tile = TILE_MAIN
+    z = torch.zeros(1, 2 * tile + 2, 2 * tile + 2, device=dev)
+    try:
+        tilemode.tile_mode(z, z.isnan(), 2 * tile + 1, 0.5)
+        fail(f"a {2 * tile + 1}^2 tile (more than shared memory holds) did not raise")
+    except ValueError:
+        pass
+    img, mask = tile_frames(dev, gen, 4, *RAW_SHAPE)
+    got = tilemode.tile_mode_cuda(img, mask, tile, 0.5)
+    torch.cuda.synchronize()
+    n, off = tile_held("raw frames", got, tilemode.tile_mode_plain(img, mask, tile, 0.5), img,
+                       mask, tile)
+    print(f"phase 2c tile_mode adversarial (a tile above the limit refused; 4 raw frames of "
+          f"{RAW_SHAPE[0]}x{RAW_SHAPE[1]}, which {tile}-px tiles do not divide): {off} of {n} "
+          f"tiles outside rtol {tilemode.RTOL}, each near a clip cut", flush=True)
+
+    img, mask = tile_frames(dev, gen, nf, H, W)
+    got = tilemode.tile_mode_cuda(img, mask, tile, 0.5)
+    torch.cuda.synchronize()
+    check(bit_equal(got, tilemode.tile_mode_cuda(img, mask, tile, 0.5)),
+          "tile_mode main shape: two runs differ")
+    want = tilemode.tile_mode_plain(img, mask, tile, 0.5)
+    n, off = tile_held("main shape", got, want, img, mask, tile)
+    err = float(torch.nan_to_num(got - want).abs().max())
+    ms = cuda_ms(lambda: tilemode.tile_mode_cuda(img, mask, tile, 0.5))
+    plain_ms = cuda_ms(lambda: tilemode.tile_mode_plain(img, mask, tile, 0.5), reps=1, warm=False)
+    nbytes = img.numel() * 5 + got.numel() * 4        # a float and a mask byte a pixel read once
+    bound = nbytes / PEAK_BYTES * 1e3
+    print(f"phase 2c tile_mode main shape {TILE_MAIN[:3]}, {tile}-px tiles: {off} of {n} tiles "
+          f"outside rtol {tilemode.RTOL}, each near a clip cut; max |diff| {err:.3g}; two runs "
+          f"bit-equal; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms by "
+          f"bytes ({nbytes / 1e6:.1f} MB) ({card})", flush=True)
+    result["tile_mode"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                               bound_by="bytes")
 
 
 # --- phase 2d: flux-only stamp extraction --------------------------------------
@@ -3229,7 +3310,8 @@ def prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result,
     from photometry_tpu_torch.io.loader import iter_frames
     from photometry_tpu_torch.io.settings import sector_info
     from photometry_tpu_torch.io.tess import read_ffi
-    from photometry_tpu_torch.ops._kernels import MEDIAN15, SEGMENT_HIST
+    from photometry_tpu_torch.ops import tilemode
+    from photometry_tpu_torch.ops._kernels import MEDIAN15, SEGMENT_HIST, TILE_MODE
     from photometry_tpu_torch.ops.background import radial_coordinates
     from photometry_tpu_torch.quality import PixelQualityFlags as PQ
     folder = os.path.join(work, "ffi")
@@ -3267,7 +3349,8 @@ def prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result,
           + f"; {walls['fits_bytes'] / 1e9:.2f} GB of FITS data read"
           + f"; stage 1 {fps1:.2f} frames/s, stage 3 {fps3:.2f} frames/s; device busy "
           f"{busy:.1f} ms = {100 * busy / (wall * 1e3):.1f}% of the wall (torch.profiler on); "
-          f"launches median15 {MEDIAN15.launches}, segment_hist {SEGMENT_HIST.launches}; "
+          f"launches median15 {MEDIAN15.launches}, segment_hist {SEGMENT_HIST.launches}, "
+          f"tile_mode {TILE_MODE.launches}; "
           f"{native_state('5')}", flush=True)
     print(f"phase 5 device time by kernel: {top_device_ops(prof)}", flush=True)
     med = [d / 1e3 for _, d in kernel_spans(prof, "median15_kernel")]
@@ -3283,6 +3366,7 @@ def prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result,
               f"{sum(hist):.4f}) ({card})", flush=True)
     check(MEDIAN15.launches > 0, "the prepare slice did not launch the median kernel")
     check(SEGMENT_HIST.launches > 0, "the prepare slice did not launch the histogram kernel")
+    check(TILE_MODE.launches > 0, "the prepare slice did not launch the tile-mode kernel")
     check(cube.stages == set(prep.STAGES), f"stage markers {sorted(cube.stages)}")
 
     # Stage 6, resumed on the prepared cube: the frames carry no injected motion.
@@ -3352,22 +3436,42 @@ def prepare_phase(work, img0, rows, cols, tmag, wcs, dev, gen, card, result,
     src = prep._catalog_source_mask(folder, sector, camera, ccd, (H, W), frames[0].wcs)
     del frames
     reset_counts()
-    bkg_plain, _ = prep.background_flags(
-        torch.as_tensor(stack, device=dev), torch.as_tensor(manex, device=dev),
-        torch.as_tensor(src, device=dev),
-        radius_image=radial_coordinates((H, W), camera, ccd, col_offset=44 if raw else 0),
-        tile=int(min(64, max(8, min(H, W) // 6))), plain=True)
+    # The tile-mode kernel sums each tile's mean and std in float64, the plain
+    # version in float32, so the two grids can part where a pixel lies within
+    # that rounding of a clip cut.  Each fit pass of the re-run holds the
+    # kernel's grid to the plain one on that pass's input, tile by tile, and
+    # hands the kernel's on: the backgrounds must then be bit-equal, which
+    # holds the plain histogram to the kernel's end to end.
+    plain_modes, passes = tilemode.tile_mode_plain, []
+
+    def held_modes(img, mask, tile, min_fraction):
+        want = plain_modes(img, mask, tile, min_fraction)
+        got = tilemode.tile_mode_cuda(img.contiguous(), mask.contiguous(), tile, min_fraction)
+        passes.append(tile_held(f"fit pass {len(passes) + 1}", got, want, img, mask, tile))
+        return got
+
+    with mock.patch.object(tilemode, "tile_mode_plain", held_modes):
+        bkg_plain, _ = prep.background_flags(
+            torch.as_tensor(stack, device=dev), torch.as_tensor(manex, device=dev),
+            torch.as_tensor(src, device=dev),
+            radius_image=radial_coordinates((H, W), camera, ccd, col_offset=44 if raw else 0),
+            tile=int(min(64, max(8, min(H, W) // 6))), plain=True)
     bkg_plain = bkg_plain.cpu().numpy()
     kk = cube.keep_frames
     resid_plain = prep.shenanigans_residual(
         torch.nan_to_num(torch.as_tensor(cube.images(0, kk), device=dev)),
         torch.as_tensor(cube.sumimage.astype(np.float32), device=dev), plain=True).cpu()
-    check(MEDIAN15.launches == 0 and SEGMENT_HIST.launches == 0, "a plain re-run launched a kernel")
+    check(MEDIAN15.launches == 0 and SEGMENT_HIST.launches == 0
+          and TILE_MODE.launches == len(passes) > 0,
+          "a plain re-run launched a kernel outside the tile-mode comparisons")
     same_bkg = np.array_equal(bkg_plain, cube.raw_backgrounds, equal_nan=True)
     same_resid = bit_equal(resid_plain, torch.as_tensor(cube.kept_resid))
-    print(f"phase 5 plain re-run: first {n0} frames' background fit equal: {same_bkg} (max "
-          f"|diff| {np.nanmax(np.abs(bkg_plain - cube.raw_backgrounds)):.3g}); {kk} frames' "
-          f"residuals bit-equal: {same_resid}", flush=True)
+    print(f"phase 5 plain re-run: tile grids of the {len(passes)} fit passes against the plain "
+          f"version's, tiles outside rtol {tilemode.RTOL} (each near a clip cut) of those "
+          f"compared: {', '.join(f'{off} of {n}' for n, off in passes)}; first {n0} frames' "
+          f"background fit equal: {same_bkg} (max |diff| "
+          f"{np.nanmax(np.abs(bkg_plain - cube.raw_backgrounds)):.3g}); {kk} frames' residuals "
+          f"bit-equal: {same_resid}", flush=True)
     check(same_bkg, "first chunk's backgrounds differ between the kernel and the plain histogram")
     check(same_resid, "shenanigans residuals differ between the kernel and the plain median")
     return cube, tpf
@@ -4491,7 +4595,7 @@ def main() -> int:
     from photometry_tpu_torch.ops import bandext
     from photometry_tpu_torch.ops._kernels import (BAND_EXTRACT, LIBRARIES, MEDIAN15,
                                                    PSF_WARM_FIT, SEGMENT_HIST, STAMP_FLUX,
-                                                   build_all)
+                                                   TILE_MODE, build_all)
     from photometry_tpu_torch.utils.profiling import StageTimer
 
     dev = torch.device("cuda")
@@ -4509,10 +4613,10 @@ def main() -> int:
           f"{ptxas_summary(PSF_WARM_FIT.build_log)}", flush=True)
     print("phase 1 registers/spill stores: "
           + ptxas_regs(BAND_EXTRACT.build_log + MEDIAN15.build_log + SEGMENT_HIST.build_log
-                       + STAMP_FLUX.build_log,
+                       + STAMP_FLUX.build_log + TILE_MODE.build_log,
                        ("band_extract_kernelIf", "band_extract_kernelI13__nv_bfloat16",
                         "median15_kernel", "segment_hist_kernel", "to_float_kernel",
-                        "stamp_flux_kernel")), flush=True)
+                        "stamp_flux_kernel", "tile_mode_kernel")), flush=True)
     lap("1")
     result = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "library_ms": None} for name, (src, rep) in KERNELS.items()}
@@ -4537,7 +4641,7 @@ def main() -> int:
     # The phases this script gained later draw from generators of their own,
     # so that the earlier phases' data stay as they were:
     seeds = {name: args.seed + 1000 * k
-             for k, name in enumerate(("2 TPF shapes", "8", "3b sector"), start=1)}
+             for k, name in enumerate(("2 TPF shapes", "8", "3b sector", "2c tile"), start=1)}
     gens = {}
     for name, seed in seeds.items():
         gens[name] = torch.Generator(device=dev)
@@ -4681,6 +4785,7 @@ def main() -> int:
     # --- phase 2c: median and histogram kernels vs plain ---------------------
     median_phase(dev, rng, gen, card, result)
     hist_phase(dev, rng, card, result, img0)
+    tile_phase(dev, gens["2c tile"], card, result)
     lap("2c")
 
     # --- phase 2d: stamp kernel vs plain (its main shape runs after phase 3) -------

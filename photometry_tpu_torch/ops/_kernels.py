@@ -25,8 +25,8 @@ import threading
 from time import perf_counter
 
 __all__ = ["KernelError", "CudaLibrary", "Instantiation", "BAND_EXTRACT", "BAND_EXTRACT_BF16",
-           "PSF_WARM_FIT", "MEDIAN15", "SEGMENT_HIST", "STAMP_FLUX", "LIBRARIES", "KERNELS",
-           "build_all"]
+           "PSF_WARM_FIT", "MEDIAN15", "SEGMENT_HIST", "STAMP_FLUX", "TILE_MODE", "LIBRARIES",
+           "KERNELS", "build_all"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
@@ -147,7 +147,13 @@ STAMP_FLUX = CudaLibrary("stamp_flux", {
     "stamp_flux_max_pixels": (_I, []),
 })
 
-LIBRARIES = (BAND_EXTRACT, PSF_WARM_FIT, MEDIAN15, SEGMENT_HIST, STAMP_FLUX)
+#: ops/csrc/tile_mode.cu — see ops.tilemode.tile_mode_cuda.
+TILE_MODE = CudaLibrary("tile_mode", {
+    "tile_mode": (_I, [_P] * 3 + [_I] * 5 + [_F] * 2 + [_P]),
+    "tile_mode_max_pixels": (_I, []),
+})
+
+LIBRARIES = (BAND_EXTRACT, PSF_WARM_FIT, MEDIAN15, SEGMENT_HIST, STAMP_FLUX, TILE_MODE)
 
 #: Every kernel with a launch count: the libraries' and the second instantiations.
 KERNELS = LIBRARIES + (BAND_EXTRACT_BF16,)

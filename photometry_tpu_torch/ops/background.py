@@ -12,7 +12,8 @@ filled from their neighbours, cubic B-spline zoomed back to pixels).
 The JAX package ``vmap``s one frame's program over the chunk; here every
 step is written for a (F, H, W) chunk at once, so a chunk is one batched
 program.  The ring modes' count tables come from the segment-histogram
-kernel on a card (``ops/seghist.py``).  The ``lax.scan`` forward and
+kernel on a card (``ops/seghist.py``), the tile modes from the tile-mode
+kernel (``ops/tilemode.py``).  The ``lax.scan`` forward and
 backward fill of empty rings becomes a ``cummax`` of valid indices and a
 gather.
 """
@@ -25,9 +26,12 @@ import numpy as np
 import torch
 
 from ..utils.mathutils import moving_median_central, nanmedian, nanmin
+from ..utils.profiling import count
+from ._kernels import TILE_MODE
 from .median15 import _symmetric_pad
 from .spline import eval_natural_spline, make_natural_spline
-from .stats import segment_kde_mode, sextractor_mode
+from .stats import segment_kde_mode
+from .tilemode import tile_mode
 from .zoom import spline_zoom
 
 __all__ = ["estimate_background", "radial_coordinates", "default_hist_stride",
@@ -148,21 +152,17 @@ def _fill_nan_tiles(grid: torch.Tensor, iters: int = 16) -> torch.Tensor:
     return torch.where(torch.isnan(grid), med, grid)
 
 
-def _tiled_mode(img, mask, tile: int, exclude_fraction: float):
+def _tiled_mode(img, mask, tile: int, exclude_fraction: float, plain: bool = False):
     """Per-tile sigma-clipped SExtractor mode of (F, H, W) frames, filtered
     and zoomed back to pixels.  Frames that do not divide into tiles are
-    padded with excluded NaN pixels, like photutils' Background2D."""
-    nf, H, W = img.shape
-    th, tw = -(-H // tile), -(-W // tile)
-    Hp, Wp = th * tile, tw * tile
-    if (Hp, Wp) != (H, W):
-        img = torch.nn.functional.pad(img, (0, Wp - W, 0, Hp - H), value=float("nan"))
-        mask = torch.nn.functional.pad(mask, (0, Wp - W, 0, Hp - H), value=True)
-    tiles = img.reshape(nf, th, tile, tw, tile).transpose(2, 3).reshape(nf, th, tw, tile * tile)
-    mtiles = mask.reshape(nf, th, tile, tw, tile).transpose(2, 3).reshape(nf, th, tw, tile * tile)
-    grid = sextractor_mode(tiles, mask=mtiles, min_fraction=1.0 - exclude_fraction)
+    padded with excluded NaN pixels, like photutils' Background2D.  The
+    modes come from the tile-mode kernel on a card (``ops/tilemode.py``),
+    from the plain version on the CPU or with ``plain``."""
+    H, W = img.shape[-2:]
+    grid = tile_mode(img, mask, tile, 1.0 - exclude_fraction, plain=plain)
     grid = _fill_nan_tiles(_nan_median3(grid))
-    return spline_zoom(grid, (Hp, Wp))[:, :H, :W]
+    th, tw = grid.shape[-2:]
+    return spline_zoom(grid, (th * tile, tw * tile))[:, :H, :W]
 
 
 # ---------------------------------------------------------------------------
@@ -212,11 +212,15 @@ def estimate_background(images: torch.Tensor, mask: Optional[torch.Tensor] = Non
         tile: tile size of the 2-D component (64 for real FFIs).
         hist_stride: subsampling of the ring-mode histograms; None takes
             :func:`default_hist_stride`.
-        plain: build the ring histograms with the plain version on any
-            device (for comparisons on the card).
+        plain: build the ring histograms and the tile modes with the plain
+            versions on any device (for comparisons on the card).
 
     Returns:
         (bkg, mask_used): the background, and the boolean exclusion mask applied.
+
+    The frames whose tile modes the kernel fitted add to the counter
+    ``background_kernel_frames`` (``utils.profiling``) once a call, read
+    from the kernel's launch count; a call on the plain path adds 0.
     """
     images = images.to(torch.float32)
     dev = images.device
@@ -248,12 +252,15 @@ def estimate_background(images: torch.Tensor, mask: Optional[torch.Tensor] = Non
         r = torch.from_numpy(r_host).to(dev)
         stride = default_hist_stride((H, W), dev) if hist_stride is None else hist_stride
     tile = min(tile, H, W)
+    launches = TILE_MODE.launches
     for _ in range(bkgiters if use_radial else 1):
         if use_radial:
             bkg_radial = _radial_component(images - bkg_square, base_mask, r, ring_idx,
                                            n_rings, bin_centers, radial_smooth,
                                            hist_stride=stride, plain=plain)
-        bkg_square = _tiled_mode(images - bkg_radial, base_mask, tile, exclude_fraction=0.5)
+        bkg_square = _tiled_mode(images - bkg_radial, base_mask, tile, exclude_fraction=0.5,
+                                 plain=plain)
+    count("background_kernel_frames", nf if TILE_MODE.launches > launches else 0)
     total = bkg_radial + bkg_square
     bkg = torch.where(base_mask.reshape(nf, -1).all(dim=-1)[:, None, None], torch.nan, total)
     if squeeze:
