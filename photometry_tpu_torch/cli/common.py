@@ -23,6 +23,17 @@ def add_device_arg(parser: argparse.ArgumentParser, what: str):
                         help=f"Torch device of {what} (default: cuda).")
 
 
+def add_cache_arg(parser: argparse.ArgumentParser):
+    parser.add_argument(
+        "--cache", default="device", choices=("device", "host"),
+        help="Where each FFI sector's cubes are kept (default: device).  'host' is for a "
+             "card that does not hold them: the cubes stay in host memory (13 bytes a "
+             "pixel a frame, 71.5 GB for a 2048x2048 CCD at T = 1,312), and every "
+             "extraction streams them through the card 128 frames at a time, which "
+             "needs ~14 GB of card memory instead of the cubes' size but copies the "
+             "whole cube over the host link once a lease.")
+
+
 def setup_logging(args) -> logging.Logger:
     level = logging.INFO
     if getattr(args, "quiet", False):

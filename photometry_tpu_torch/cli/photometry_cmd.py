@@ -8,7 +8,10 @@ halo; without it each task runs its own method (aperture with the automatic
 halo and linPSF switches by default).  ``--plot`` renders each target's
 diagnostic figures.  ``--mesh SPEC`` shards each FFI sector's cubes over
 a device mesh (``time=4,targets=2``, a bare count, or ``auto``: every card
-of ``--device``'s type; ``parallel/mesh.parse_mesh_spec``).  With
+of ``--device``'s type; ``parallel/mesh.parse_mesh_spec``).  ``--cache
+host`` keeps each FFI sector's cubes in host memory and streams them
+through the card on every extraction, for a card that does not hold them
+(``run_drain``'s ``cache``).  With
 ``PHOTOMETRY_TPU_TRACE_DIR`` set, the drain runs under
 ``utils.profiling.device_trace``: a Chrome trace of it, the program's
 spans among the kernels, is written there.
@@ -24,7 +27,8 @@ import logging
 import os
 import sys
 
-from .common import add_device_arg, add_logging_args, resolve_input_folder, setup_logging
+from .common import (add_cache_arg, add_device_arg, add_logging_args, resolve_input_folder,
+                     setup_logging)
 
 
 def main(argv=None) -> int:
@@ -51,6 +55,7 @@ def main(argv=None) -> int:
     parser.add_argument("--mesh", default=None, metavar="SPEC",
                         help="Shard FFI cubes over a device mesh, e.g. 'time=4,targets=2' or "
                              "'auto' (every device of --device's type on the time axis).")
+    add_cache_arg(parser)
     add_device_arg(parser, "the cubes and kernels")
     parser.add_argument("input_folder", nargs="?", default=None)
     args = parser.parse_args(argv)
@@ -81,6 +86,7 @@ def main(argv=None) -> int:
             all_tasks=args.all, random_task=args.random,
             batch_size=args.batch_size, method=args.method,
             constraints=constraints, plot=args.plot, device=args.device, mesh=mesh,
+            cache=args.cache,
             summary=os.path.join(output_folder, "summary.json") if args.all else None)
     return 0
 

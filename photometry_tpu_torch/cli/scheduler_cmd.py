@@ -4,7 +4,9 @@ task-pull scheduler, counterpart of run_tessphot_mpi.py).
 
 Port of ``photometry_tpu/cli/scheduler_cmd.py``: ``--device`` takes the
 place of the JAX-platform flag; ``--mesh SPEC`` makes each worker shard its
-FFI cubes over a device mesh of ``--device``'s type, built in the worker.
+FFI cubes over a device mesh of ``--device``'s type, built in the worker;
+``--cache host`` makes each worker keep them in host memory and stream
+them through the card on every lease.
 Exits 0 when the queue drained, 1 when tasks are left.
 
 Usage:
@@ -18,14 +20,18 @@ import argparse
 import json
 import sys
 
-from .common import add_device_arg, add_logging_args, resolve_input_folder, setup_logging
+from .common import (add_cache_arg, add_device_arg, add_logging_args, resolve_input_folder,
+                     setup_logging)
 
 _EPILOG = """\
 Each worker holds its own copy of a CCD's cubes on the card: 13 bytes a
 pixel (float32 images, errors and backgrounds, uint8 flags), so 27.9 GB a
 worker for a 2048x2048 CCD at T = 512 and 71.5 GB at T = 1,312 (a full
 1,800-s sector).  Two workers fit on an 80 GB card at T = 512; not one
-holds a full float32 sector.  A worker that runs out of card memory, or
+holds a full float32 sector.  With --cache host each worker keeps its cubes
+in host memory instead (the host then needs their size once a worker) and
+streams them through the card on every lease, in ~14 GB of card memory a
+worker.  A worker that runs out of card memory, or
 whose kernel fails, dies: its tasks go back to the queue, and once the
 respawns are spent the command exits 1.
 """
@@ -53,6 +59,7 @@ def main(argv=None) -> int:
     parser.add_argument("--mesh", default=None, metavar="SPEC",
                         help="Run each worker's FFI extraction over a device mesh, e.g. "
                              "'time=4,targets=2' or 'auto'.")
+    add_cache_arg(parser)
     add_device_arg(parser, "the workers' cubes and kernels")
     parser.add_argument("input_folder", nargs="?", default=None)
     args = parser.parse_args(argv)
@@ -63,7 +70,8 @@ def main(argv=None) -> int:
         host, port = args.connect.rsplit(":", 1)
         from ..parallel.scheduler import worker_remote
         worker_remote((host, int(port)), input_folder, output_folder=args.output,
-                      version=args.version, device=args.device, mesh_spec=args.mesh)
+                      version=args.version, device=args.device, mesh_spec=args.mesh,
+                      cache=args.cache)
         return 0
 
     listen = None
@@ -77,7 +85,7 @@ def main(argv=None) -> int:
     summary = run_distributed(
         input_folder, n_workers=args.workers, version=args.version,
         output_folder=args.output, batch_size=args.batch_size, device=args.device,
-        listen=listen, mesh_spec=args.mesh, **constraints)
+        listen=listen, mesh_spec=args.mesh, cache=args.cache, **constraints)
     print(json.dumps(summary))
     return 0 if summary.get("drained", True) else 1
 

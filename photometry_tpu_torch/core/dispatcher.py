@@ -73,12 +73,16 @@ class ContextCache:
     TPF batch does not evict the FFI context held (``get`` returns
     ``cached=False`` for them, so the caller's ``release`` closes them).
     ``mesh`` (a ``parallel.mesh.Mesh``) shards every FFI context's cubes
-    over it.
+    over it; ``cache`` ("device" or "host") is where every FFI context
+    keeps its cubes (``open_context``).
     """
 
-    def __init__(self, device="cuda", mesh=None):
+    def __init__(self, device="cuda", mesh=None, cache: str = "device"):
+        if cache not in ("device", "host"):
+            raise ValueError(f"cache={cache!r}: need 'device' or 'host'")
         self.device = device
         self.mesh = mesh
+        self.cache = cache
         self._key, self._ctx = None, None
 
     def get(self, input_folder: str, task: dict):
@@ -87,7 +91,8 @@ class ContextCache:
         key = (input_folder, int(task["sector"]), int(task["camera"]), int(task["ccd"]))
         if key != self._key:
             self.close()
-            self._ctx = open_context(input_folder, task, device=self.device, mesh=self.mesh)
+            self._ctx = open_context(input_folder, task, cache=self.cache, device=self.device,
+                                     mesh=self.mesh)
             self._key = key
         return self._ctx, True
 

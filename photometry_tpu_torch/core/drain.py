@@ -57,19 +57,29 @@ def new_timers() -> dict:
     extraction, inside ``psf``), ``context.read`` (a TPF
     read from its file) and ``context.upload`` (a context's planes copied
     to the device), ``save.compress`` (gzip in the product writer's
-    threads, summed over them).  Counters: ``n_done``, ``n_batches``, ``n_products``,
+    threads, summed over them); on a host context (``cache="host"``)
+    ``aperture.stream`` (each streamed extraction, inside ``aperture``,
+    up to its last chunk's copies and launch) and ``stamps.host`` (the PSF
+    and linPSF stamps gathered on the host and moved to the device).
+    Counters: ``n_done``, ``n_batches``, ``n_products``,
     ``fits_bytes`` (HDU data bytes decoded by ``io.fits.read_fits``),
     ``fits_table_bytes`` (those of them in numeric table columns),
     ``psf_instances`` (PSF fit instances, one target at one cadence, as
     handed to the fitter) and ``psf_fused_instances`` (those of them that
-    the fused kernel fitted).
+    the fused kernel fitted); on a host context ``stream_passes`` (streamed
+    extractions), ``stream_bytes`` (the host planes' bytes they copied to
+    the device), ``stream_staged_bytes`` (those of them that went through
+    the pinned staging buffers) and ``host_stamp_bytes`` (the stamps'
+    bytes moved to the device).
     """
     return {"lease": 0.0, "context": 0.0, "photometry": 0.0, "save": 0.0,
             "sqlite": 0.0, "wall": 0.0, "n_done": 0, "n_batches": 0, "n_products": 0,
             "aperture": 0.0, "halo": 0.0, "linpsf": 0.0, "psf": 0.0, "context.read": 0.0,
             "context.upload": 0.0, "save.compress": 0.0, "fits_bytes": 0,
             "fits_table_bytes": 0, "psf.setup": 0.0, "psf.gather": 0.0, "psf.fit": 0.0,
-            "psf.results": 0.0, "psf_instances": 0, "psf_fused_instances": 0}
+            "psf.results": 0.0, "psf_instances": 0, "psf_fused_instances": 0,
+            "aperture.stream": 0.0, "stamps.host": 0.0, "stream_passes": 0, "stream_bytes": 0,
+            "stream_staged_bytes": 0, "host_stamp_bytes": 0}
 
 
 def flush_halo(halo_queue: Optional[HaloSwitchQueue], force: bool = False) -> list:
@@ -119,7 +129,7 @@ def run_drain(input_folder: str, version: int,
               batch_size: int = 256, method: Optional[str] = None,
               constraints: Optional[dict] = None, plot: bool = False,
               summary: Optional[str] = None, timers: Optional[dict] = None,
-              device="cuda", mesh=None) -> int:
+              device="cuda", mesh=None, cache: str = "device") -> int:
     """Drain the TODO queue (or one task) through the batch dispatcher on ``device``.
 
     Arguments as the reference's ``run_drain``; ``method`` forces one of
@@ -128,14 +138,18 @@ def run_drain(input_folder: str, version: int,
     each OK/WARNING task's diagnostic figures into
     ``<output_folder>/plots/<starid>/``; ``mesh`` (a ``parallel.mesh.Mesh``
     of ``device``'s type) shards every FFI context's cubes over it and
-    extracts once per mesh block.  Returns the number of tasks processed.
+    extracts once per mesh block; ``cache="host"`` keeps every FFI
+    context's cubes in host memory, for a card that does not hold them:
+    each extraction streams them through ``device`` (``SectorContext``;
+    a mesh is then kept and not applied).  Returns the number of tasks
+    processed.
     """
     constraints = dict(constraints or {})
     output_folder = output_folder or input_folder
     recorder = StageTimer(timers if timers is not None else new_timers())
     with recorder.recording(), span("wall"), \
             TaskManager(input_folder, cleanup=all_tasks, summary=summary) as tm, \
-            ContextCache(device=device, mesh=mesh) as ctx_cache:
+            ContextCache(device=device, mesh=mesh, cache=cache) as ctx_cache:
         n_done = 0
         # Halo-switch candidates accumulate across lease batches and rerun
         # as one halo batch; single-task modes keep the inline switch:

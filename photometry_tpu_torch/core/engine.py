@@ -599,11 +599,13 @@ def _extract_flux_streamed(ctx, masks, r0s, c0s, h: int, w: int, chunk: int = 12
     those of ``band_extract_flux_batch``, on ``ctx.device``.  On a card
     each chunk's sums come from the band kernel on the device-resident
     chunk (``ops.bandext.band_sums_streamed``), so they equal the device
-    path's; on the CPU, from the plain version per chunk.
+    path's; on the CPU, from the plain version per chunk.  Timed in the
+    span ``aperture.stream``, up to the last chunk's copies and launch.
     """
     sums = functools.partial(band_sums_streamed, device=ctx.device, chunk=chunk)
-    return _extract(sums, ctx.images, ctx.images_err, ctx.backgrounds, ctx.pixelflags, masks,
-                    r0s, c0s, h, w, windows)
+    with span("aperture.stream"):
+        return _extract(sums, ctx.images, ctx.images_err, ctx.backgrounds, ctx.pixelflags,
+                        masks, r0s, c0s, h, w, windows)
 
 
 def _extract_flux_sharded(ctx, masks, r0s, c0s, h: int, w: int, windows):

@@ -28,7 +28,7 @@ from ..core.engine import TargetResult, _full_catalog_positions, _host, aperture
 from ..core.metrics import compute_metrics_batch
 from ..core.status import STATUS
 from ..ops.smallsolve import solve_spd_small
-from .psf_common import (CUTOFF_RADIUS, bucket_psf_groups, context_prf, gather_stamp_stack,
+from .psf_common import (CUTOFF_RADIUS, bucket_psf_groups, context_prf, context_stamps,
                          logical_stamp_mask, minimum_aperture_mask, setup_psf_target)
 
 logger = logging.getLogger(__name__)
@@ -108,8 +108,7 @@ def extract_linpsf_batch(ctx, starids, prf=None, keep_diag: bool = False, **_kw)
         for group in _chunks(full_group, T, bh, bw, S, prf):
             r0s = np.array([g[1] for g in group], np.int32)
             c0s = np.array([g[2] for g in group], np.int32)
-            imgs = gather_stamp_stack(ctx.images, r0s, c0s, bh, bw, dev)
-            bkgs = gather_stamp_stack(ctx.backgrounds, r0s, c0s, bh, bw, dev)
+            imgs, bkgs = context_stamps(ctx, r0s, c0s, bh, bw)
             logical = np.stack([logical_stamp_mask(st.stamp, r0, c0, bh, bw)
                                 for st, r0, c0 in group])
             imgs = torch.where(torch.as_tensor(logical, device=dev)[:, None], imgs, torch.nan)

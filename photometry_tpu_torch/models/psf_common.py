@@ -20,11 +20,12 @@ from ..core.engine import default_stamp_size
 from ..io.settings import data_dir, load_settings
 from ..parallel.mesh import ShardedCube, map_time
 from ..utils.mathutils import mag2flux
+from ..utils.profiling import count, span
 from .prf import PRF
 
 __all__ = ["MAX_FIT_STARS", "CUTOFF_RADIUS", "DUMMY_POS", "PSF_BUCKET_LADDER",
            "PsfTargetSetup", "context_prf", "setup_psf_target", "bucket_psf_groups",
-           "gather_stamp_stack", "logical_stamp_mask", "minimum_aperture_mask"]
+           "gather_stamp_stack", "context_stamps", "logical_stamp_mask", "minimum_aperture_mask"]
 
 MAX_FIT_STARS = 5
 FIT_RADIUS = 5.0
@@ -177,6 +178,23 @@ def gather_stamp_stack(cube: torch.Tensor, r0s, c0s, bh: int, bw: int,
     cols = torch.as_tensor(np.asarray(c0s, np.int64), device=dev)[:, None] + torch.arange(bw, device=dev)
     out = cube[:, rows[:, :, None], cols[:, None, :]]                  # (T, N, bh, bw)
     return out.transpose(0, 1).to(dev if device is None else device, torch.float32)
+
+
+def context_stamps(ctx, r0s, c0s, bh: int, bw: int) -> tuple:
+    """(images, backgrounds) stamps of ``ctx``'s cubes, each (N, T, bh, bw)
+    float32 on ``ctx.device`` (:func:`gather_stamp_stack`).  A host
+    context's (``cache="host"``) are gathered on the host in the span
+    ``stamps.host``, and the bytes moved to the device are counted in
+    ``host_stamp_bytes`` (``utils.profiling``)."""
+    def both():
+        return tuple(gather_stamp_stack(c, r0s, c0s, bh, bw, ctx.device)
+                     for c in (ctx.images, ctx.backgrounds))
+    if ctx.cache != "host":
+        return both()
+    with span("stamps.host"):
+        out = both()
+        count("host_stamp_bytes", sum(x.numel() * x.element_size() for x in out))
+    return out
 
 
 def logical_stamp_mask(stamp, r0: int, c0: int, bh: int, bw: int) -> np.ndarray:

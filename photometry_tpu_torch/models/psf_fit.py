@@ -39,7 +39,7 @@ from ..core.metrics import compute_metrics_batch
 from ..core.status import STATUS
 from ..ops.smallsolve import solve_spd_small, spd_inverse_diag_small
 from ..utils.profiling import count, span
-from .psf_common import (CUTOFF_RADIUS, bucket_psf_groups, context_prf, gather_stamp_stack,
+from .psf_common import (CUTOFF_RADIUS, bucket_psf_groups, context_prf, context_stamps,
                          logical_stamp_mask, minimum_aperture_mask, setup_psf_target)
 from .psf_fused import fused_ok, fused_warm_fit
 
@@ -351,8 +351,7 @@ def extract_psf_batch(ctx, starids, lhood_stat: str = "Gaussian_d", prf=None,
                 target_idx = np.array([st.target_idx for st, _, _ in group], np.int64)
 
             with span("psf.gather"):
-                imgs = gather_stamp_stack(ctx.images, r0s, c0s, bh, bw, dev)
-                bkgs = gather_stamp_stack(ctx.backgrounds, r0s, c0s, bh, bw, dev)
+                imgs, bkgs = context_stamps(ctx, r0s, c0s, bh, bw)
                 imgs = torch.where(torch.as_tensor(logical, device=dev)[:, None], imgs,
                                    torch.nan)
                 mini_d = torch.as_tensor(mini, device=dev)

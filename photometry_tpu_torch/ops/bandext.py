@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..quality import PixelQualityFlags
+from ..utils.profiling import count
 from ._kernels import BAND_EXTRACT, BAND_EXTRACT_BF16, KernelError
 
 __all__ = ["NQ", "band_extract_flux_batch", "band_sums", "band_sums_plain",
@@ -206,7 +207,9 @@ def _band_sums_streamed_cuda(planes, masks, r0s, c0s, windows, dev, chunk: int):
     once a call; each chunk's launch writes its sums into a (N, NQ, chunk)
     part that is copied into its columns of the output on the card (the
     kernel is unchanged: its sums for a cadence do not depend on T, so they
-    equal the device path's bit for bit).
+    equal the device path's bit for bit).  Returns once the last chunk's
+    copies and launch have finished (the caller reads the sums right
+    after), so that a span around the call holds the whole transfer.
     """
     T, H, W = planes[0].shape
     N = masks.shape[0]
@@ -248,6 +251,9 @@ def _band_sums_streamed_cuda(planes, masks, r0s, c0s, windows, dev, chunk: int):
         _launch([b[:n] for b in bufs[k]], targets, part)
         out[:, :, t0:t0 + n] = part
         used[k].record(main)
+    main.synchronize()              # the last launch waited on the last chunk's copies
+    if not pinned:
+        count("stream_staged_bytes", sum(p.numel() * p.element_size() for p in planes))
     return _finish(out, order, outside)
 
 
@@ -256,7 +262,9 @@ def band_sums_streamed(images, images_err, backgrounds, pixelflags, masks, r0s, 
     """The 10 sums (N, NQ, T) of host-resident (T, H, W) planes, ``chunk``
     frames at a time on ``device`` (where the masks, corners and windows
     are, and the output goes): the kernel on each device-resident chunk on
-    a card, the plain version per chunk on the CPU."""
+    a card, the plain version per chunk on the CPU.  Counts one
+    ``stream_passes`` and the planes' bytes in ``stream_bytes``
+    (``utils.profiling``)."""
     planes = (images, images_err, backgrounds, pixelflags)
     _check_planes(planes, "band_sums_streamed (host planes)", "cpu")
     dev = torch.device(device)
@@ -264,6 +272,8 @@ def band_sums_streamed(images, images_err, backgrounds, pixelflags, masks, r0s, 
         dev = torch.device("cuda", torch.cuda.current_device())
     if chunk < 1:
         raise ValueError(f"chunk={chunk}: need at least one frame")
+    count("stream_passes")
+    count("stream_bytes", sum(p.numel() * p.element_size() for p in planes))
     if dev.type == "cuda":
         _check_targets(masks, windows, r0s, c0s, dev)
         return _band_sums_streamed_cuda(planes, masks, r0s, c0s, windows, dev, chunk)

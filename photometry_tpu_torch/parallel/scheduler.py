@@ -23,6 +23,10 @@ On a CUDA card:
   takes 27.9 GB a worker at T = 512 and 71.5 GB at T = 1,312 (a full
   1,800-s sector): two workers fit on an 80 GB card at T = 512, and not one
   holds a full float32 sector with ``cache="device"``, as for ``run_drain``.
+  With ``cache="host"`` each worker keeps its copy in host memory instead
+  and streams it through the card on every lease (``run_drain``'s
+  ``cache``): two 128-frame buffers of the four planes, ~14 GB at
+  2048x2048, on the card a worker.
 - What says the port or the card cannot do the work (the dispatcher's
   ``_PROPAGATE``: ``NotImplementedError``, a kernel's ``KernelError``,
   ``torch.OutOfMemoryError``) is never a task's ERROR: the worker lets it
@@ -78,10 +82,10 @@ def _check_mesh_spec(mesh_spec):
 
 
 def worker_loop(conn, input_folder: str, output_folder: Optional[str], version: int,
-                device="cuda", mesh_spec: Optional[str] = None):
+                device="cuda", mesh_spec: Optional[str] = None, cache: str = "device"):
     """Worker process: READY -> START batch -> ``core.drain.drain_lease`` on
     ``device`` (FFI cubes sharded over the mesh of ``mesh_spec``, built
-    here) -> DONE ... EXIT -> BYE."""
+    here, or kept on the host with ``cache="host"``) -> DONE ... EXIT -> BYE."""
     from ..core.dispatcher import _PROPAGATE, ContextCache, HaloSwitchQueue, _error_result
     from ..core.drain import drain_lease, flush_halo, task_to_result
 
@@ -89,7 +93,7 @@ def worker_loop(conn, input_folder: str, output_folder: Optional[str], version: 
     if mesh_spec:
         from .mesh import parse_mesh_spec
         mesh = parse_mesh_spec(mesh_spec, device=device)
-    ctx_cache = ContextCache(device=device, mesh=mesh)
+    ctx_cache = ContextCache(device=device, mesh=mesh, cache=cache)
     halo_queue = HaloSwitchQueue()
 
     tic_wait = default_timer()
@@ -140,7 +144,7 @@ def worker_loop(conn, input_folder: str, output_folder: Optional[str], version: 
 
 def worker_remote(address, input_folder: str, output_folder: Optional[str] = None,
                   version: int = 1, device="cuda", connect_timeout: float = 60.0,
-                  mesh_spec: Optional[str] = None):
+                  mesh_spec: Optional[str] = None, cache: str = "device"):
     """Join a master listening at ``address`` = (host, port) over TCP, retrying
     until its listener is up, then run :func:`worker_loop`.  Paths are this
     host's own view of the shared file system."""
@@ -156,14 +160,14 @@ def worker_remote(address, input_folder: str, output_folder: Optional[str] = Non
             if default_timer() > deadline:
                 raise
             time.sleep(0.25)
-    worker_loop(conn, input_folder, output_folder, version, device, mesh_spec)
+    worker_loop(conn, input_folder, output_folder, version, device, mesh_spec, cache)
 
 
 def run_distributed(input_folder: str, n_workers: int = 2, version: int = 1,
                     output_folder: Optional[str] = None, batch_size: int = 256,
                     device="cuda", summary: Optional[str] = None, listen=None,
                     max_respawns: int = 3, mesh_spec: Optional[str] = None,
-                    **constraints) -> dict:
+                    cache: str = "device", **constraints) -> dict:
     """Master loop: lease batches to workers until the queue drains.
 
     ``n_workers`` processes are spawned, each running photometry on
@@ -173,9 +177,12 @@ def run_distributed(input_folder: str, n_workers: int = 2, version: int = 1,
     replaced, up to ``max_respawns`` times.  Returns the summary dict, with
     ``respawns`` and ``drained`` (False when tasks are left: every worker
     lost and the respawns spent).  ``mesh_spec`` goes to each spawned
-    worker, which builds its mesh itself.
+    worker, which builds its mesh itself, and ``cache`` ("device" or
+    "host", as ``run_drain``'s) to each spawned worker's contexts.
     """
     _check_mesh_spec(mesh_spec)
+    if cache not in ("device", "host"):
+        raise ValueError(f"cache={cache!r}: need 'device' or 'host'")
     from ..core.status import STATUS
     from ..taskmanager import TaskManager
 
@@ -186,7 +193,7 @@ def run_distributed(input_folder: str, n_workers: int = 2, version: int = 1,
     def _spawn_local():
         parent_conn, child_conn = mp.Pipe()
         proc = mp.Process(target=worker_loop, args=(child_conn, input_folder, output_folder,
-                                                    version, device, mesh_spec))
+                                                    version, device, mesh_spec, cache))
         proc.start()
         child_conn.close()
         return {"proc": proc, "conn": parent_conn, "alive": True, "leased": set()}

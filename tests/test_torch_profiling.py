@@ -6,8 +6,8 @@
 - A span kept on an event list encloses the ``torch.profiler`` event of a
   torch op run inside it: both are on ``time.time_ns()``'s clock.
 - ``run_drain`` on a small simulated sector (halo and linPSF switches, a
-  TPF) reports every key of ``new_timers`` and the spans of each method
-  sum to at most ``photometry``; with ``method="psf"`` the four steps of
+  TPF) reports every key of ``new_timers`` (those of a host context at 0)
+  and the spans of each method sum to at most ``photometry``; with ``method="psf"`` the four steps of
   the PSF extraction sum to at most ``psf``, and ``psf_instances`` is the
   instances the fitter was handed.
 - ``prepare_cube`` counts the HDU data bytes of every FFI read in stages 1
@@ -42,6 +42,8 @@ NEW_KEYS = {"aperture", "halo", "linpsf", "psf", "context.read", "context.upload
             "save.compress", "fits_bytes", "fits_table_bytes"}
 PSF_KEYS = {"psf.setup", "psf.gather", "psf.fit", "psf.results", "psf_instances",
             "psf_fused_instances"}
+HOST_KEYS = {"aperture.stream", "stamps.host", "stream_passes", "stream_bytes",
+             "stream_staged_bytes", "host_stamp_bytes"}
 
 
 def test_span_and_count_add_into_the_open_recorders_only():
@@ -148,11 +150,13 @@ def test_run_drain_reports_every_span_and_counter(sector, monkeypatch):
     monkeypatch.setattr(dispatcher, "default_time_corrector",
                         lambda: TimeCorrector(SpacecraftEphemeris.synthetic(t0 - 5, t0 + 10)))
     timers = new_timers()
-    assert set(timers) == OLD_KEYS | NEW_KEYS | PSF_KEYS
+    assert set(timers) == OLD_KEYS | NEW_KEYS | PSF_KEYS | HOST_KEYS
     n_done = run_drain(d, 1, batch_size=8, device="cpu", timers=timers)
-    assert set(timers) == OLD_KEYS | NEW_KEYS | PSF_KEYS and timers["n_done"] == n_done > 0
+    assert set(timers) == OLD_KEYS | NEW_KEYS | PSF_KEYS | HOST_KEYS
+    assert timers["n_done"] == n_done > 0
     assert all(timers[k] > 0 for k in OLD_KEYS | NEW_KEYS - {"psf"}), timers
     assert timers["psf"] == 0 and not any(timers[k] for k in PSF_KEYS)
+    assert not any(timers[k] for k in HOST_KEYS)        # the cubes are the device's
     methods = sum(timers[k] for k in ("aperture", "halo", "linpsf", "psf"))
     assert methods <= timers["photometry"]
     assert timers["context.read"] + timers["context.upload"] <= timers["context"]
